@@ -1,14 +1,17 @@
 """imageprocessingtools_tpu_torch — the PyTorch + CUDA port for NVIDIA Hopper.
 
 Counterpart of ``imageprocessingtools_tpu`` (the JAX package, which stays the
-reference). This first slice carries the reference CLI pipeline and the
-flagship fused pipeline:
+reference). It carries the reference CLI pipeline, the flagship fused
+pipeline, the presets and batched serving:
 
-  codec/     host PPM-family codec (numpy)            (ref: ppmx-edward.c:221-456)
+  codec/     host PPM-family codec (numpy) and the native C++ batch codec
+                                                       (ref: ppmx-edward.c:221-456)
   ops/       torch ops on HWC uint8 tensors            (ref: ppmx-edward.c:477-1003)
   kernels/   hand-written CUDA kernels (csrc/*.cu) and their plain torch versions
+  models/    named preset pipelines
   pipeline   fixed-order op pipeline                   (ref: ppmx-edward.c:1053-1172)
   cli        flag-compatible command line              (ref: ppmx-edward.c:117-205)
+  serving    batched files -> decode -> device -> encode, and its CLI ``serve``
 
 The device comes from ``IPT_DEVICE`` (``cuda`` by default, or ``cpu``). The
 kernels build with nvcc at first use; importing the package builds nothing.
@@ -31,17 +34,27 @@ from imageprocessingtools_tpu_torch.codec.ppm import (  # noqa: F401
 from imageprocessingtools_tpu_torch.kernels.fused import (  # noqa: F401
     fused_pipeline,
     fused_pipeline_mega,
+    fused_pipeline_staged,
 )
 from imageprocessingtools_tpu_torch.ops import (  # noqa: F401
     apply_lut,
+    box_blur,
+    brightness,
+    contrast,
+    equalize_histogram,
     flip_horizontal,
     flip_vertical,
     gaussian_blur,
     grayscale,
     histogram,
+    invert,
     mono_dither,
+    pack_bits_device,
     resize_width,
     rotate,
     rotate_exact,
+    sharpen,
+    sobel,
+    threshold,
 )
 from imageprocessingtools_tpu_torch.pipeline import PipelineConfig, run_pipeline  # noqa: F401

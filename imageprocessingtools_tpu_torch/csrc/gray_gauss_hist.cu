@@ -11,8 +11,9 @@
 //   a 2-pixel halo with clamped coordinates (replicate edges), and keeps the
 //   gray values (r+g+b)/3 in shared memory;
 // - the separable 1-4-6-4-1 runs in int32 out of shared memory (vertical,
-//   then horizontal), then (acc+128)>>8 to uint8 — integer-exact, so the
-//   result is the same bytes as ops/stencil.py::gaussian_blur;
+//   then horizontal; gauss5.cuh, shared with K5), then (acc+128)>>8 to
+//   uint8 — integer-exact, so the result is the same bytes as
+//   ops/stencil.py::gaussian_blur;
 // - a block-private int[256] histogram in shared memory counts the tile's
 //   blurred bytes with shared atomics and is flushed with one global
 //   atomicAdd per non-empty bin into an int32[256] the wrapper zeroes.
@@ -28,58 +29,44 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "gauss5.cuh"
+
 namespace {
 
-constexpr int TILE_H = 32;
-constexpr int TILE_W = 128;
-constexpr int RADIUS = 2;
-constexpr int HALO_H = TILE_H + 2 * RADIUS;
-constexpr int HALO_W = TILE_W + 2 * RADIUS;
+using ipt::GAUSS_HALO_H;
+using ipt::GAUSS_HALO_W;
+using ipt::GAUSS_RADIUS;
+using ipt::GAUSS_TILE_H;
+using ipt::GAUSS_TILE_W;
+
 constexpr int THREADS = 256;
 
 __global__ void __launch_bounds__(THREADS)
 gray_gauss_hist_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ out,
                        int* __restrict__ hist, int H, int W) {
-    __shared__ int gray[HALO_H][HALO_W];
-    __shared__ int vsum[TILE_H][HALO_W];
+    __shared__ int gray[GAUSS_HALO_H][GAUSS_HALO_W];
+    __shared__ int vsum[GAUSS_TILE_H][GAUSS_HALO_W];
     __shared__ int shist[256];
 
     const int tid = threadIdx.x;
-    const int x0 = blockIdx.x * TILE_W;
-    const int y0 = blockIdx.y * TILE_H;
+    const int x0 = blockIdx.x * GAUSS_TILE_W;
+    const int y0 = blockIdx.y * GAUSS_TILE_H;
     for (int b = tid; b < 256; b += THREADS) shist[b] = 0;
 
-    for (int k = tid; k < HALO_H * HALO_W; k += THREADS) {
-        const int r = k / HALO_W;
-        const int c = k - r * HALO_W;
-        const int gy = min(max(y0 + r - RADIUS, 0), H - 1);
-        const int gx = min(max(x0 + c - RADIUS, 0), W - 1);
+    for (int k = tid; k < GAUSS_HALO_H * GAUSS_HALO_W; k += THREADS) {
+        const int r = k / GAUSS_HALO_W;
+        const int c = k - r * GAUSS_HALO_W;
+        const int gy = min(max(y0 + r - GAUSS_RADIUS, 0), H - 1);
+        const int gx = min(max(x0 + c - GAUSS_RADIUS, 0), W - 1);
         const uint8_t* p = rgb + (static_cast<size_t>(gy) * W + gx) * 3;
         gray[r][c] = (static_cast<int>(__ldg(p)) + __ldg(p + 1) + __ldg(p + 2)) / 3;
     }
     __syncthreads();
 
-    for (int k = tid; k < TILE_H * HALO_W; k += THREADS) {
-        const int r = k / HALO_W;
-        const int c = k - r * HALO_W;
-        vsum[r][c] = gray[r][c] + 4 * gray[r + 1][c] + 6 * gray[r + 2][c] +
-                     4 * gray[r + 3][c] + gray[r + 4][c];
-    }
-    __syncthreads();
-
-    for (int k = tid; k < TILE_H * TILE_W; k += THREADS) {
-        const int r = k / TILE_W;
-        const int c = k - r * TILE_W;
-        const int y = y0 + r;
-        const int x = x0 + c;
-        if (y < H && x < W) {
-            const int* v = &vsum[r][c];
-            const int acc = v[0] + 4 * v[1] + 6 * v[2] + 4 * v[3] + v[4];
-            const int val = (acc + 128) >> 8;
-            out[static_cast<size_t>(y) * W + x] = static_cast<uint8_t>(val);
-            atomicAdd(&shist[val], 1);
-        }
-    }
+    ipt::gauss5_tile<THREADS>(gray, vsum, y0, x0, H, W, [&](int y, int x, int val) {
+        out[static_cast<size_t>(y) * W + x] = static_cast<uint8_t>(val);
+        atomicAdd(&shist[val], 1);
+    });
     __syncthreads();
 
     for (int b = tid; b < 256; b += THREADS) {
@@ -93,7 +80,7 @@ extern "C" int ipt_gray_gauss_hist(const void* rgb, void* out, void* hist, int H
                                    int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H);
+    const dim3 grid((W + GAUSS_TILE_W - 1) / GAUSS_TILE_W, (H + GAUSS_TILE_H - 1) / GAUSS_TILE_H);
     gray_gauss_hist_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(rgb), static_cast<uint8_t*>(out),
         static_cast<int*>(hist), H, W);

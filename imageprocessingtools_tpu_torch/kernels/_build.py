@@ -2,11 +2,12 @@
 
 Counterpart of the g++ + ctypes loader in
 ``imageprocessingtools_tpu/codec/native.py``. Every ``csrc/*.cu`` file is
-compiled for Hopper (``sm_90a``) into one shared library with a plain C
-interface, named by the sha256 of the sources, under
-``build/imageprocessingtools_tpu_torch/`` at the root of the checkout. The
-library is loaded with ``ctypes``; no PyTorch header is compiled, which keeps
-the build to seconds.
+compiled for Hopper (``sm_90a``) by its own nvcc process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, named by the sha256 of the sources and the headers they include
+(``csrc/*.cuh``), under ``build/imageprocessingtools_tpu_torch/`` at the
+root of the checkout. The library is loaded with ``ctypes``; no PyTorch
+header is compiled, which keeps the build to seconds.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -25,7 +27,7 @@ BUILD_DIR = _PKG.parent / "build" / "imageprocessingtools_tpu_torch"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -37,6 +39,13 @@ _SIGNATURES = {
     "ipt_gray_gauss_hist": [_P, _P, _P, _I, _I, _I, _P],
     # values, out, lut, n, device, stream
     "ipt_lut_apply": [_P, _P, _P, ctypes.c_longlong, _I, _P],
+    # values, hist, n, device, stream
+    "ipt_histogram": [_P, _P, ctypes.c_longlong, _I, _P],
+    # src, out, H, W, device, stream
+    "ipt_gaussian_blur": [_P, _P, _I, _I, _I, _P],
+    "ipt_box_blur": [_P, _P, _I, _I, _I, _P],
+    "ipt_sharpen": [_P, _P, _I, _I, _I, _P],
+    "ipt_sobel": [_P, _P, _I, _I, _I, _P],
 }
 
 
@@ -46,7 +55,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -67,15 +76,31 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [out.parent / f"{src.stem}-{tag}.o" for src in sources()]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objs)]
+    try:
+        with ThreadPoolExecutor(len(jobs)) as pool:  # one nvcc per source, together
+            _run_all(list(pool.map(_run, jobs)))
+        _run_all([_run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])])
+        os.replace(tmp, out)
+    finally:
+        for obj in [*objs, tmp]:
+            obj.unlink(missing_ok=True)
     return out
+
+
+def _run(cmd: list[str]) -> tuple:
+    return cmd, subprocess.run(cmd, capture_output=True, text=True)
+
+
+def _run_all(results: list[tuple]) -> None:
+    errors = [f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+              for cmd, proc in results if proc.returncode != 0]
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
 @functools.cache

@@ -1,12 +1,21 @@
-"""Tensor ops of the port's slice (counterpart of ``imageprocessingtools_tpu/ops``).
+"""Tensor ops of the port (counterpart of ``imageprocessingtools_tpu/ops``).
 
 Reference-parity ops, all bit-exact except resize (fp32, see
 ``common.float_stage_budget``): grayscale, mono_dither, flip_vertical,
-flip_horizontal, rotate (any angle), resize_width. Flagship stages:
-gaussian_blur, histogram, apply_lut.
+flip_horizontal, rotate (any angle), resize_width.
+
+Extension ops, all bit-exact: invert, brightness, contrast, threshold,
+box_blur, sharpen, gaussian_blur, sobel, histogram, equalize_histogram,
+apply_lut, pack_bits_device.
 """
 
-from imageprocessingtools_tpu_torch.ops.color import grayscale  # noqa: F401
+from imageprocessingtools_tpu_torch.ops.color import (  # noqa: F401
+    brightness,
+    contrast,
+    grayscale,
+    invert,
+    threshold,
+)
 from imageprocessingtools_tpu_torch.ops.dither import mono_dither  # noqa: F401
 from imageprocessingtools_tpu_torch.ops.geometry import (  # noqa: F401
     flip_horizontal,
@@ -17,6 +26,16 @@ from imageprocessingtools_tpu_torch.ops.geometry import (  # noqa: F401
     rotate270,
     rotate_exact,
 )
-from imageprocessingtools_tpu_torch.ops.histogram import apply_lut, histogram  # noqa: F401
+from imageprocessingtools_tpu_torch.ops.histogram import (  # noqa: F401
+    apply_lut,
+    equalize_histogram,
+    histogram,
+)
+from imageprocessingtools_tpu_torch.ops.packing import pack_bits_device  # noqa: F401
 from imageprocessingtools_tpu_torch.ops.resize import resize_width  # noqa: F401
-from imageprocessingtools_tpu_torch.ops.stencil import gaussian_blur  # noqa: F401
+from imageprocessingtools_tpu_torch.ops.stencil import (  # noqa: F401
+    box_blur,
+    gaussian_blur,
+    sharpen,
+    sobel,
+)

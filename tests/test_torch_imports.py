@@ -113,3 +113,7 @@ def test_wrappers_refuse_other_devices():
         core.gray_gauss_hist(meta)
     with pytest.raises(TypeError, match="unsupported device"):
         core.lut_apply(meta, meta)
+    for wrapper in (core.histogram, core.gaussian_blur, core.box_blur, core.sharpen,
+                    core.sobel):
+        with pytest.raises(TypeError, match="unsupported device"):
+            wrapper(meta[:, :, 0])
