@@ -14,12 +14,14 @@ per phase:
 3. each kernel against its plain torch version on the same CUDA tensors at
    the main paths' shapes and at odd ones (byte-equal required), with each
    one's ms per call at 4K (CUDA events around 20 back-to-back calls, median
-   of 5 such runs);
+   of 5 such runs), its least time on the card from the bytes and operations
+   of that 4K call, and the time of the one PyTorch call that computes the
+   same function, where there is one;
 4. the CLI (``imageprocessingtools_tpu_torch.cli.main``) over four 4K P6
    files, with a cross-check of a smaller file against the same CLI run on
    the CPU in a subprocess (``IPT_DEVICE=cpu``);
 5. the flagship fused pipeline at 4K through K2 and K3, and its staged form
-   through K5, K4 and K3, each byte-equal to the plain torch pipeline;
+   through K8, K5, K4 and K3, each byte-equal to the plain torch pipeline;
 6. preset serving (``imageprocessingtools_tpu_torch.serve.main``): the four
    presets fanned out over eight 4K and two 1080p P6 files and one truncated
    file (``--skip-bad``), every output byte-equal to the presets' plain
@@ -30,8 +32,9 @@ per phase:
 Every kernel's launch count is set to 0 just before each of phases 4, 5 and
 6 and read just after it; a kernel that a phase's path uses and that was not
 launched there is a failure. The line before the last is a JSON object with
-each kernel's launches (summed over the three paths), error and times; the
-last line is ``{"ok": true, "device": {...}}``. Any failure raises, and the
+each kernel's launches (summed over the three paths), error, times, least
+time and the PyTorch call's time; the last line is
+``{"ok": true, "device": {...}}``. Any failure raises, and the
 script then exits non-zero without printing either line.
 """
 
@@ -62,12 +65,34 @@ KERNELS = {
     "lut_apply": ("lut_apply.cu", f"{PALLAS}:464"),
     "histogram": ("histogram.cu", f"{PALLAS}:392"),
     "gaussian_blur": ("stencil.cu", f"{PALLAS}:120"),
+    "gray_gauss": ("gray_gauss_hist.cu", f"{PALLAS}:547"),
     "stencil3": ("stencil.cu", f"{PALLAS}:161"),
+    "fused_elementwise": ("elementwise.cu", f"{PALLAS}:228"),
 }
 # K7's instances: the template's three wrappers. Box is on no path (no preset
-# uses it); phase 3 holds it to its plain version.
+# uses it), nor is K8 with a non-empty chain (the paths run it with the
+# empty chain, as grayscale); phase 3 holds both to their plain versions.
 STENCIL3 = ("box_blur", "sharpen", "sobel")
-OFF_PATH = ("box_blur",)
+OFF_PATH = ("box_blur", "fused_elementwise with a non-empty chain")
+# K8's chains in phase 3: every single op, contrast at four factors, and the
+# full chain.
+FULL_CHAIN = (("invert", 0), ("brightness", 30), ("contrast", 1.5), ("threshold", 128))
+CHAINS = [(), (("invert", 0),), (("brightness", 30),), (("brightness", -40),),
+          (("threshold", 128),), FULL_CHAIN] + [(("contrast", f),) for f in (0.5, 1.37, 1.5, 2.0)]
+# The card's peak rates (NVIDIA's H100 SXM data sheet, at 700 W), per ms:
+# HBM3 bytes; float32 operations outside the tensor cores, which also bound
+# the integer kernels (their values are integers below 2^24, exact in f32);
+# float64 operations outside the tensor cores, which bound K1.
+HBM_BYTES_PER_MS = 3.35e9
+F32_OPS_PER_MS = 67e9
+F64_OPS_PER_MS = 34e9
+# Operations per output pixel, counted from each kernel's source (an
+# integer division by 3 counts as one): gray 3 (two adds, one divide);
+# the 5x5 binomial 20 (five multiplies and four adds per pass, two passes,
+# and the rounding add and shift); Sobel 34 (11 per gradient, three for m,
+# and the root, its rounding and two integer corrections); a histogram 1
+# per value. K1 below counts its own.
+GRAY_OPS, GAUSS_OPS, SOBEL_OPS = 3, 20, 34
 PRESETS = "edge_detect,enhance,print_ready,thumbnail"
 
 
@@ -96,6 +121,32 @@ def median_ms(torch, fn, repeats: int = 5) -> float:
         end.synchronize()
         samples.append(start.elapsed_time(end) / REPS)
     return statistics.median(samples)
+
+
+def bound(nbytes: float, ops: float, ops_per_ms: float = F32_OPS_PER_MS):
+    """(least ms on the card, "bytes" or "operations"): the larger of the
+    bytes over HBM's rate and the operations over the peak rate."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_MS, ops / ops_per_ms
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def rotate_cost(torch, rotate, src, angle: float) -> tuple[int, float]:
+    """(bytes, f64 operations) of K1 on ``src``: the input read once and the
+    output written once; 12 operations per output pixel (the inverse map
+    and its rounding), and for each interior pixel 84 more (tap origins and
+    offsets, eight Keys weights) and 40 per channel (16 products and sums,
+    then four), counted from rotate.cu. The zones are counted with K1's own
+    geometry on the card."""
+    h, w, c = src.shape
+    new_h, new_w, cos_t, sin_t, xc, yc, xoff, yoff = rotate._geometry(h, w, angle)
+    f64 = torch.float64
+    xs = (torch.arange(new_w, dtype=f64, device=src.device) - xoff) - xc
+    ys = (torch.arange(new_h, dtype=f64, device=src.device) - yoff) - yc
+    rx = torch.floor((cos_t * xs)[None, :] + (sin_t * ys)[:, None] + xc + 0.5)
+    ry = torch.floor((-sin_t * xs)[None, :] + (cos_t * ys)[:, None] + yc + 0.5)
+    interior = int(((rx > 1) & (ry > 1) & (rx < max(w - 2, 0)) & (ry < max(h - 2, 0))).sum())
+    ops = 12.0 * new_h * new_w + interior * (84.0 + 40.0 * c)
+    return src.numel() + new_h * new_w * c, ops
 
 
 def max_abs_err(torch, a, b) -> int:
@@ -136,8 +187,9 @@ def main() -> int:
     wrappers = {
         "rotate": rotate.rotate_bicubic, "gray_gauss_hist": core.gray_gauss_hist,
         "lut_apply": core.lut_apply, "histogram": core.histogram,
-        "gaussian_blur": core.gaussian_blur, "box_blur": core.box_blur,
-        "sharpen": core.sharpen, "sobel": core.sobel,
+        "gaussian_blur": core.gaussian_blur, "gray_gauss": core.gray_gauss,
+        "box_blur": core.box_blur, "sharpen": core.sharpen, "sobel": core.sobel,
+        "fused_elementwise": core.fused_elementwise,
     }
     plains = {
         "histogram": core.histogram_plain, "gaussian_blur": core.gaussian_blur_plain,
@@ -197,7 +249,23 @@ def main() -> int:
     lut = _equalize_lut(hist, H4K * W4K)
     check("lut_apply", core.lut_apply(blurred, lut), core.lut_apply_plain(blurred, lut), "4K")
 
-    gray4k = grayscale(img4k)
+    # K6 and K8 at 4K, at the H < 8 shapes of the JAX package's fallback and
+    # at an odd width; K8 for every chain, also on a view of an image that
+    # holds all 256 gray values (its first 256 pixels are r = g = b = 0..255).
+    rgb_inputs = [img4k] + [torch.from_numpy(image(s + (3,), seed=70 + i)).to(dev)
+                            for i, s in enumerate([(5, W4K), (1, 1), (7, 53), (37, 101)])]
+    for src in rgb_inputs:
+        check("gray_gauss", core.gray_gauss(src), core.gray_gauss_plain(src), f"{tuple(src.shape)}")
+    grays4k = img4k.clone()
+    grays4k.view(-1, 3)[:256] = torch.arange(256, dtype=torch.uint8, device=dev)[:, None]
+    view4k = torch.cat([grays4k, grays4k.flip(1)], dim=1)[:, ::2]  # not contiguous
+    check("fused_elementwise", grayscale(view4k), core.grayscale_plain(view4k), "grayscale view")
+    for chain in CHAINS:
+        for src in [grays4k] + rgb_inputs[1:] + [view4k]:
+            check("fused_elementwise", core.fused_elementwise(src.contiguous(), chain),
+                  core.fused_elementwise_plain(src, chain), f"{tuple(src.shape)} {chain}")
+
+    gray4k = core.grayscale_plain(img4k)
     const4k = torch.full((H4K, W4K), 201, dtype=torch.uint8, device=dev)
     one = torch.from_numpy(image((1, 1), seed=5)).to(dev)
     for src, what in ((gray4k, "4K noise"), (const4k, "4K constant"), (one, "1x1")):
@@ -218,13 +286,40 @@ def main() -> int:
                       median_ms(torch, lambda: core.lut_apply_plain(blurred, lut))),
         "histogram_constant": (median_ms(torch, lambda: core.histogram(const4k)),
                                median_ms(torch, lambda: core.histogram_plain(const4k))),
+        "gray_gauss": (median_ms(torch, lambda: core.gray_gauss(img4k)),
+                       median_ms(torch, lambda: core.gray_gauss_plain(img4k))),
+        "fused_elementwise": (median_ms(torch, lambda: core.fused_elementwise(grays4k)),
+                              median_ms(torch, lambda: core.fused_elementwise_plain(grays4k))),
+        "fused_elementwise_full_chain": (
+            median_ms(torch, lambda: core.fused_elementwise(grays4k, FULL_CHAIN)),
+            median_ms(torch, lambda: core.fused_elementwise_plain(grays4k, FULL_CHAIN))),
     }
     for name in plains:
         times[name] = (median_ms(torch, lambda: wrappers[name](gray4k)),
                        median_ms(torch, lambda: plains[name](gray4k)))
+    # The one PyTorch call that computes the same function, where there is
+    # one: bincount for K4 (the others have none; the plain versions are
+    # several calls each). Timed here only, never used by the port.
+    library = {"histogram": median_ms(torch, lambda: torch.bincount(gray4k.reshape(-1),
+                                                                     minlength=256))}
+    # Least times of the timed 4K calls, from their bytes (each input read
+    # once, each output written once) and operations.
+    px = H4K * W4K
+    bounds = {
+        "rotate": bound(*rotate_cost(torch, rotate, img4k, 30.0), F64_OPS_PER_MS),
+        "gray_gauss_hist": bound(4 * px + 256 * 4, (GRAY_OPS + GAUSS_OPS + 1) * px),
+        "lut_apply": bound(2 * px + 256, 0),
+        "histogram": bound(px + 256 * 4, px),
+        "gaussian_blur": bound(2 * px, GAUSS_OPS * px),
+        "gray_gauss": bound(4 * px, (GRAY_OPS + GAUSS_OPS) * px),
+        "stencil3": bound(2 * px, SOBEL_OPS * px),
+        "fused_elementwise": bound(4 * px, GRAY_OPS * px),
+    }
     print("phase 3 kernels byte-equal to plain at 4K and odd shapes; ms per call at 4K "
           f"(kernel / plain) on {card}: "
-          + ", ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in times.items()))
+          + ", ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in times.items())
+          + "; least ms: " + ", ".join(f"{k} {b:.4f} ({by})" for k, (b, by) in bounds.items())
+          + f"; torch.bincount {library['histogram']:.4f}")
 
     tmp = tempfile.mkdtemp(prefix="ipt_chip_smoke_")
     try:
@@ -253,7 +348,9 @@ def main() -> int:
                     fail(f"cli {flags} exited {rc}")
 
         n_rotating = sum(any(f.startswith("-r") for f in flags) for flags, _, _ in runs)
-        path_counts = {"cli": drive("phase 4 cli", {"rotate": n_rotating}, cli_runs)}
+        # -w1920 -r30 -gray runs K8 (grayscale) once.
+        path_counts = {"cli": drive("phase 4 cli", {"rotate": n_rotating, "fused_elementwise": 1},
+                                    cli_runs)}
         for path, (flags, file_type, (out_w, out_h)) in zip(cli_paths, runs):
             with open(path + ".out", "rb") as f:
                 out, _, got_type = ppm.decode_pnm(f.read())
@@ -294,7 +391,7 @@ def main() -> int:
             f"{' '.join(flags)} {wall:.3f} s" for (flags, _, _), wall in zip(runs, walls))
             + f" per 4K file; 768x1024 cuda vs cpu max |diff| {worst}")
 
-        # Phase 5: the flagship at 4K, through K2 and K3, and staged through K5, K4, K3.
+        # Phase 5: the flagship at 4K, through K2 and K3, and staged through K8, K5, K4, K3.
         flagship = torch.from_numpy(image((H4K, W4K, 3), seed=30)).to(dev)
         results = {}
 
@@ -304,7 +401,8 @@ def main() -> int:
 
         path_counts["flagship"] = drive(
             "phase 5 flagship",
-            {"gray_gauss_hist": 1, "lut_apply": 2, "gaussian_blur": 1, "histogram": 1},
+            {"gray_gauss_hist": 1, "lut_apply": 2, "fused_elementwise": 1, "gaussian_blur": 1,
+             "histogram": 1},
             flagships)
         plain = fused.fused_pipeline(flagship)
         for form, out in results.items():
@@ -351,14 +449,15 @@ def main() -> int:
             serve_run("presets", ["--preset", PRESETS, "--skip-bad", *files, bad])
             serve_run("fanout", ["--fanout", fanout_flags, *files[:8]])
 
-        # Per good file: edge_detect one K5 and one Sobel, enhance one K4, one
-        # K3 and one sharpen, print_ready one K4 and one K3; the fan-out one
-        # K1 per 4K file.
+        # Per good file: edge_detect one K6 and one Sobel, enhance one K8, one
+        # K4, one K3 and one sharpen, print_ready one K8, one K4 and one K3;
+        # the fan-out one K8 (-gray) and one K1 per 4K file.
         n_good = len(files)
         path_counts["serving"] = drive(
             "phase 6 serving",
-            {"gaussian_blur": n_good, "sobel": n_good, "sharpen": n_good,
-             "histogram": 2 * n_good, "lut_apply": 2 * n_good, "rotate": 8},
+            {"gray_gauss": n_good, "sobel": n_good, "sharpen": n_good,
+             "fused_elementwise": 2 * n_good + 8, "histogram": 2 * n_good,
+             "lut_apply": 2 * n_good, "rotate": 8},
             serving_runs)
         if f"skipped {bad}: Error: unexpected end of file." not in serve_walls["presets"][1]:
             fail(f"serve did not report the truncated file: {serve_walls['presets'][1]}")
@@ -366,13 +465,14 @@ def main() -> int:
         def equalize_plain(g):
             return core.lut_apply_plain(g, _equalize_lut(core.histogram_plain(g), g.numel()))
 
+        gray_plain = core.grayscale_plain
         plain_presets = {  # the presets' plain bodies, unpacked
-            "edge_detect": lambda im: core.sobel_plain(core.gaussian_blur_plain(grayscale(im))),
-            "enhance": lambda im: core.sharpen_plain(equalize_plain(grayscale(im))),
+            "edge_detect": lambda im: core.sobel_plain(core.gray_gauss_plain(im)),
+            "enhance": lambda im: core.sharpen_plain(equalize_plain(gray_plain(im))),
             "print_ready": lambda im: mono_dither(
-                equalize_plain(grayscale(im))[..., None].expand(im.shape)),
+                equalize_plain(gray_plain(im))[..., None].expand(im.shape)),
             "thumbnail": lambda im: resize_width(im, 256),
-            "gray": grayscale,
+            "gray": gray_plain,
             "w1920-r30": lambda im: rotate.rotate_plain(resize_width(im, 1920), 30.0),
         }
         want_types = {"edge_detect": ppm.FILETYPE_PGM, "enhance": ppm.FILETYPE_PGM,
@@ -434,7 +534,7 @@ def main() -> int:
           f"768x1024 cuda vs cpu max |diff| {cross_worst}; native codec built")
     print("launches per path (counts set to 0 before each): "
           + "; ".join(f"{p} {c}" for p, c in path_counts.items())
-          + f"; {', '.join(OFF_PATH)} is on no path (phase 3 holds it to plain)")
+          + f"; {' and '.join(OFF_PATH)} are on no path (phase 3 holds them to plain)")
 
     launches = {name: sum(c[name] for c in path_counts.values()) for name in wrappers}
     k7 = {name: {"launches": launches[name], "on_path": name not in OFF_PATH,
@@ -443,7 +543,8 @@ def main() -> int:
     entries = []
     for name, (source, replaces) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
-                 "replaces": replaces}
+                 "replaces": replaces, "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                 "library_ms": library.get(name)}
         if name == "stencil3":  # K7: one template, three instances; Sobel's times
             entry.update(launches=sum(k["launches"] for k in k7.values()),
                          max_abs_err=max(k["max_abs_err"] for k in k7.values()),
@@ -454,6 +555,9 @@ def main() -> int:
         if name == "histogram":
             entry.update(constant_ms=times["histogram_constant"][0],
                          constant_plain_ms=times["histogram_constant"][1])
+        if name == "fused_elementwise":  # off the paths: the full chain
+            entry.update(full_chain_ms=times["fused_elementwise_full_chain"][0],
+                         full_chain_plain_ms=times["fused_elementwise_full_chain"][1])
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """ctypes bindings for the native C++ batch codec.
 
 Counterpart of ``imageprocessingtools_tpu/codec/native.py``, with the same
-API and messages. It builds the JAX package's source,
-``imageprocessingtools_tpu/codec/csrc/ppmcodec.cpp``, by its path (there is
-one copy of the C++), with g++ at first use into
-``build/imageprocessingtools_tpu_torch/`` at the root of the checkout. Every
+API and messages. It builds the port's own copy of the C++ source,
+``codec/csrc/ppmcodec.cpp`` in this package (byte-identical to the JAX
+package's ``codec/csrc/ppmcodec.cpp``; a test holds the two equal), with g++
+at first use into ``build/imageprocessingtools_tpu_torch/`` at the root of
+the checkout. Every
 entry point falls back to the port's pure-Python codec (``codec/ppm.py``)
 where the library cannot be built, for example on a machine without g++: it
 is a host codec, and both give the same bytes.
@@ -24,7 +25,7 @@ import numpy as np
 from imageprocessingtools_tpu_torch.codec import ppm as _py
 
 _ROOT = Path(__file__).resolve().parent.parent.parent
-SOURCE = _ROOT / "imageprocessingtools_tpu" / "codec" / "csrc" / "ppmcodec.cpp"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ppmcodec.cpp"
 BUILD_DIR = _ROOT / "build" / "imageprocessingtools_tpu_torch"
 
 _ERROR_MESSAGES = {

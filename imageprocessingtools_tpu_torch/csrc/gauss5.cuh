@@ -1,5 +1,5 @@
 // The separable 5x5 binomial (1,4,6,4,1)^2 over a shared-memory tile with a
-// 2-pixel halo, shared by K2 (gray_gauss_hist.cu) and K5 (stencil.cu).
+// 2-pixel halo, shared by K2 and K6 (gray_gauss_hist.cu) and K5 (stencil.cu).
 //
 // The caller loads the tile's gray values plus the halo, with coordinates
 // clamped into the image (replicate edges), into `gray`, and synchronises.

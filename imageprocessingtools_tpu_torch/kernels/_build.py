@@ -37,6 +37,10 @@ _SIGNATURES = {
     "ipt_rotate": [_P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _I, _I, _P],
     # rgb, out, hist, H, W, device, stream
     "ipt_gray_gauss_hist": [_P, _P, _P, _I, _I, _I, _P],
+    # rgb, out, H, W, device, stream
+    "ipt_gray_gauss": [_P, _P, _I, _I, _I, _P],
+    # rgb, out, table (or None for the empty chain), n pixels, device, stream
+    "ipt_fused_elementwise": [_P, _P, _P, ctypes.c_longlong, _I, _P],
     # values, out, lut, n, device, stream
     "ipt_lut_apply": [_P, _P, _P, ctypes.c_longlong, _I, _P],
     # values, hist, n, device, stream

@@ -1,11 +1,14 @@
-"""K2-K5 and K7: CUDA wrappers of the flagship's and the presets' kernels,
-and their plain versions.
+"""K2-K8: CUDA wrappers of the flagship's, the presets' and the gray
+stage's kernels, and their plain versions.
 
 Counterpart of ``imageprocessingtools_tpu/kernels/pallas_core.py``:
 
 - K2 ``gray_gauss_hist`` (``csrc/gray_gauss_hist.cu``) replaces
   ``gray_gauss_hist_pallas``: uint8[H, W, 3] -> (blurred gray uint8[H, W],
   its int32[256] histogram) in one pass;
+- K6 ``gray_gauss`` (``csrc/gray_gauss_hist.cu``, K2's tile kernel without
+  the histogram) replaces ``gray_gauss_pallas``: uint8[H, W, 3] -> blurred
+  gray uint8[H, W];
 - K3 ``lut_apply`` (``csrc/lut_apply.cu``) replaces ``lut_apply_pallas``:
   uint8 values through a uint8[256] LUT;
 - K4 ``histogram`` (``csrc/histogram.cu``) replaces ``histogram_pallas``:
@@ -14,13 +17,18 @@ Counterpart of ``imageprocessingtools_tpu/kernels/pallas_core.py``:
   ``gaussian_blur_pallas``: the 5x5 binomial on uint8[H, W];
 - K7 ``box_blur``, ``sharpen`` and ``sobel`` (``csrc/stencil.cu``, one
   template) replace ``box_blur_pallas``, ``sharpen_pallas`` and
-  ``sobel_pallas`` (``_make_stencil3``): 3x3 stencils on uint8[H, W].
+  ``sobel_pallas`` (``_make_stencil3``): 3x3 stencils on uint8[H, W];
+- K8 ``fused_elementwise`` (``csrc/elementwise.cu``) replaces
+  ``fused_elementwise_pallas``: uint8[..., 3] -> gray uint8[...] through a
+  static chain of invert, brightness, contrast and threshold. With the
+  empty chain it is ``ops.color.grayscale`` on a CUDA tensor.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor. The plain versions (``*_plain``) are built from
 torch ops and each other only, never from a wrapper, so on a CUDA tensor
 they launch none of these kernels and stay an independent reference. The
-public ops (``ops/stencil.py``, ``ops/histogram.py``) call the wrappers.
+public ops (``ops/color.py``, ``ops/stencil.py``, ``ops/histogram.py``) call
+the wrappers.
 
 Stencil edges replicate (``np.pad`` mode "edge"); all arithmetic is int32
 and integer-exact, as in ``imageprocessingtools_tpu/ops/stencil.py``.
@@ -28,10 +36,11 @@ and integer-exact, as in ``imageprocessingtools_tpu/ops/stencil.py``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from imageprocessingtools_tpu_torch.kernels import _build
-from imageprocessingtools_tpu_torch.ops.color import grayscale
 
 _MAX_GRID_Y = 65535 * 32  # image rows per launch: grid.y tiles of 32 rows
 
@@ -45,6 +54,41 @@ _SOBEL_Y = ((-1, -2, -1), (0, 0, 0), (1, 2, 1))
 # ---------------------------------------------------------------------------
 # Plain versions.
 # ---------------------------------------------------------------------------
+
+
+def grayscale_plain(img: torch.Tensor) -> torch.Tensor:
+    """Plain torch form of K8's gray stage: uint8[..., 3] -> uint8[...], exact
+    (r+g+b)//3. The sum is taken in int32: uint8 ``r+g+b`` wraps in torch."""
+    return (img.to(torch.int32).sum(-1) // 3).to(torch.uint8)
+
+
+def _chain_plain(v: torch.Tensor, chain) -> torch.Tensor:
+    """int32 gray values through ``chain``, op for op as
+    ``pallas_core._elementwise_kernel``. Contrast is an f32 subtract, multiply
+    and add, each its own torch op (so each rounds), with the factor rounded
+    to f32 as JAX's weak-typed ``float(arg)`` is."""
+    for op, arg in chain:
+        if op == "invert":
+            v = 255 - v
+        elif op == "brightness":
+            v = (v + int(arg)).clamp(0, 255)
+        elif op == "contrast":
+            factor = torch.tensor(float(arg), dtype=torch.float32)
+            vf = (v.to(torch.float32) - 128.0) * factor + 128.0
+            v = torch.floor(vf + 0.5).clamp(0.0, 255.0).to(torch.int32)
+        elif op == "threshold":
+            v = torch.where(v >= int(arg), 255, 0).to(torch.int32)
+        else:
+            raise ValueError(f"unknown op {op}")
+    return v
+
+
+def fused_elementwise_plain(img: torch.Tensor, chain=()) -> torch.Tensor:
+    """Plain torch form of K8: gray of uint8[..., 3], then ``chain``."""
+    gray = grayscale_plain(img)
+    if not chain:
+        return gray
+    return _chain_plain(gray.to(torch.int32), chain).to(torch.uint8)
 
 
 def _pad_edge(img: torch.Tensor, r: int) -> torch.Tensor:
@@ -127,9 +171,14 @@ def lut_apply_plain(values: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     return lut.to(torch.uint8)[values.long()]
 
 
+def gray_gauss_plain(img: torch.Tensor) -> torch.Tensor:
+    """Plain torch form of K6: gray -> Gaussian."""
+    return gaussian_blur_plain(grayscale_plain(img))
+
+
 def gray_gauss_hist_plain(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch form of K2: gray -> Gaussian, and the blur's histogram."""
-    blurred = gaussian_blur_plain(grayscale(img))
+    blurred = gray_gauss_plain(img)
     return blurred, histogram_plain(blurred)
 
 
@@ -157,19 +206,23 @@ def _check_gray(name: str, img: torch.Tensor) -> None:
         raise RuntimeError(f"{name}: {img.shape[0]}x{img.shape[1]} is too large")
 
 
+def _check_rgb(name: str, img: torch.Tensor) -> None:
+    _require_cuda(name, img)
+    if (img.dtype != torch.uint8 or img.ndim != 3 or img.shape[2] != 3
+            or not img.is_contiguous()):
+        raise TypeError(
+            f"{name}: need a contiguous uint8[H, W, 3] tensor, got "
+            f"{img.dtype} {tuple(img.shape)} contiguous={img.is_contiguous()}")
+    if img.shape[0] > _MAX_GRID_Y or img.numel() >= 2**31:
+        raise RuntimeError(f"{name}: {img.shape[0]}x{img.shape[1]} is too large")
+
+
 def gray_gauss_hist(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """uint8[H, W, 3] -> (uint8[H, W], int32[256]): K2 on CUDA, plain on CPU."""
     if img.device.type == "cpu":
         return gray_gauss_hist_plain(img)
-    _require_cuda("gray_gauss_hist", img)
-    if (img.dtype != torch.uint8 or img.ndim != 3 or img.shape[2] != 3
-            or not img.is_contiguous()):
-        raise TypeError(
-            f"gray_gauss_hist: need a contiguous uint8[H, W, 3] tensor, got "
-            f"{img.dtype} {tuple(img.shape)} contiguous={img.is_contiguous()}")
+    _check_rgb("gray_gauss_hist", img)
     h, w = img.shape[0], img.shape[1]
-    if h > _MAX_GRID_Y or img.numel() >= 2**31:
-        raise RuntimeError(f"gray_gauss_hist: {h}x{w} is too large")
     out = torch.empty((h, w), dtype=torch.uint8, device=img.device)
     hist = torch.zeros(256, dtype=torch.int32, device=img.device)
     if out.numel():
@@ -179,6 +232,54 @@ def gray_gauss_hist(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         _build.check(status, "ipt_gray_gauss_hist")
         gray_gauss_hist.launches += 1
     return out, hist
+
+
+def gray_gauss(img: torch.Tensor) -> torch.Tensor:
+    """uint8[H, W, 3] -> uint8[H, W], gray fused into the 5x5 binomial: K6 on
+    CUDA, plain on CPU."""
+    if img.device.type == "cpu":
+        return gray_gauss_plain(img)
+    _check_rgb("gray_gauss", img)
+    h, w = img.shape[0], img.shape[1]
+    out = torch.empty((h, w), dtype=torch.uint8, device=img.device)
+    if out.numel():
+        status = _build.library().ipt_gray_gauss(
+            img.data_ptr(), out.data_ptr(), h, w, img.device.index, _stream(img))
+        _build.check(status, "ipt_gray_gauss")
+        gray_gauss.launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _chain_table(chain: tuple, device: torch.device) -> torch.Tensor:
+    """K8's uint8[256] table on ``device``: the chain's plain arithmetic on
+    every gray value, made once per (chain, device)."""
+    gray = torch.arange(256, dtype=torch.int32)
+    return _chain_plain(gray, chain).to(torch.uint8).to(device)
+
+
+def fused_elementwise(img: torch.Tensor, chain=()) -> torch.Tensor:
+    """uint8[..., 3] -> uint8[...]: gray, then the static ``chain`` of
+    ("invert" | "brightness" | "contrast" | "threshold", arg) in order. K8
+    on CUDA (contiguous input), plain on CPU."""
+    chain = tuple((op, arg) for op, arg in chain)
+    if img.device.type == "cpu":
+        return fused_elementwise_plain(img, chain)
+    _require_cuda("fused_elementwise", img)
+    if (img.dtype != torch.uint8 or img.ndim < 1 or img.shape[-1] != 3
+            or not img.is_contiguous()):
+        raise TypeError(
+            f"fused_elementwise: need a contiguous uint8[..., 3] tensor, got "
+            f"{img.dtype} {tuple(img.shape)} contiguous={img.is_contiguous()}")
+    table = _chain_table(chain, img.device) if chain else None  # raises on unknown ops
+    out = torch.empty(img.shape[:-1], dtype=torch.uint8, device=img.device)
+    if out.numel():
+        status = _build.library().ipt_fused_elementwise(
+            img.data_ptr(), out.data_ptr(), None if table is None else table.data_ptr(),
+            out.numel(), img.device.index, _stream(img))
+        _build.check(status, "ipt_fused_elementwise")
+        fused_elementwise.launches += 1
+    return out
 
 
 def lut_apply(values: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
@@ -262,7 +363,7 @@ def sobel(img: torch.Tensor) -> torch.Tensor:
     return _stencil(sobel, "ipt_sobel", sobel_plain, img)
 
 
-for _wrapper in (gray_gauss_hist, lut_apply, histogram, gaussian_blur, box_blur,
-                 sharpen, sobel):
+for _wrapper in (gray_gauss_hist, gray_gauss, fused_elementwise, lut_apply, histogram,
+                 gaussian_blur, box_blur, sharpen, sobel):
     _wrapper.launches = 0
 del _wrapper

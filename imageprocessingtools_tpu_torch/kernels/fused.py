@@ -5,8 +5,9 @@ forms map uint8[H, W, 3] to uint8[H, W] and give the same bytes:
 
 - ``fused_pipeline``: the plain torch versions, stage by stage (the JAX
   package's ``fused_pipeline_xla``); it launches no kernel on any device;
-- ``fused_pipeline_staged``: K5, K4, the equalization LUT, then K3 (the JAX
-  package's ``fused_pipeline_pallas``);
+- ``fused_pipeline_staged``: K8 (``grayscale``), K5, K4, the equalization
+  LUT, then K3 (the JAX package's ``fused_pipeline_pallas``, whose gray
+  stage XLA fuses);
 - ``fused_pipeline_mega``: K2 (gray + Gaussian + histogram in one pass),
   the equalization LUT, then K3 (the JAX package's
   ``fused_pipeline_pallas_mega``).
@@ -25,13 +26,13 @@ from imageprocessingtools_tpu_torch.ops.histogram import _equalize_lut
 
 def fused_pipeline(img: torch.Tensor) -> torch.Tensor:
     """uint8[H, W, 3] -> uint8[H, W] with the plain torch versions."""
-    blurred = core.gaussian_blur_plain(grayscale(img))
+    blurred = core.gray_gauss_plain(img)
     lut = _equalize_lut(core.histogram_plain(blurred), math.prod(blurred.shape))
     return core.lut_apply_plain(blurred, lut)
 
 
 def fused_pipeline_staged(img: torch.Tensor) -> torch.Tensor:
-    """uint8[H, W, 3] -> uint8[H, W] through K5, K4 and K3."""
+    """uint8[H, W, 3] -> uint8[H, W] through K8, K5, K4 and K3."""
     blurred = core.gaussian_blur(grayscale(img))
     lut = _equalize_lut(core.histogram(blurred), math.prod(blurred.shape))
     return core.lut_apply(blurred, lut)

@@ -2,8 +2,10 @@
 
 Counterpart of ``imageprocessingtools_tpu/models/presets.py``, with the
 same compositions. On a CUDA tensor the stages run through the port's
-kernels: ``edge_detect`` through K5 and K7 (Sobel), ``enhance`` through K4,
-K3 and K7 (sharpen), ``print_ready`` through K4 and K3.
+kernels: ``edge_detect`` through K6 (gray fused into the Gaussian, as XLA
+fuses the two stages for the JAX package) and K7 (Sobel), ``enhance``
+through K8 (gray), K4, K3 and K7 (sharpen), ``print_ready`` through K8, K4
+and K3.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from imageprocessingtools_tpu_torch import ops
 from imageprocessingtools_tpu_torch.codec.ppm import FILETYPE_PBM, FILETYPE_PGM, FILETYPE_PPM
+from imageprocessingtools_tpu_torch.kernels import core
 from imageprocessingtools_tpu_torch.ops import _exact
 from imageprocessingtools_tpu_torch.pipeline import PipelineConfig, run_pipeline
 
@@ -32,7 +35,7 @@ def reference_pipeline(config: PipelineConfig):
 
 def edge_detect(img: torch.Tensor) -> torch.Tensor:
     """gray -> 5x5 Gaussian (denoise) -> Sobel magnitude."""
-    return ops.sobel(ops.gaussian_blur(ops.grayscale(img)))
+    return ops.sobel(core.gray_gauss(img.contiguous()))
 
 
 def enhance(img: torch.Tensor) -> torch.Tensor:

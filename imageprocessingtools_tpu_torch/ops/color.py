@@ -1,10 +1,12 @@
 """Pointwise colour ops, all integer-exact.
 
 Counterpart of ``imageprocessingtools_tpu/ops/color.py``. ``grayscale``
-mirrors the reference op (``ppmx-edward.c:986-1003``); the rest are the
-JAX package's extension ops, as int32 torch ops on any device (no Pallas
-kernel computes them). ``contrast`` goes through a float64 LUT made on the
-host, so it is exact for any factor.
+mirrors the reference op (``ppmx-edward.c:986-1003``): on a CUDA tensor it
+launches K8 (``kernels/core.py::fused_elementwise``) with the empty chain,
+which does in one pass what XLA's fusion does for the JAX package; on a CPU
+tensor it runs the plain version. The rest are the JAX package's extension
+ops, as int32 torch ops on any device, on gray or RGB input. ``contrast``
+goes through a float64 LUT made on the host, so it is exact for any factor.
 """
 
 from __future__ import annotations
@@ -14,13 +16,13 @@ import functools
 import numpy as np
 import torch
 
+from imageprocessingtools_tpu_torch.kernels import core as _core
+
 
 def grayscale(img: torch.Tensor) -> torch.Tensor:
-    """uint8[H, W, 3] -> uint8[H, W]; exact integer (r+g+b)/3.
-
-    The sum is taken in int32: uint8 ``r+g+b`` wraps in torch.
-    """
-    return (img.to(torch.int32).sum(-1) // 3).to(torch.uint8)
+    """uint8[..., 3] -> uint8[...]; exact integer (r+g+b)/3: K8 with the
+    empty chain on CUDA (a view is made contiguous first), plain on CPU."""
+    return _core.fused_elementwise(img.contiguous())
 
 
 def invert(img: torch.Tensor) -> torch.Tensor:

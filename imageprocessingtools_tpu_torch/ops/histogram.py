@@ -16,8 +16,6 @@ import math
 
 import torch
 
-# A module reference, not names: kernels.core imports ops.color, so either
-# package may be imported first.
 from imageprocessingtools_tpu_torch.kernels import core as _core
 from imageprocessingtools_tpu_torch.ops.common import round_half_up
 

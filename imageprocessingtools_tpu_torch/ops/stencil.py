@@ -18,8 +18,6 @@ from __future__ import annotations
 
 import torch
 
-# A module reference, not names: kernels.core imports ops.color, so either
-# package may be imported first.
 from imageprocessingtools_tpu_torch.kernels import core as _core
 
 

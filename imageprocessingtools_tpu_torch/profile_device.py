@@ -7,12 +7,17 @@ Run from the root of the repository, with one CUDA card:
 It prints the card's name and power limit, then one JSON object per line:
 
 - ``{"kernel": label, ...}``: each kernel wrapper (and the two kernel forms
-  of the flagship) called 20 times back to back on 2160x3840 inputs on the
-  card under ``torch.profiler``; the device time per call is the sum of the
-  trace's device events (kernels, memcpys, memsets) over the 20 calls,
-  divided by 20, also split by event name. The inputs are those of
-  ``chip_smoke.py`` phase 3: noise from seed 1, its gray, and constant
-  images.
+  of the flagship, and edge_detect's K6 + Sobel) called 20 times back to
+  back on 2160x3840 inputs on the card under ``torch.profiler``; the device
+  time per call is the sum of the trace's device events (kernels, memcpys,
+  memsets) over the 20 calls, divided by 20, also split by event name. The inputs are those of
+  ``chip_smoke.py`` phase 3: noise from seed 1, its gray (made by the plain
+  ``core.grayscale_plain``, so that no kernel makes another's input), and
+  constant images. K8 is profiled with the empty chain (``grayscale``) and
+  with the full chain (invert, brightness 30, contrast 1.5, threshold 128).
+  Back-to-back calls on one 4K input find it in the 50 MB L2 cache, so K6
+  and K8 are also profiled over four noise inputs in turn (seeds 1-4,
+  100 MB), where each call's input is cold.
 - ``{"serving": "split", ...}``: ``serving.process_files`` with the four
   presets over 8 4K and 2 1080p P6 files (seeds 40-49, as in
   ``chip_smoke.py`` phase 6), sequential (no reader or writer thread),
@@ -28,6 +33,7 @@ It prints the card's name and power limit, then one JSON object per line:
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import os
 import subprocess
@@ -41,6 +47,7 @@ import torch
 REPS = 20
 H4K, W4K = 2160, 3840
 PRESETS = ("edge_detect", "enhance", "print_ready", "thumbnail")
+FULL_CHAIN = (("invert", 0), ("brightness", 30), ("contrast", 1.5), ("threshold", 128))
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -83,12 +90,13 @@ def _image(shape, seed: int) -> np.ndarray:
 
 def profile_kernels(dev) -> None:
     from imageprocessingtools_tpu_torch.kernels import core, fused, rotate
-    from imageprocessingtools_tpu_torch.ops.color import grayscale
     from imageprocessingtools_tpu_torch.ops.histogram import _equalize_lut
 
     img = torch.from_numpy(_image((H4K, W4K, 3), seed=1)).to(dev)
+    in_turn = itertools.cycle(
+        [img] + [torch.from_numpy(_image((H4K, W4K, 3), seed=s)).to(dev) for s in (2, 3, 4)])
     const_rgb = torch.full((H4K, W4K, 3), 201, dtype=torch.uint8, device=dev)
-    gray, const = grayscale(img), const_rgb[:, :, 0].contiguous()
+    gray, const = core.grayscale_plain(img), const_rgb[:, :, 0].contiguous()
     lut = _equalize_lut(core.histogram(gray), H4K * W4K)
     cases = {
         "K1 rotate 30, RGB": lambda: rotate.rotate_bicubic(img, 30.0),
@@ -98,11 +106,18 @@ def profile_kernels(dev) -> None:
         "K4 histogram, noise": lambda: core.histogram(gray),
         "K4 histogram, constant": lambda: core.histogram(const),
         "K5 gaussian_blur": lambda: core.gaussian_blur(gray),
+        "K6 gray_gauss": lambda: core.gray_gauss(img),
         "K7 box_blur": lambda: core.box_blur(gray),
         "K7 sharpen": lambda: core.sharpen(gray),
         "K7 sobel": lambda: core.sobel(gray),
+        "K8 fused_elementwise, empty chain": lambda: core.fused_elementwise(img),
+        "K8 fused_elementwise, full chain": lambda: core.fused_elementwise(img, FULL_CHAIN),
+        "K6 gray_gauss, 4 inputs in turn": lambda: core.gray_gauss(next(in_turn)),
+        "K8 fused_elementwise, empty chain, 4 inputs in turn":
+            lambda: core.fused_elementwise(next(in_turn)),
         "flagship mega": lambda: fused.fused_pipeline_mega(img),
         "flagship staged": lambda: fused.fused_pipeline_staged(img),
+        "edge_detect": lambda: core.sobel(core.gray_gauss(img)),
     }
     for label, fn in cases.items():
         fn()  # warm-up: the build, the first launch

@@ -109,8 +109,9 @@ def test_wrappers_refuse_other_devices():
     meta = torch.empty((4, 4, 3), dtype=torch.uint8, device="meta")
     with pytest.raises(TypeError, match="unsupported device"):
         rotate.rotate_bicubic(meta, 30.0)
-    with pytest.raises(TypeError, match="unsupported device"):
-        core.gray_gauss_hist(meta)
+    for wrapper in (core.gray_gauss_hist, core.gray_gauss, core.fused_elementwise):
+        with pytest.raises(TypeError, match="unsupported device"):
+            wrapper(meta)
     with pytest.raises(TypeError, match="unsupported device"):
         core.lut_apply(meta, meta)
     for wrapper in (core.histogram, core.gaussian_blur, core.box_blur, core.sharpen,

@@ -3,9 +3,11 @@
 Every test here needs a CUDA device and skips without one (the kernels have
 no CPU mode). The plain versions are held to the JAX package and the golden
 model by the CPU suites (tests/test_torch_rotate.py, test_torch_fused.py,
-test_torch_stencil.py, test_torch_histogram.py);
+test_torch_stencil.py, test_torch_histogram.py, test_torch_gray_gauss.py,
+test_torch_elementwise.py);
 here each kernel must give the same bytes as its plain version on the same
-CUDA tensors. Tolerance: none — every kernel is integer- or f64-exact.
+CUDA tensors. Tolerance: none — every kernel is integer- or f64-exact (K8's contrast
+is a table made by the plain chain's own f32 operations).
 
 This file imports neither JAX nor tests/conftest.py, so it also runs on a
 machine without JAX:
@@ -63,6 +65,60 @@ def test_gray_gauss_hist_kernel_matches_plain(cuda, shape):
     assert torch.equal(blurred, exp_blurred)
     assert hist.dtype == torch.int32 and torch.equal(hist, exp_hist)
     assert int(hist.sum()) == shape[0] * shape[1]
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (5, 17), (7, 53), (5, 3840), (29, 130), (33, 129),
+                                   (64, 300)])
+def test_gray_gauss_kernel_matches_plain(cuda, shape):
+    img = _image(shape + (3,), seed=shape[0] * 977 + shape[1]).to(cuda)
+    before = core.gray_gauss.launches
+    out = core.gray_gauss(img)
+    torch.cuda.synchronize()
+    assert core.gray_gauss.launches == before + 1
+    assert out.dtype == torch.uint8 and torch.equal(out, core.gray_gauss_plain(img))
+
+
+_FULL_CHAIN = (("invert", 0), ("brightness", 30), ("contrast", 1.5), ("threshold", 128))
+_CHAINS = [(), _FULL_CHAIN, (("invert", 0),), (("brightness", 30),), (("brightness", -40),),
+           (("threshold", 128),)] + [(("contrast", f),) for f in (0.5, 1.37, 1.5, 2.0)]
+
+
+def _all_grays(cuda, h, w):
+    """uint8[h, w, 3] noise whose first 256 pixels are r=g=b=0..255."""
+    img = _image((h, w, 3), seed=h * 7 + w)
+    flat = img.view(-1, 3)
+    flat[:256] = torch.arange(256, dtype=torch.uint8)[:, None]
+    return img.to(cuda)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "offset", "view"])
+@pytest.mark.parametrize("shape", [(1, 1), (7, 53), (5, 3840), (16, 128), (37, 101)])
+@pytest.mark.parametrize("chain", _CHAINS, ids=str)
+def test_fused_elementwise_kernel_matches_plain(cuda, chain, shape, layout):
+    h, w = shape
+    img = _all_grays(cuda, h, w) if h * w >= 256 else _image((h, w, 3), seed=1).to(cuda)
+    if layout == "offset":  # 1 pixel in: not 16-byte aligned, the byte-wise loop
+        img = torch.cat([img.view(-1)[:3], img.view(-1)]).view(-1, 3)[1:].view(h, w, 3)
+    elif layout == "view":  # every other column: the kernel gets it as ops.grayscale does
+        img = torch.cat([img, img.flip(1)], dim=1)[:, ::2]
+    exp = core.fused_elementwise_plain(img, chain)
+    before = core.fused_elementwise.launches
+    out = core.fused_elementwise(img.contiguous(), chain)
+    torch.cuda.synchronize()
+    assert core.fused_elementwise.launches == before + 1
+    assert out.dtype == torch.uint8 and torch.equal(out, exp)
+
+
+def test_grayscale_launches_k8_once(cuda):
+    from imageprocessingtools_tpu_torch.ops.color import grayscale
+
+    img = _image((9, 20, 3), seed=3).to(cuda)
+    for src in (img, torch.cat([img, img], dim=1)[:, ::2], img[None]):
+        before = core.fused_elementwise.launches
+        out = grayscale(src)
+        torch.cuda.synchronize()
+        assert core.fused_elementwise.launches == before + 1
+        assert torch.equal(out, core.grayscale_plain(src))
 
 
 @pytest.mark.parametrize("n,offset", [(4096, 0), (1000, 0), (1000, 3), (7, 1)])
@@ -124,22 +180,25 @@ def test_fused_mega_matches_plain(cuda):
 
 def test_fused_staged_matches_plain(cuda):
     img = _image((70, 150, 3), seed=6).to(cuda)
-    counts = (core.gaussian_blur.launches, core.histogram.launches, core.lut_apply.launches)
+    wrappers = (core.fused_elementwise, core.gaussian_blur, core.histogram, core.lut_apply)
+    counts = [w.launches for w in wrappers]
     out = fused.fused_pipeline_staged(img)
     torch.cuda.synchronize()
-    assert (core.gaussian_blur.launches, core.histogram.launches,
-            core.lut_apply.launches) == tuple(n + 1 for n in counts)
+    assert [w.launches for w in wrappers] == [n + 1 for n in counts]
     assert torch.equal(out, fused.fused_pipeline(img))
 
 
 def test_plain_versions_launch_no_kernel(cuda):
     img = _image((40, 60, 3), seed=7).to(cuda)
-    wrappers = (core.gray_gauss_hist, core.lut_apply, core.histogram, core.gaussian_blur,
-                core.box_blur, core.sharpen, core.sobel)
+    wrappers = (core.gray_gauss_hist, core.gray_gauss, core.fused_elementwise, core.lut_apply,
+                core.histogram, core.gaussian_blur, core.box_blur, core.sharpen, core.sobel)
     before = [w.launches for w in wrappers]
     gray = img[:, :, 0].contiguous()
     fused.fused_pipeline(img)
     core.gray_gauss_hist_plain(img)
+    core.gray_gauss_plain(img)
+    core.grayscale_plain(img)
+    core.fused_elementwise_plain(img, _FULL_CHAIN)
     for _, plain in _STENCILS:
         plain(gray)
     torch.cuda.synchronize()
@@ -154,6 +213,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         core.gray_gauss_hist(img[:, :, :2].contiguous())
     with pytest.raises(TypeError):
         core.gray_gauss_hist(img.to(torch.int32))
+    for wrapper in (core.gray_gauss, core.fused_elementwise):
+        with pytest.raises(TypeError):
+            wrapper(img[:, :, :2].contiguous())
+        with pytest.raises(TypeError):
+            wrapper(img.to(torch.int32))
+        with pytest.raises(TypeError):
+            wrapper(img.transpose(0, 1))  # not contiguous
+    with pytest.raises(ValueError, match="unknown op"):
+        core.fused_elementwise(img, (("solarize", 1),))
     with pytest.raises(TypeError):
         core.lut_apply(img[:, :, 0].contiguous(), torch.arange(256, device=cuda))
     with pytest.raises(TypeError):

@@ -248,6 +248,12 @@ def test_native_codec_matches_jax(tmp_path):
 
 
 def test_native_codec_builds_the_jax_source_by_path():
+    """The port builds its own copy of the C++ codec, which must stay
+    byte-identical to the JAX package's source (a drift check)."""
+    port_codec = os.path.dirname(os.path.abspath(native.__file__))
+    jax_codec = os.path.dirname(os.path.abspath(jax_native.__file__))
     assert native.SOURCE.name == "ppmcodec.cpp" and native.SOURCE.exists()
-    assert native.SOURCE.parent.parent == native._ROOT / "imageprocessingtools_tpu" / "codec"
+    assert str(native.SOURCE) == os.path.join(port_codec, "csrc", "ppmcodec.cpp")
+    with open(os.path.join(jax_codec, "csrc", "ppmcodec.cpp"), "rb") as f:
+        assert native.SOURCE.read_bytes() == f.read()
     assert native.BUILD_DIR.parts[-2:] == ("build", "imageprocessingtools_tpu_torch")
