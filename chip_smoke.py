@@ -81,11 +81,13 @@ CHAINS = [(), (("invert", 0),), (("brightness", 30),), (("brightness", -40),),
           (("threshold", 128),), FULL_CHAIN] + [(("contrast", f),) for f in (0.5, 1.37, 1.5, 2.0)]
 # The card's peak rates (NVIDIA's H100 SXM data sheet, at 700 W), per ms:
 # HBM3 bytes; float32 operations outside the tensor cores, which also bound
-# the integer kernels (their values are integers below 2^24, exact in f32);
-# float64 operations outside the tensor cores, which bound K1.
+# the integer kernels (their values are integers below 2^24, exact in f32).
+# K1's f64 operations may not be fused (one FMA moves a truncated byte), so
+# each takes a whole FP64 issue slot: 132 SMs x 64 lanes x 1.98 GHz, about
+# 16.7 T op/s, half the data sheet's 34 TFLOP/s, which counts an FMA as two.
 HBM_BYTES_PER_MS = 3.35e9
 F32_OPS_PER_MS = 67e9
-F64_OPS_PER_MS = 34e9
+F64_UNFUSED_OPS_PER_MS = 17e9
 # Operations per output pixel, counted from each kernel's source (an
 # integer division by 3 counts as one): gray 3 (two adds, one divide);
 # the 5x5 binomial 20 (five multiplies and four adds per pass, two passes,
@@ -132,20 +134,31 @@ def bound(nbytes: float, ops: float, ops_per_ms: float = F32_OPS_PER_MS):
 
 def rotate_cost(torch, rotate, src, angle: float) -> tuple[int, float]:
     """(bytes, f64 operations) of K1 on ``src``: the input read once and the
-    output written once; 12 operations per output pixel (the inverse map
-    and its rounding), and for each interior pixel 84 more (tap origins and
-    offsets, eight Keys weights) and 40 per channel (16 products and sums,
-    then four), counted from rotate.cu. The zones are counted with K1's own
-    geometry on the card."""
+    output written once; the f64 adds, subtracts and multiplies that the
+    reference's arithmetic needs for this input, counting each product of
+    the inverse map once per output row or column (cos*xs and -sin*xs per
+    column, sin*ys and cos*ys per row: the C rounds them before adding), and
+    no pixel that a bound on its tile could settle without them:
+
+    - every pixel in the source: the four adds of (nX, nY);
+    - an edge pixel: the two rounding adds of floor(n + 0.5);
+    - an interior pixel: per axis the offset n - floor(n) and the three
+      others from it (4) and the four Keys weights (6 + 6 + 8 + 8 = 28, in
+      the C's order); per channel 16 products and 12 adds for the rows and
+      4 and 3 for the column (35).
+
+    Floors and compares are not counted. The zones are counted with K1's
+    own geometry on the card."""
     h, w, c = src.shape
-    new_h, new_w, cos_t, sin_t, xc, yc, xoff, yoff = rotate._geometry(h, w, angle)
-    f64 = torch.float64
-    xs = (torch.arange(new_w, dtype=f64, device=src.device) - xoff) - xc
-    ys = (torch.arange(new_h, dtype=f64, device=src.device) - yoff) - yc
-    rx = torch.floor((cos_t * xs)[None, :] + (sin_t * ys)[:, None] + xc + 0.5)
-    ry = torch.floor((-sin_t * xs)[None, :] + (cos_t * ys)[:, None] + yc + 0.5)
+    geometry = rotate._geometry(h, w, angle)
+    new_h, new_w = geometry[0], geometry[1]
+    n_x, n_y = rotate._inverse_map(geometry, torch.arange(new_w, device=src.device),
+                                   torch.arange(new_h, device=src.device))
+    rx, ry = torch.floor(n_x + 0.5), torch.floor(n_y + 0.5)
+    in_bounds = int(((rx >= 0) & (ry >= 0) & (rx < w) & (ry < h)).sum())
     interior = int(((rx > 1) & (ry > 1) & (rx < max(w - 2, 0)) & (ry < max(h - 2, 0))).sum())
-    ops = 12.0 * new_h * new_w + interior * (84.0 + 40.0 * c)
+    ops = (2.0 * (new_w + new_h) + 4.0 * in_bounds + 2.0 * (in_bounds - interior)
+           + interior * (2 * (4 + 28) + 35.0 * c))
     return src.numel() + new_h * new_w * c, ops
 
 
@@ -232,11 +245,15 @@ def main() -> int:
             fail(f"{name} {what} differs from plain by {err}")
 
     img4k = torch.from_numpy(image((H4K, W4K, 3), seed=1)).to(dev)
+    odd_rgb = torch.from_numpy(image((1001, 1503, 3), seed=7)).to(dev)
+    # K1's tiles: near-axis footprints (0.5, 89.5, 179.9, 359.5), the largest
+    # (45), whole tiles outside the source (every angle off the axes).
     for src, angle in [
         (img4k, 30.0), (img4k, 135.0),
         (torch.from_numpy(image((1080, 1920), seed=2)).to(dev), 30.0),
         (torch.from_numpy(image((37, 53, 3), seed=3)).to(dev), 117.0),
-    ]:
+    ] + [(src, angle) for src in (img4k, odd_rgb)
+         for angle in (0.5, 45.0, 89.5, 179.9, 271.0, 359.5)]:
         check("rotate", rotate.rotate_bicubic(src, angle), rotate.rotate_plain(src, angle),
               f"{tuple(src.shape)} at {angle}")
     small = torch.from_numpy(image((5, W4K, 3), seed=4)).to(dev)
@@ -270,8 +287,10 @@ def main() -> int:
     one = torch.from_numpy(image((1, 1), seed=5)).to(dev)
     for src, what in ((gray4k, "4K noise"), (const4k, "4K constant"), (one, "1x1")):
         check("histogram", core.histogram(src), core.histogram_plain(src), what)
+    # K7 also at a width that is not a multiple of 16 (its unaligned path).
     stencil_inputs = [gray4k] + [torch.from_numpy(image(s, seed=6 + i)).to(dev)
-                                 for i, s in enumerate([(37, 53), (1, 7), (5, 1)])]
+                                 for i, s in enumerate([(37, 53), (1, 7), (5, 1),
+                                                        (H4K, W4K - 3)])]
     edges4k = (gray4k > 127).to(torch.uint8) * 255  # reaches the clips and Sobel's largest m
     for name in ("gaussian_blur",) + STENCIL3:
         for src in stencil_inputs + [edges4k]:
@@ -306,7 +325,7 @@ def main() -> int:
     # once, each output written once) and operations.
     px = H4K * W4K
     bounds = {
-        "rotate": bound(*rotate_cost(torch, rotate, img4k, 30.0), F64_OPS_PER_MS),
+        "rotate": bound(*rotate_cost(torch, rotate, img4k, 30.0), F64_UNFUSED_OPS_PER_MS),
         "gray_gauss_hist": bound(4 * px + 256 * 4, (GRAY_OPS + GAUSS_OPS + 1) * px),
         "lut_apply": bound(2 * px + 256, 0),
         "histogram": bound(px + 256 * 4, px),

@@ -8,27 +8,31 @@
 //
 // The TPU kernels walked row blocks over the whole width and fetched the
 // neighbouring blocks for a row halo, padded the columns inside the kernel,
-// and needed the rows padded to a block multiple outside it. Here one block
-// owns a 32x128 output tile and loads the tile plus its halo (radius 2 for
-// K5, 1 for K7) into shared memory with clamped coordinates, which gives
-// replicate edges at any H >= 1 and W >= 1 with no padding. Arithmetic is
-// int32:
+// and needed the rows padded to a block multiple outside it. Here each block
+// loads its output tile plus the halo (radius 2 for K5, 1 for K7) into
+// shared memory with clamped coordinates, which gives replicate edges at any
+// H >= 1 and W >= 1 with no padding. Arithmetic is int32:
 //
-// - K5 runs the separable passes of gauss5.cuh, shared with K2;
-// - K7 is one template over the 3x3 weights and an epilogue:
-//   box (2s+9)/18 (s >= 0, so the division is the floor); sharpen
-//   [0,-1,0; -1,5,-1; 0,-1,0] clipped to [0, 255]; Sobel
-//   clip(round_half_up(sqrt(gx^2 + gy^2)), 0, 255). Sobel's root is exact:
-//   m = gx^2 + gy^2 <= 2,080,800 is exact in f32, __fsqrt_rn gives the
-//   correctly rounded root, floor(x + 0.5) an estimate k within 1 of the
-//   answer, and the two integer corrections of ops/stencil.py::_isqrt_round
-//   (k^2 - k + 1 <= m <= k^2 + k) make it exact. No --use_fast_math.
+// - K5 (a 32x128 tile, bytes loaded one by one into an int tile) runs the
+//   separable passes of gauss5.cuh, shared with K2;
+// - K7 is one kernel template over three ops: box (2s+9)/18 (s >= 0, so the
+//   division is the floor); sharpen [0,-1,0; -1,5,-1; 0,-1,0] clipped to
+//   [0, 255]; Sobel clip(round_half_up(sqrt(gx^2 + gy^2)), 0, 255), exact
+//   (sobel_out below).
 //
 // What bounds them on an H100: bytes (1 read and 1 written per pixel, 8.3 MB
-// each way at 4K, plus halo re-reads of ~16% for K5 and ~8% for K7). The
-// byte-wise loads and stores are not vectorised in this first version.
+// each way at 4K, plus halo re-reads of ~16% for K5 and ~6% of rows for K7).
+// K7's design is for that bound: a 256x32 tile whose halo rows are copied
+// as the image row's aligned 16-byte words, all in flight at once
+// (cp.async; a byte path only for chunks that cross the image's left or
+// right edge), into a byte tile; each thread makes
+// a 16-wide run on four rows, sliding a 3-row window through registers and
+// sharing column sums between neighbours (box: one vertical sum; Sobel:
+// a + 2b + c and c - a), and stores the run as one 16-byte vector when the
+// rows are 16-byte aligned.
 
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "gauss5.cuh"
@@ -68,82 +72,165 @@ gaussian_blur_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ out,
 
 // ---- K7 -------------------------------------------------------------------
 
-constexpr int S_TILE_H = 32;
-constexpr int S_TILE_W = 128;
+// A block of 128 threads owns a 256x32 output tile (four to an SM). Thread
+// (tx, ty) makes the 16-wide run at columns x0 + 16 tx of rows y0 + 4 ty ..
+// + 3, sliding a 3-row window down.
+constexpr int S_RUN = 16;
+constexpr int S_TX = 16;
+constexpr int S_TY = 8;
+constexpr int S_ROWS = 4;
+constexpr int S_TILE_W = S_RUN * S_TX;
+constexpr int S_TILE_H = S_ROWS * S_TY;
 constexpr int S_HALO_H = S_TILE_H + 2;
-constexpr int S_HALO_W = S_TILE_W + 2;
+constexpr int S_CHUNKS = S_TILE_W / 16 + 2;  // 16-byte chunks per halo row
+constexpr int S_STRIDE = S_CHUNKS * 16;
+constexpr int S_THREADS = S_TX * S_TY;
 
-// Each op: kSets weight sets w(set, dy, dx) over the 3x3 window, and an
-// epilogue from the kSets sums to the output value in [0, 255].
+// Each op maps three rows of 18 values (columns x - 1 .. x + 16) to the 16
+// outputs at columns x .. x + 15, reusing per-column sums between neighbours.
 struct BoxBlur {
-    static constexpr int kSets = 1;
-    __host__ __device__ static constexpr int w(int, int, int) { return 1; }
-    __device__ static int epilogue(const int* s) { return (2 * s[0] + 9) / 18; }
+    __device__ static void run(const int* a, const int* b, const int* c, int* o) {
+        int s[S_RUN + 2];
+#pragma unroll
+        for (int i = 0; i < S_RUN + 2; ++i) s[i] = a[i] + b[i] + c[i];
+#pragma unroll
+        for (int i = 0; i < S_RUN; ++i) {
+            const unsigned t = s[i] + s[i + 1] + s[i + 2];  // >= 0: the division floors
+            o[i] = static_cast<int>((2u * t + 9u) / 18u);
+        }
+    }
 };
 
 struct Sharpen {
-    static constexpr int kSets = 1;
-    __host__ __device__ static constexpr int w(int, int dy, int dx) {
-        return (dy == 1 && dx == 1) ? 5 : ((dy == 1 || dx == 1) ? -1 : 0);
+    __device__ static void run(const int* a, const int* b, const int* c, int* o) {
+#pragma unroll
+        for (int i = 0; i < S_RUN; ++i) {
+            const int s = 5 * b[i + 1] - a[i + 1] - c[i + 1] - b[i] - b[i + 2];
+            o[i] = min(max(s, 0), 255);
+        }
     }
-    __device__ static int epilogue(const int* s) { return min(max(s[0], 0), 255); }
 };
 
-// round_half_up(sqrt(m)) for 0 <= m < 2^24, exact (see the header note).
-__device__ __forceinline__ int isqrt_round(int m) {
-    int k = static_cast<int>(floorf(__fadd_rn(__fsqrt_rn(static_cast<float>(m)), 0.5f)));
-    if (m > k * k + k) k += 1;
-    if (k > 0 && m < k * k - k + 1) k -= 1;
-    return k;
+// Sobel's output min(round_half_up(sqrt(m)), 255) for 0 <= m < 2^23, exact.
+// m is exact in f32, and s = m * rsqrt(m) is within a relative 2^-21 of
+// sqrt(m). No integer m has sqrt(m) within 4.9e-4 of a half-integer below
+// 255.5 (m = k^2 + k is 0.25 / (2k + 1) away), so rounding s to the nearest
+// integer (the 2^23 trick) gives round_half_up(sqrt(m)) wherever it is
+// below 255, and at least 255 wherever the answer is (m >= 64771, sqrt(m) >=
+// 254.502). ipt_sobel_out_test holds it to ops/stencil.py::_isqrt_round,
+// clipped, for every m Sobel can make.
+__device__ __forceinline__ int sobel_out(int m) {
+    const float f = __fsub_rn(__int_as_float(0x4B000000 | m), 8388608.0f);
+    const float s = __fmul_rn(f, rsqrtf(fmaxf(f, 1.0f)));
+    return min(__float_as_int(__fadd_rn(s, 8388608.0f)) - 0x4B000000, 255);
 }
 
 struct Sobel {
-    static constexpr int kSets = 2;
-    // set 0: gx = [-1,0,1; -2,0,2; -1,0,1]; set 1: gy = [-1,-2,-1; 0,0,0; 1,2,1]
-    __host__ __device__ static constexpr int w(int set, int dy, int dx) {
-        return set == 0 ? (dx - 1) * (dy == 1 ? 2 : 1) : (dy - 1) * (dx == 1 ? 2 : 1);
-    }
-    __device__ static int epilogue(const int* s) {
-        return min(isqrt_round(s[0] * s[0] + s[1] * s[1]), 255);
+    // v = a + 2b + c and d = c - a per column; gx = v[x+1] - v[x-1] and
+    // gy = d[x-1] + 2 d[x] + d[x+1] are [-1,0,1; -2,0,2; -1,0,1] and its
+    // transpose.
+    __device__ static void run(const int* a, const int* b, const int* c, int* o) {
+        int v[S_RUN + 2], d[S_RUN + 2];
+#pragma unroll
+        for (int i = 0; i < S_RUN + 2; ++i) {
+            v[i] = a[i] + 2 * b[i] + c[i];
+            d[i] = c[i] - a[i];
+        }
+#pragma unroll
+        for (int i = 0; i < S_RUN; ++i) {
+            const int gx = v[i + 2] - v[i];
+            const int gy = d[i] + 2 * d[i + 1] + d[i + 2];
+            o[i] = sobel_out(gx * gx + gy * gy);
+        }
     }
 };
 
-template <class Op>
-__global__ void __launch_bounds__(THREADS)
-stencil3_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ out, int H, int W) {
-    __shared__ int tile[S_HALO_H][S_HALO_W];
+__device__ __forceinline__ uint32_t pack4(const int* o) {
+    return __byte_perm(__byte_perm(o[0], o[1], 0x0040), __byte_perm(o[2], o[3], 0x0040), 0x5410);
+}
 
+// Columns x - 1 .. x + 16 of smem row r, where the run's column x sits at
+// byte 16 tx + 16 + lead (lead = 0 when every row is 16-byte aligned).
+template <bool kAligned>
+__device__ __forceinline__ void read_run(const uint8_t* row, int tx, int lead, int* v) {
+    const uint8_t* p = row + S_RUN * tx + 16 + lead;
+    if (kAligned) {
+        const uint4 q = *reinterpret_cast<const uint4*>(p);
+        const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int i = 0; i < S_RUN; ++i) v[i + 1] = (w[i / 4] >> (8 * (i % 4))) & 0xFF;
+    } else {
+#pragma unroll
+        for (int i = 0; i < S_RUN; ++i) v[i + 1] = p[i];
+    }
+    v[0] = p[-1];
+    v[S_RUN + 1] = p[S_RUN];
+}
+
+// kAligned: src, out and W are multiples of 16, so every row starts on a
+// 16-byte boundary and the runs load and store as 16-byte vectors.
+template <class Op, bool kAligned>
+__global__ void __launch_bounds__(S_THREADS, 4)
+stencil3_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ out, int H, int W) {
+    // smem row r holds image row clamp(y0 - 1 + r) from column
+    // x0 - 16 - lead[r] on, so that its 16-byte chunks are the row's aligned
+    // 16-byte words; columns outside [0, W) are clamped byte by byte.
+    __shared__ __align__(16) uint8_t tile[S_HALO_H][S_STRIDE];
+    __shared__ int lead_s[S_HALO_H];
+
+    const int tx = threadIdx.x, ty = threadIdx.y;
     const int x0 = blockIdx.x * S_TILE_W;
     const int y0 = blockIdx.y * S_TILE_H;
-    for (int k = threadIdx.x; k < S_HALO_H * S_HALO_W; k += THREADS) {
-        const int r = k / S_HALO_W;
-        const int c = k - r * S_HALO_W;
-        const int gy = min(max(y0 + r - 1, 0), H - 1);
-        const int gx = min(max(x0 + c - 1, 0), W - 1);
-        tile[r][c] = __ldg(src + static_cast<size_t>(gy) * W + gx);
+    for (int r = ty; r < S_HALO_H; r += S_TY) {
+        const uint8_t* row = src + static_cast<size_t>(min(max(y0 + r - 1, 0), H - 1)) * W;
+        const int lead = kAligned ? 0 : static_cast<int>((reinterpret_cast<uintptr_t>(row) + x0) & 15);
+        if (tx == 0) lead_s[r] = lead;
+        for (int j = tx; j < S_CHUNKS; j += S_TX) {
+            const int xc = x0 - 16 - lead + 16 * j;
+            if (xc >= 0 && xc + 16 <= W) {  // every copy of the block in flight at once
+                __pipeline_memcpy_async(&tile[r][16 * j], row + xc, 16);
+            } else {  // the image's left or right edge: replicate
+                uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+                for (int i = 0; i < 16; ++i) {
+                    w[i / 4] |= static_cast<uint32_t>(__ldg(row + min(max(xc + i, 0), W - 1)))
+                                << (8 * (i % 4));
+                }
+                *reinterpret_cast<uint4*>(&tile[r][16 * j]) = make_uint4(w[0], w[1], w[2], w[3]);
+            }
+        }
     }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
     __syncthreads();
 
-    for (int k = threadIdx.x; k < S_TILE_H * S_TILE_W; k += THREADS) {
-        const int r = k / S_TILE_W;
-        const int c = k - r * S_TILE_W;
-        const int y = y0 + r;
-        const int x = x0 + c;
-        if (y < H && x < W) {
-            int sums[Op::kSets];
+    const int x = x0 + S_RUN * tx;
+    const int r0 = S_ROWS * ty;  // smem row of the first output row's upper neighbour
+    if (x >= W || y0 + r0 >= H) return;
+    int a[S_RUN + 2], b[S_RUN + 2], c[S_RUN + 2], o[S_RUN];
+    read_run<kAligned>(tile[r0], tx, lead_s[r0], a);
+    read_run<kAligned>(tile[r0 + 1], tx, lead_s[r0 + 1], b);
 #pragma unroll
-            for (int s = 0; s < Op::kSets; ++s) {
-                int acc = 0;
+    for (int i = 0; i < S_ROWS; ++i) {
+        read_run<kAligned>(tile[r0 + 2 + i], tx, lead_s[r0 + 2 + i], c);
+        Op::run(a, b, c, o);
+        const int y = y0 + r0 + i;
+        if (y < H) {
+            uint8_t* dst = out + static_cast<size_t>(y) * W + x;
+            if (kAligned && x + S_RUN <= W) {
+                *reinterpret_cast<uint4*>(dst) =
+                    make_uint4(pack4(o), pack4(o + 4), pack4(o + 8), pack4(o + 12));
+            } else {
 #pragma unroll
-                for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-                    for (int dx = 0; dx < 3; ++dx) {
-                        acc += Op::w(s, dy, dx) * tile[r + dy][c + dx];
-                    }
+                for (int k = 0; k < S_RUN; ++k) {
+                    if (x + k < W) dst[k] = static_cast<uint8_t>(o[k]);
                 }
-                sums[s] = acc;
             }
-            out[static_cast<size_t>(y) * W + x] = static_cast<uint8_t>(Op::epilogue(sums));
+        }
+#pragma unroll
+        for (int k = 0; k < S_RUN + 2; ++k) {
+            a[k] = b[k];
+            b[k] = c[k];
         }
     }
 }
@@ -153,9 +240,23 @@ int launch_stencil3(const void* src, void* out, int H, int W, int device, void* 
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((W + S_TILE_W - 1) / S_TILE_W, (H + S_TILE_H - 1) / S_TILE_H);
-    stencil3_kernel<Op><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(src), static_cast<uint8_t*>(out), H, W);
+    const dim3 block(S_TX, S_TY);
+    const bool aligned =
+        ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(out) | W) & 15) == 0;
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto* in = static_cast<const uint8_t*>(src);
+    auto* o = static_cast<uint8_t*>(out);
+    if (aligned) {
+        stencil3_kernel<Op, true><<<grid, block, 0, s>>>(in, o, H, W);
+    } else {
+        stencil3_kernel<Op, false><<<grid, block, 0, s>>>(in, o, H, W);
+    }
     return static_cast<int>(cudaGetLastError());
+}
+
+__global__ void sobel_out_kernel(int* out, int n) {
+    const int m = blockIdx.x * blockDim.x + threadIdx.x;
+    if (m < n) out[m] = sobel_out(m);
 }
 
 }  // namespace
@@ -183,4 +284,13 @@ extern "C" int ipt_sharpen(const void* src, void* out, int H, int W, int device,
 extern "C" int ipt_sobel(const void* src, void* out, int H, int W, int device,
                          void* stream) {
     return launch_stencil3<Sobel>(src, out, H, W, device, stream);
+}
+
+// Test entry: out[m] = Sobel's clipped root of m for 0 <= m < n (int32 out[n]).
+extern "C" int ipt_sobel_out_test(void* out, int n, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sobel_out_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<int*>(out), n);
+    return static_cast<int>(cudaGetLastError());
 }

@@ -33,8 +33,9 @@ NVCC_FLAGS = [
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C entry points: each returns the launch's cudaGetLastError() as an int.
 _SIGNATURES = {
-    # src, dst, H, W, C, newH, newW, cos, sin, xc, yc, xoff, yoff, device, stream
-    "ipt_rotate": [_P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _I, _I, _P],
+    # src, dst, H, W, C, newH, newW, cos, sin, xc, yc, xoff, yoff, plan, box_w,
+    # box_h, device, stream
+    "ipt_rotate": [_P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _I, _P, _I, _I, _I, _P],
     # rgb, out, hist, H, W, device, stream
     "ipt_gray_gauss_hist": [_P, _P, _P, _I, _I, _I, _P],
     # rgb, out, H, W, device, stream
@@ -50,6 +51,8 @@ _SIGNATURES = {
     "ipt_box_blur": [_P, _P, _I, _I, _I, _P],
     "ipt_sharpen": [_P, _P, _I, _I, _I, _P],
     "ipt_sobel": [_P, _P, _I, _I, _I, _P],
+    # out (int32[n]), n, device, stream: Sobel's clipped root of 0..n-1 (a test entry)
+    "ipt_sobel_out_test": [_P, _I, _I, _P],
 }
 
 

@@ -5,11 +5,13 @@ rotate_blocked_pallas``; the kernel is ``csrc/rotate.cu``. Both versions here
 compute the reference's f64 arithmetic (``ops/_exact.py::plan_rotation``,
 ``golden/model.py::rotate``) in the same order, so both are byte-identical
 to the C. ``rotate_bicubic`` takes the plain version for a CPU tensor and
-launches the kernel for a CUDA tensor.
+launches the kernel for a CUDA tensor, with the kernel's per-tile plan
+(``tile_plan``) made on the host once per geometry.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -17,7 +19,10 @@ import torch
 from imageprocessingtools_tpu_torch.kernels import _build
 from imageprocessingtools_tpu_torch.ops import _exact
 
-_MAX_GRID_Y = 65535 * 8  # output rows per launch: grid.y blocks of 8 rows
+TILE = 32  # the kernel's output tile side (csrc/rotate.cu)
+_MAX_GRID_Y = 65535 * TILE  # output rows per launch: grid.y tiles of TILE rows
+# Tile classes of ``tile_plan`` (csrc/rotate.cu reads the same numbers).
+OUTSIDE, INTERIOR, MIXED = 0, 1, 2
 
 
 def _geometry(height: int, width: int, angle: float):
@@ -27,6 +32,77 @@ def _geometry(height: int, width: int, angle: float):
     x_center, y_center = width // 2, height // 2
     return (new_h, new_w, math.cos(theta), math.sin(theta), x_center, y_center,
             new_w // 2 - x_center, new_h // 2 - y_center)
+
+
+def _inverse_map(geometry, ox: torch.Tensor, oy: torch.Tensor):
+    """(nX, nY), f64 [len(oy), len(ox)]: the source position of each output
+    pixel (oy, ox), rounded op by op as the C does."""
+    _, _, cos_t, sin_t, xc, yc, xoff, yoff = geometry
+    xs = (ox.to(torch.float64) - xoff) - xc
+    ys = (oy.to(torch.float64) - yoff) - yc
+    n_x = ((cos_t * xs)[None, :] + (sin_t * ys)[:, None]) + xc
+    n_y = ((-sin_t * xs)[None, :] + (cos_t * ys)[:, None]) + yc
+    return n_x, n_y
+
+
+def tile_plan(height: int, width: int, angle: float):
+    """The kernel's plan: (int32[tiles, 4], box_w, box_h).
+
+    Row ``by * tiles_x + bx`` describes output tile (by, bx) of TILE x TILE
+    pixels as {class, lo_x, lo_y, bw | bh << 16}. Since the inverse map is
+    affine, every pixel's (nX, nY) lies between the tile's four corners'
+    (up to rounding, which a margin of one pixel covers), so:
+
+    - OUTSIDE: one bound of the source is missed by all four corners (every
+      pixel is 0);
+    - INTERIOR: all four corners round into the interior band (every pixel
+      is bicubic; the kernel skips the zone tests);
+    - MIXED: the rest. Each pixel is tested.
+
+    The footprint [lo_y, lo_y + bh) x [lo_x, lo_x + bw) holds floor(n) - 2 ..
+    floor(n) + 3 of the corners' extremes, clamped to the source: every tap
+    (floor(n) - 1 .. floor(n) + 2) of an interior pixel and every nearest
+    pixel of an edge pixel. box_w and box_h are the largest footprint;
+    OUTSIDE tiles have none.
+    """
+    geometry = _geometry(height, width, angle)
+    new_h, new_w = geometry[0], geometry[1]
+    tiles_y, tiles_x = -(-new_h // TILE), -(-new_w // TILE)
+
+    def corners(n_tiles, size):
+        first = torch.arange(n_tiles, dtype=torch.int64) * TILE
+        return torch.stack([first, (first + TILE - 1).clamp(max=size - 1)], -1).reshape(-1)
+
+    n_x, n_y = _inverse_map(geometry, corners(tiles_x, new_w), corners(tiles_y, new_h))
+
+    def span(n):  # min and max over each tile's four corners, [tiles_y, tiles_x]
+        n = n.reshape(tiles_y, 2, tiles_x, 2)
+        return n.amin((1, 3)), n.amax((1, 3))
+
+    (min_x, max_x), (min_y, max_y) = span(n_x), span(n_y)
+    # A pixel is in bounds iff -0.5 <= n < dim - 0.5 on both axes, interior
+    # iff 1.5 <= n < dim - 2.5; the tests below carry a margin of 1.
+    outside = ((max_x < -1.5) | (min_x >= width + 0.5)
+               | (max_y < -1.5) | (min_y >= height + 0.5))
+    interior = ((min_x >= 2.5) & (max_x < width - 3.5)
+                & (min_y >= 2.5) & (max_y < height - 3.5))
+    cls = torch.where(outside, OUTSIDE, torch.where(interior, INTERIOR, MIXED))
+
+    def box(lo, hi, size):
+        lo = (torch.floor(lo) - 2).clamp(0, size - 1).to(torch.int64)
+        hi = (torch.floor(hi) + 3).clamp(0, size - 1).to(torch.int64)
+        return lo, torch.where(outside, 0, hi - lo + 1)
+
+    (lo_x, bw), (lo_y, bh) = box(min_x, max_x, width), box(min_y, max_y, height)
+    plan = torch.stack([cls, lo_x, lo_y, bw | (bh << 16)], -1).reshape(-1, 4)
+    box_w, box_h = int(bw.max()), int(bh.max())
+    return plan.to(torch.int32), box_w, box_h
+
+
+@functools.lru_cache(maxsize=32)
+def _device_plan(height: int, width: int, angle: float, device: torch.device):
+    plan, box_w, box_h = tile_plan(height, width, angle)
+    return plan.to(device), box_w, box_h
 
 
 def _cubic(x: torch.Tensor) -> torch.Tensor:
@@ -50,12 +126,11 @@ def rotate_plain(img: torch.Tensor, angle_deg: float) -> torch.Tensor:
     squeeze = img.ndim == 2
     src = img[:, :, None] if squeeze else img
     h, w, c = src.shape
-    new_h, new_w, cos_t, sin_t, xc, yc, xoff, yoff = _geometry(h, w, float(angle_deg))
+    geometry = _geometry(h, w, float(angle_deg))
+    new_h, new_w = geometry[0], geometry[1]
     f64, dev = torch.float64, img.device
-    xs = (torch.arange(new_w, dtype=f64, device=dev) - xoff) - xc
-    ys = (torch.arange(new_h, dtype=f64, device=dev) - yoff) - yc
-    nX = ((cos_t * xs)[None, :] + (sin_t * ys)[:, None]) + xc
-    nY = ((-sin_t * xs)[None, :] + (cos_t * ys)[:, None]) + yc
+    nX, nY = _inverse_map(geometry, torch.arange(new_w, device=dev),
+                          torch.arange(new_h, device=dev))
     rX = torch.floor(nX + 0.5)
     rY = torch.floor(nY + 0.5)
     in_bounds = (rX < w) & (rY < h) & (rY >= 0) & (rX >= 0)
@@ -106,14 +181,17 @@ def rotate_bicubic(img: torch.Tensor, angle_deg: float) -> torch.Tensor:
     squeeze = img.ndim == 2
     h, w = img.shape[0], img.shape[1]
     c = 1 if squeeze else img.shape[2]
+    if c not in (1, 3):
+        raise TypeError(f"rotate_bicubic: the kernel takes 1 or 3 channels, got {c}")
     new_h, new_w, cos_t, sin_t, xc, yc, xoff, yoff = _geometry(h, w, float(angle_deg))
     if new_h > _MAX_GRID_Y or max(h * w * c, new_h * new_w * c) >= 2**31:
         raise RuntimeError(f"rotate_bicubic: {h}x{w}x{c} -> {new_h}x{new_w} is too large")
     out = torch.empty((new_h, new_w, c), dtype=torch.uint8, device=img.device)
     if out.numel():
+        plan, box_w, box_h = _device_plan(h, w, float(angle_deg), img.device)
         status = _build.library().ipt_rotate(
             img.data_ptr(), out.data_ptr(), h, w, c, new_h, new_w, cos_t, sin_t,
-            xc, yc, xoff, yoff, img.device.index,
+            xc, yc, xoff, yoff, plan.data_ptr(), box_w, box_h, img.device.index,
             torch.cuda.current_stream(img.device).cuda_stream)
         _build.check(status, "ipt_rotate")
         rotate_bicubic.launches += 1

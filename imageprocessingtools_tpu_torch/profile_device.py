@@ -15,9 +15,11 @@ It prints the card's name and power limit, then one JSON object per line:
   ``core.grayscale_plain``, so that no kernel makes another's input), and
   constant images. K8 is profiled with the empty chain (``grayscale``) and
   with the full chain (invert, brightness 30, contrast 1.5, threshold 128).
-  Back-to-back calls on one 4K input find it in the 50 MB L2 cache, so K6
-  and K8 are also profiled over four noise inputs in turn (seeds 1-4,
-  100 MB), where each call's input is cold.
+  K1 is also profiled at 45 and 135 degrees. Back-to-back calls on one 4K
+  input find it in the 50 MB L2 cache, so K1, K6 and K8 are also profiled
+  over four noise inputs in turn (seeds 1-4, 100 MB), and K7's three
+  instances over their four grays in turn (33 MB, with the four outputs
+  another 33 MB), where each call's input is cold or nearly so.
 - ``{"serving": "split", ...}``: ``serving.process_files`` with the four
   presets over 8 4K and 2 1080p P6 files (seeds 40-49, as in
   ``chip_smoke.py`` phase 6), sequential (no reader or writer thread),
@@ -76,12 +78,20 @@ def busy_us(events: list[dict]) -> float:
     return total
 
 
-def _profiled(fn):
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return device_events(prof)
+def _profiled(fn, attempts: int = 3):
+    """The device events of one profiled call of ``fn``. After many
+    profiles in one process the tracer has returned a trace without device
+    events; such a profile is taken again, up to ``attempts`` times."""
+    for attempt in range(attempts):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        try:
+            return device_events(prof)
+        except RuntimeError:
+            if attempt == attempts - 1:
+                raise
 
 
 def _image(shape, seed: int) -> np.ndarray:
@@ -93,13 +103,17 @@ def profile_kernels(dev) -> None:
     from imageprocessingtools_tpu_torch.ops.histogram import _equalize_lut
 
     img = torch.from_numpy(_image((H4K, W4K, 3), seed=1)).to(dev)
-    in_turn = itertools.cycle(
-        [img] + [torch.from_numpy(_image((H4K, W4K, 3), seed=s)).to(dev) for s in (2, 3, 4)])
+    inputs = [img] + [torch.from_numpy(_image((H4K, W4K, 3), seed=s)).to(dev) for s in (2, 3, 4)]
+    in_turn = itertools.cycle(inputs)
+    grays_in_turn = itertools.cycle([core.grayscale_plain(x) for x in inputs])
     const_rgb = torch.full((H4K, W4K, 3), 201, dtype=torch.uint8, device=dev)
     gray, const = core.grayscale_plain(img), const_rgb[:, :, 0].contiguous()
     lut = _equalize_lut(core.histogram(gray), H4K * W4K)
     cases = {
         "K1 rotate 30, RGB": lambda: rotate.rotate_bicubic(img, 30.0),
+        "K1 rotate 45, RGB": lambda: rotate.rotate_bicubic(img, 45.0),
+        "K1 rotate 135, RGB": lambda: rotate.rotate_bicubic(img, 135.0),
+        "K1 rotate 30, RGB, 4 inputs in turn": lambda: rotate.rotate_bicubic(next(in_turn), 30.0),
         "K2 gray_gauss_hist, noise": lambda: core.gray_gauss_hist(img),
         "K2 gray_gauss_hist, constant": lambda: core.gray_gauss_hist(const_rgb),
         "K3 lut_apply": lambda: core.lut_apply(gray, lut),
@@ -115,6 +129,9 @@ def profile_kernels(dev) -> None:
         "K6 gray_gauss, 4 inputs in turn": lambda: core.gray_gauss(next(in_turn)),
         "K8 fused_elementwise, empty chain, 4 inputs in turn":
             lambda: core.fused_elementwise(next(in_turn)),
+        "K7 box_blur, 4 inputs in turn": lambda: core.box_blur(next(grays_in_turn)),
+        "K7 sharpen, 4 inputs in turn": lambda: core.sharpen(next(grays_in_turn)),
+        "K7 sobel, 4 inputs in turn": lambda: core.sobel(next(grays_in_turn)),
         "flagship mega": lambda: fused.fused_pipeline_mega(img),
         "flagship staged": lambda: fused.fused_pipeline_staged(img),
         "edge_detect": lambda: core.sobel(core.gray_gauss(img)),

@@ -38,11 +38,17 @@ def _image(shape, seed):
     return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8))
 
 
+# Shapes whose tiles are all mixed (small), or outside, interior and mixed
+# (257x509), at the near-axis angles, 45 (the largest footprint) and others.
+_ROTATE_ANGLES = (0.5, 30.0, 45.0, 89.5, 117.0, 179.9, 271.0, 359.5)
+
+
 @pytest.mark.parametrize("shape,angle", [
     ((37, 53, 3), 117.0), ((48, 64, 3), 30.0), ((64, 48, 3), 135.0),
     ((16, 16), 45.0), ((29, 7), 333.3), ((1, 5, 3), 30.0), ((3, 3), 245.0),
     ((200, 160, 3), 1.0),
-])
+] + [(shape, angle) for shape in ((1, 1), (2, 3), (1, 1, 3), (2, 3, 3), (61, 97), (257, 509, 3))
+     for angle in _ROTATE_ANGLES])
 def test_rotate_kernel_matches_plain(cuda, shape, angle):
     img = _image(shape, seed=sum(shape)).to(cuda)
     before = rotate.rotate_bicubic.launches
@@ -158,7 +164,7 @@ _STENCILS = [
 
 @pytest.mark.parametrize("kind", ["noise", "edges"])
 @pytest.mark.parametrize("shape", [(1, 1), (1, 7), (5, 1), (2, 3), (37, 53), (33, 129),
-                                   (70, 300)])
+                                   (70, 300), (9, 4099), (130, 512), (65, 257)])
 @pytest.mark.parametrize("wrapper,plain", _STENCILS, ids=lambda f: f.__name__)
 def test_stencil_kernels_match_plain(cuda, wrapper, plain, shape, kind):
     img = _image(shape, seed=shape[0] * 131 + shape[1]).to(cuda)
@@ -169,6 +175,32 @@ def test_stencil_kernels_match_plain(cuda, wrapper, plain, shape, kind):
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     assert out.dtype == torch.uint8 and torch.equal(out, plain(img))
+
+
+@pytest.mark.parametrize("offset", [1, 5])
+@pytest.mark.parametrize("wrapper,plain", _STENCILS[1:], ids=lambda f: f.__name__)
+def test_stencil3_kernels_match_plain_on_unaligned_views(cuda, wrapper, plain, offset):
+    """A view that starts off a 16-byte boundary takes K7's unaligned path."""
+    flat = _image((70 * 320 + offset,), seed=offset).to(cuda)
+    img = flat[offset:].view(70, 320)
+    assert img.data_ptr() % 16
+    assert torch.equal(wrapper(img), plain(img))
+
+
+def test_sobel_root_is_exact_for_every_m(cuda):
+    """K7 Sobel's clipped root against ops/stencil.py::_isqrt_round, clipped
+    to 255, for every m in [0, 2,080,800], the largest gx^2 + gy^2 (gx = gy
+    = 4 * 255)."""
+    from imageprocessingtools_tpu_torch.kernels import _build
+    from imageprocessingtools_tpu_torch.ops import stencil
+
+    n = 2 * (4 * 255) ** 2 + 1
+    out = torch.empty(n, dtype=torch.int32, device=cuda)
+    _build.check(_build.library().ipt_sobel_out_test(
+        out.data_ptr(), n, out.device.index, torch.cuda.current_stream(cuda).cuda_stream),
+        "ipt_sobel_out_test")
+    m = torch.arange(n, dtype=torch.int32)
+    assert torch.equal(out.cpu(), stencil._isqrt_round(m).clamp(max=255))
 
 
 def test_fused_mega_matches_plain(cuda):
@@ -209,6 +241,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     img = _image((8, 10, 3), seed=1).to(cuda)
     with pytest.raises(TypeError):
         rotate.rotate_bicubic(img.transpose(0, 1), 30.0)
+    with pytest.raises(TypeError):
+        rotate.rotate_bicubic(img[:, :, :2].contiguous(), 30.0)  # 1 or 3 channels
     with pytest.raises(TypeError):
         core.gray_gauss_hist(img[:, :, :2].contiguous())
     with pytest.raises(TypeError):

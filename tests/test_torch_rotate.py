@@ -94,3 +94,73 @@ def test_against_jax_ops_rotate(shape, angle):
     out = _port(img, angle).astype(np.int64)
     assert out.shape == jax_out.shape
     assert np.abs(out - jax_out).max() <= 1
+
+
+def _zones(h, w, angle):
+    """Per output pixel: floor(nX), floor(nY), rX, rY, in bounds, interior,
+    from the plain version's own inverse map."""
+    geometry = port_rotate._geometry(h, w, angle)
+    n_x, n_y = port_rotate._inverse_map(
+        geometry, torch.arange(geometry[1]), torch.arange(geometry[0]))
+    r_x, r_y = torch.floor(n_x + 0.5), torch.floor(n_y + 0.5)
+    in_bounds = (r_x < w) & (r_y < h) & (r_y >= 0) & (r_x >= 0)
+    interior = in_bounds & (r_x > 1) & (r_y > 1) & (r_x < max(w - 2, 0)) & (r_y < max(h - 2, 0))
+    return (torch.floor(n_x).long(), torch.floor(n_y).long(), r_x.long(), r_y.long(),
+            in_bounds, interior)
+
+
+def _per_pixel_plan(h, w, angle):
+    plan, box_w, box_h = port_rotate.tile_plan(h, w, angle)
+    new_h, new_w = port_rotate._geometry(h, w, angle)[:2]
+    tile = port_rotate.TILE
+    plan = plan.reshape(-(-new_h // tile), -(-new_w // tile), 4)
+    per_pixel = plan[torch.arange(new_h) // tile][:, torch.arange(new_w) // tile]
+    return per_pixel, box_w, box_h
+
+
+_PLAN_CASES = [(2160 // 8, 3840 // 8, 30.0), (257, 509, 45.0), (257, 509, 0.5), (61, 97, 89.5),
+               (97, 61, 179.9), (120, 80, 271.0), (80, 120, 359.5), (1, 1, 30.0), (2, 3, 45.0),
+               (3, 2, 135.0), (5, 300, 10.0)] + [
+    (int(h), int(w), float(a)) for h, w, a in zip(
+        np.random.default_rng(4).integers(1, 200, 12), np.random.default_rng(5).integers(1, 200, 12),
+        np.random.default_rng(6).uniform(0, 360, 12))]
+
+
+@pytest.mark.parametrize("h,w,angle", _PLAN_CASES)
+def test_tile_plan_footprint_holds_every_tap(h, w, angle):
+    """Every tap of every interior pixel, and the nearest pixel of every edge
+    pixel, lies in its tile's footprint, and no footprint exceeds the
+    launch's box."""
+    plan, box_w, box_h = _per_pixel_plan(h, w, angle)
+    cls, lo_x, lo_y = plan[..., 0], plan[..., 1], plan[..., 2]
+    bw, bh = plan[..., 3] & 0xFFFF, plan[..., 3] >> 16
+    f_x, f_y, r_x, r_y, in_bounds, interior = _zones(h, w, angle)
+    assert (cls != port_rotate.OUTSIDE)[in_bounds].all()
+    taps_in = (f_x - 1 >= lo_x) & (f_x + 2 < lo_x + bw) & (f_y - 1 >= lo_y) & (f_y + 2 < lo_y + bh)
+    assert taps_in[interior].all()
+    nearest_in = (r_x >= lo_x) & (r_x < lo_x + bw) & (r_y >= lo_y) & (r_y < lo_y + bh)
+    assert nearest_in[in_bounds & ~interior].all()
+    assert (lo_x >= 0).all() and (lo_y >= 0).all()
+    assert (lo_x + bw <= w).all() and (lo_y + bh <= h).all()
+    assert int(bw.max()) <= box_w and int(bh.max()) <= box_h
+
+
+@pytest.mark.parametrize("h,w,angle", _PLAN_CASES)
+def test_tile_plan_classes_agree_with_the_plain_output(h, w, angle):
+    """OUTSIDE tiles hold only zeros of rotate_plain (on a constant image,
+    the only zeros are outside pixels); INTERIOR tiles only interior pixels."""
+    plan, _, _ = _per_pixel_plan(h, w, angle)
+    cls = plan[..., 0]
+    out = port_rotate.rotate_plain(torch.full((h, w, 3), 200, dtype=torch.uint8), angle)
+    assert (out[cls == port_rotate.OUTSIDE] == 0).all()
+    *_, in_bounds, interior = _zones(h, w, angle)
+    assert torch.equal(in_bounds, (out != 0).any(-1))
+    assert interior[cls == port_rotate.INTERIOR].all()
+
+
+def test_tile_plan_at_4k_has_every_class():
+    for angle in (30.0, 45.0, 135.0, 0.5):
+        plan, box_w, box_h = port_rotate.tile_plan(2160, 3840, angle)
+        assert set(plan[:, 0].tolist()) == {
+            port_rotate.OUTSIDE, port_rotate.INTERIOR, port_rotate.MIXED}
+        assert box_w <= 52 and box_h <= 52  # (TILE - 1) * sqrt(2) + 7 at most
