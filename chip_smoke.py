@@ -262,6 +262,28 @@ def main() -> int:
         exp_blurred, exp_hist = core.gray_gauss_hist_plain(src)
         check("gray_gauss_hist", blurred, exp_blurred, f"{tuple(src.shape)} image")
         check("gray_gauss_hist", hist, exp_hist, f"{tuple(src.shape)} histogram")
+    # K2 and K6 at a width whose rows are not 16-byte aligned (3 x 3837 bytes)
+    # and on a view that starts 5 bytes into its buffer (their unaligned
+    # path), and K2's histogram on a constant image (one hot bin) and a
+    # gradient.
+    ys = torch.arange(H4K, device=dev)[:, None]
+    xs = torch.arange(W4K, device=dev)[None, :]
+    flat = torch.empty(img4k.numel() + 5, dtype=torch.uint8, device=dev)
+    flat[5:] = img4k.reshape(-1)
+    for src, what in [
+        (torch.from_numpy(image((H4K, W4K - 3, 3), seed=8)).to(dev), "2160x3837"),
+        (flat[5:].view(H4K, W4K, 3), "4K view at byte 5"),
+        (torch.full((H4K, W4K, 3), 201, dtype=torch.uint8, device=dev), "4K constant"),
+        (((ys + xs) * 255 // (H4K + W4K - 2)).to(torch.uint8)[:, :, None].expand(H4K, W4K, 3)
+         .contiguous(), "4K gradient"),
+    ]:
+        blurred, hist = core.gray_gauss_hist(src)
+        exp_blurred, exp_hist = core.gray_gauss_hist_plain(src)
+        check("gray_gauss_hist", blurred, exp_blurred, f"{what} image")
+        check("gray_gauss_hist", hist, exp_hist, f"{what} histogram")
+        if int(hist.sum()) != src.shape[0] * src.shape[1]:
+            fail(f"gray_gauss_hist {what}: the histogram counts {int(hist.sum())} pixels")
+        check("gray_gauss", core.gray_gauss(src), exp_blurred, what)
     blurred, hist = core.gray_gauss_hist(img4k)
     lut = _equalize_lut(hist, H4K * W4K)
     check("lut_apply", core.lut_apply(blurred, lut), core.lut_apply_plain(blurred, lut), "4K")
@@ -334,10 +356,14 @@ def main() -> int:
         "stencil3": bound(2 * px, SOBEL_OPS * px),
         "fused_elementwise": bound(4 * px, GRAY_OPS * px),
     }
+    # K1's least time at the other angles that profile_device.py times.
+    rotate_bounds = {angle: bound(*rotate_cost(torch, rotate, img4k, angle), F64_UNFUSED_OPS_PER_MS)
+                     for angle in (45.0, 135.0)}
     print("phase 3 kernels byte-equal to plain at 4K and odd shapes; ms per call at 4K "
           f"(kernel / plain) on {card}: "
           + ", ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in times.items())
           + "; least ms: " + ", ".join(f"{k} {b:.4f} ({by})" for k, (b, by) in bounds.items())
+          + "".join(f", rotate at {a:g} {b:.4f} ({by})" for a, (b, by) in rotate_bounds.items())
           + f"; torch.bincount {library['histogram']:.4f}")
 
     tmp = tempfile.mkdtemp(prefix="ipt_chip_smoke_")

@@ -9,89 +9,362 @@
 // with neighbouring-slab halo blocks; K2's also padded lanes to 128, carried
 // the histogram across sequential grid steps, built it from nibble one-hot
 // matmuls and needed H >= 8 (K6 was its fallback below that). Here both are
-// one tile kernel, instantiated with and without the histogram:
+// one tile kernel, instantiated with and without the histogram, for any
+// H >= 1 and W >= 1: no slab, no lane padding, no fallback.
 //
-// - one block per 32x128 output tile; the block loads RGB for the tile plus
-//   a 2-pixel halo with clamped coordinates (replicate edges), and keeps the
-//   gray values (r+g+b)/3 in shared memory;
-// - the separable 1-4-6-4-1 runs in int32 out of shared memory (vertical,
-//   then horizontal; gauss5.cuh, shared with K5), then (acc+128)>>8 to
-//   uint8 — integer-exact, so the result is the same bytes as
-//   ops/stencil.py::gaussian_blur;
-// - K2 only: a block-private int[256] histogram in shared memory counts
-//   the tile's blurred bytes with shared atomics and is flushed with one
-//   global atomicAdd per non-empty bin into an int32[256] the wrapper
-//   zeroes. Integer sums are order-free, so the histogram is exact.
+// What bounds both on an H100: bytes. A 4K frame reads 24.9 MB of RGB and
+// writes 8.3 MB of gray, 9.9 us at 3.35 TB/s. The integer work comes close:
+// ~20 operations per pixel take 2.5 us at the f32 rate that chip_smoke.py's
+// bound uses, but integer instructions issue at about a quarter of that
+// (64 lanes per SM, 16.7 T op/s), so ~20 instructions per pixel would take
+// as long as the bytes. The design keeps the instructions per pixel low and
+// runs them while the next tile's bytes arrive:
 //
-// Any H >= 1 and W >= 1 is valid: no slab, no lane padding, no fallback.
+// - Tiles of 256x16 outputs. A block of 4 warps stays resident and takes
+//   tiles blockIdx.x, + gridDim.x, ... (as many blocks as fit on the card);
+//   it stages the next tile's 20 halo rows (clamped at the top and bottom)
+//   in one of two shared buffers while it computes the current tile.
+// - Staging: the 16-byte chunks of a halo row that lie inside the image go
+//   in one bulk copy (cp.async.bulk on the copy engine, completing on an
+//   mbarrier; bulk_copy.cuh), one thread per row. A row that does not start
+//   on a 16-byte boundary sits at its own offset ("lead"). The bytes inside
+//   the image of the chunks that straddle its left or right edge are copied
+//   one by one; nothing outside the image is read, and the edge columns'
+//   gray values are replicated instead. Nothing is widened to int.
+// - Gray and the horizontal pass: a warp takes a halo row, a lane 8 of its
+//   columns. r + g + b by dp4a, s / 3 as (s * 0x55555556) >> 32 (exact for
+//   every s < 2^31), the gray in the 16-bit halves of registers (even and
+//   odd columns apart), each lane's halo columns from its neighbours
+//   (shuffles), and the horizontal 1-4-6-4-1 sums of its 8 columns, two to a
+//   register (at most 16 * 255 = 4080 each). They go back into the buffer
+//   that held the tile's RGB.
+// - The vertical pass: a thread makes 8 columns of 4 rows from 8 rows of
+//   those sums, adding five rows and 128 in the same halves (at most 65,408
+//   < 2^16, so no carry crosses a half); each half's upper byte is its
+//   rounded output, (acc + 128) >> 8. No division, no per-element index. A
+//   run of 8 goes out as one 8-byte store where the row allows it, else in
+//   aligned pieces, or bytes at the ragged edge.
 //
-// What bounds both on an H100: bytes (3 bytes read and 1 written per pixel:
-// 24.9 MB in and 8.3 MB out at 4K, plus the halo re-reads of ~16%). The
-// byte-wise RGB loads are not vectorised in this first version. For K2 on
-// real photos, shared-atomic contention on a few hot bins is the likely limit.
+// K2 only: a block-private int[256] histogram in shared memory counts the
+// blurred bytes of all the block's tiles, one shared atomic per pixel, except
+// that a run of 8 equal bytes (a flat region, a constant image) is counted by
+// one atomic; it is flushed with one global atomicAdd per non-empty bin into
+// an int32[256] the wrapper zeroes. Integer sums are order-free, so the
+// histogram is exact, and the bytes equal core.gray_gauss_plain's.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "gauss5.cuh"
+#include "bulk_copy.cuh"
 
 namespace {
 
-using ipt::GAUSS_HALO_H;
-using ipt::GAUSS_HALO_W;
-using ipt::GAUSS_RADIUS;
-using ipt::GAUSS_TILE_H;
-using ipt::GAUSS_TILE_W;
+constexpr int RUN = 8;                            // outputs per thread per row
+constexpr int TILE_W = 32 * RUN;                  // a warp spans the tile's width
+constexpr int TY = 4;                             // warps
+constexpr int TILE_H = 16;
+constexpr int ROWS = TILE_H / TY;                 // output rows per thread
+constexpr int HALO_H = TILE_H + 4;
+constexpr int THREADS = 32 * TY;
+constexpr int RGB_CHUNKS = 3 * TILE_W / 16 + 3;   // 16-byte chunks per staged RGB row
+constexpr int RGB_STRIDE = 16 * RGB_CHUNKS;
+static_assert(HALO_H % TY == 0 && 2 * TILE_W <= RGB_STRIDE, "h_s rows fit in staged rows");
 
-constexpr int THREADS = 256;
+// floor(s / 3) for 0 <= s < 2^31.
+__device__ __forceinline__ uint32_t div3(uint32_t s) { return __umulhi(s, 0x55555556u); }
 
-template <bool kHistogram>
+// Gray of the four pixels c .. c + 3 whose RGB bytes are the words a, b, c,
+// in the 16-bit halves of two registers: e = (c, c + 2), o = (c + 1, c + 3).
+__device__ __forceinline__ void gray4(uint32_t a, uint32_t b, uint32_t c, uint32_t& e,
+                                      uint32_t& o) {
+    const uint32_t g0 = div3(__dp4a(a, 0x00010101u, 0u));
+    const uint32_t g1 = div3(__dp4a(b, 0x00000101u, __dp4a(a, 0x01000000u, 0u)));
+    const uint32_t g2 = div3(__dp4a(c, 0x00000001u, __dp4a(b, 0x01010000u, 0u)));
+    const uint32_t g3 = div3(__dp4a(c, 0x01010100u, 0u));
+    e = __byte_perm(g0, g2, 0x5410);
+    o = __byte_perm(g1, g3, 0x5410);
+}
+
+// The horizontal 1-4-6-4-1 sums of columns x .. x + 7 from the gray of
+// columns x - 4 .. x + 11, four at a time as gray4 packs them ((e0, o0) for
+// x - 4 .. x - 1, of which only the high halves count, then (e1, o1),
+// (e2, o2) and (e3, o3), of which only the low halves count), as four
+// registers of two 16-bit halves: h[0] = (x, x + 2), h[1] = (x + 1, x + 3),
+// h[2] = (x + 4, x + 6), h[3] = (x + 5, x + 7). With z[n] = (g[x + n - 2],
+// g[x + n]), h[m] = z[n] + 4 z[n + 1] + 6 z[n + 2] + 4 z[n + 3] + z[n + 4] for
+// n = 0, 1, 4, 5.
+__device__ __forceinline__ void hsum8(uint32_t e0, uint32_t o0, uint32_t e1, uint32_t o1,
+                                      uint32_t e2, uint32_t o2, uint32_t e3, uint32_t o3,
+                                      uint32_t* h) {
+    const uint32_t z[10] = {
+        __funnelshift_r(e0, e1, 16), __funnelshift_r(o0, o1, 16), e1, o1,
+        __funnelshift_r(e1, e2, 16), __funnelshift_r(o1, o2, 16), e2, o2,
+        __funnelshift_r(e2, e3, 16), __funnelshift_r(o2, o3, 16)};
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+        const int n = (m & 1) + 4 * (m >> 1);
+        h[m] = (z[n] + z[n + 4]) + 4u * (z[n + 1] + z[n + 3]) + 6u * z[n + 2];
+    }
+}
+
+// Four columns c .. c + 3 as gray4 packs them, of which the first n lie
+// inside the image: the others take `last`, the last column's gray.
+__device__ __forceinline__ void clamp_right(uint32_t& e, uint32_t& o, int n, uint32_t last) {
+    const uint32_t both = last * 0x00010001u;
+    const uint32_t keep_e = (n >= 1 ? 0x0000FFFFu : 0u) | (n >= 3 ? 0xFFFF0000u : 0u);
+    const uint32_t keep_o = (n >= 2 ? 0x0000FFFFu : 0u) | (n >= 4 ? 0xFFFF0000u : 0u);
+    e = (e & keep_e) | (both & ~keep_e);
+    o = (o & keep_o) | (both & ~keep_o);
+}
+
+// Stores the run's n <= 8 bytes (lo: bytes 0-3, hi: 4-7) at dst.
+template <bool kAligned>
+__device__ __forceinline__ void store_run(uint8_t* dst, uint32_t lo, uint32_t hi, int n) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(dst);
+    if (n == RUN && (kAligned || (a & 7) == 0)) {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
+    } else if (n == RUN && (a & 3) == 0) {
+        reinterpret_cast<uint32_t*>(dst)[0] = lo;
+        reinterpret_cast<uint32_t*>(dst)[1] = hi;
+    } else {
+#pragma unroll
+        for (int k = 0; k < RUN; ++k) {
+            if (k < n) dst[k] = static_cast<uint8_t>((k < 4 ? lo : hi) >> (8 * (k & 3)));
+        }
+    }
+}
+
+// The n (even) words of bytes p .. p + 4 n - 1, p 8-byte aligned when kAligned.
+template <bool kAligned, int n>
+__device__ __forceinline__ void load_words(const uint8_t* p, uint32_t* w) {
+    if (kAligned) {
+#pragma unroll
+        for (int i = 0; i < n; i += 2) {
+            const uint2 q = reinterpret_cast<const uint2*>(p)[i / 2];
+            w[i] = q.x;
+            w[i + 1] = q.y;
+        }
+    } else {
+        const uint32_t* a = reinterpret_cast<const uint32_t*>(reinterpret_cast<uintptr_t>(p) & ~uintptr_t{3});
+        const int sh = 8 * static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
+        uint32_t v[n + 1];
+#pragma unroll
+        for (int i = 0; i <= n; ++i) v[i] = a[i];
+#pragma unroll
+        for (int i = 0; i < n; ++i) w[i] = __funnelshift_r(v[i], v[i + 1], sh);
+    }
+}
+
+// Dynamic shared memory: two staging buffers, their mbarriers, the histogram.
+constexpr int BUF_BYTES = HALO_H * RGB_STRIDE;
+constexpr int SMEM_BYTES = 2 * BUF_BYTES + 2 * 8 + 256 * 4;
+
+// kAligned: rgb and W are multiples of 16 and out of 8, so every staged row
+// starts on a 16-byte boundary (lead 0) and every run stores 8 bytes.
+//
+// A block stays resident and takes tiles blockIdx.x, + gridDim.x, ...; it
+// stages tile i + 1 in one buffer while it computes tile i from the other.
+template <bool kHistogram, bool kAligned>
 __global__ void __launch_bounds__(THREADS)
 gray_gauss_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ out,
-                  int* __restrict__ hist, int H, int W) {
-    __shared__ int gray[GAUSS_HALO_H][GAUSS_HALO_W];
-    __shared__ int vsum[GAUSS_TILE_H][GAUSS_HALO_W];
-    __shared__ int shist[kHistogram ? 256 : 1];
+                  int* __restrict__ hist, int H, int W, int tiles_x, int tiles) {
+    // buf[k] row r: image row clamp(y0 - 2 + r), from row byte 3 x0 - 16 - lead
+    // on. Once step 2 has read it, the same memory holds h_s: row r, word
+    // 4 l + m, the horizontal sums h[m] of columns x0 + 8 l .. + 7 (hsum8).
+    extern __shared__ __align__(16) uint8_t smem[];
+    auto buf = reinterpret_cast<uint8_t (*)[HALO_H][RGB_STRIDE]>(smem);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * BUF_BYTES);  // one mbarrier per buffer
+    int* shist = reinterpret_cast<int*>(full + 2);
 
-    const int tid = threadIdx.x;
-    const int x0 = blockIdx.x * GAUSS_TILE_W;
-    const int y0 = blockIdx.y * GAUSS_TILE_H;
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int W3 = 3 * W;
+    if (tid == 0) {
+        ipt::mbar_init(&full[0], HALO_H);
+        ipt::mbar_init(&full[1], HALO_H);
+    }
     if constexpr (kHistogram) {
         for (int b = tid; b < 256; b += THREADS) shist[b] = 0;
     }
-
-    for (int k = tid; k < GAUSS_HALO_H * GAUSS_HALO_W; k += THREADS) {
-        const int r = k / GAUSS_HALO_W;
-        const int c = k - r * GAUSS_HALO_W;
-        const int gy = min(max(y0 + r - GAUSS_RADIUS, 0), H - 1);
-        const int gx = min(max(x0 + c - GAUSS_RADIUS, 0), W - 1);
-        const uint8_t* p = rgb + (static_cast<size_t>(gy) * W + gx) * 3;
-        gray[r][c] = (static_cast<int>(__ldg(p)) + __ldg(p + 1) + __ldg(p + 2)) / 3;
-    }
     __syncthreads();
+    auto halo_row = [&](int y0, int r) {
+        return rgb + static_cast<size_t>(min(max(y0 + r - 2, 0), H - 1)) * W3;
+    };
+    // Row byte of a staged row's first byte: 16-byte aligned in memory (3 x0
+    // is a multiple of 16).
+    auto base_of = [&](int x0, const uint8_t* row) {
+        return 3 * x0 - 16 - (kAligned ? 0 : static_cast<int>(reinterpret_cast<uintptr_t>(row) & 15));
+    };
 
-    ipt::gauss5_tile<THREADS>(gray, vsum, y0, x0, H, W, [&](int y, int x, int val) {
-        out[static_cast<size_t>(y) * W + x] = static_cast<uint8_t>(val);
-        if constexpr (kHistogram) atomicAdd(&shist[val], 1);
-    });
+    // 1. Load tile t into buf[k]: thread r < HALO_H copies row r's chunks that
+    // lie inside the image in one bulk copy, and the bytes inside the image of
+    // the (at most two) chunks that straddle its left or right edge one by
+    // one. Bytes outside the image are not read: step 2 replicates the edge
+    // columns' gray values instead.
+    auto load = [&](int t, int k) {
+        if (tid >= HALO_H) return;
+        const int x0 = (t % tiles_x) * TILE_W, y0 = (t / tiles_x) * TILE_H;
+        const uint8_t* row = halo_row(y0, tid);
+        const int base = base_of(x0, row);
+        const int lo = base >= 0 ? 0 : (15 - base) / 16;   // first chunk from row byte 0 on
+        const int hi = min(RGB_CHUNKS, (W3 - base) / 16);  // chunks that end by row byte W3
+        const int n = max(hi - lo, 0);
+        uint8_t* dst = buf[k][tid];
+        ipt::fence_proxy_async();  // after the block's last generic access to buf[k]
+        ipt::mbar_arrive_expect_tx(&full[k], 16 * n);
+        if (n) ipt::bulk_load(dst + 16 * lo, row + base + 16 * lo, 16 * n, &full[k]);
+        auto copy_bytes = [&](int j) {  // the bytes of chunk j inside the row
+            for (int c = max(base + 16 * j, 0); c < min(base + 16 * j + 16, W3); ++c) {
+                dst[c - base] = __ldg(row + c);
+            }
+        };
+        if (lo > 0) copy_bytes(lo - 1);                       // holds row byte 0
+        if (hi < RGB_CHUNKS && hi != lo - 1) copy_bytes(hi);  // the row's last bytes, if any
+    };
+
+    const int first = blockIdx.x, step = gridDim.x;  // the launch makes first < tiles
+    load(first, 0);
+    __syncthreads();  // the first tile's edge bytes (later tiles': the loop's barriers)
+    for (int t = first, i = 0; t < tiles; t += step, ++i) {
+        const int k = i & 1;
+        if (t + step < tiles) load(t + step, k ^ 1);
+        const int x0 = (t % tiles_x) * TILE_W, y0 = (t / tiles_x) * TILE_H;
+        ipt::mbar_wait(&full[k], (i >> 1) & 1);
+
+        // 2. Gray and the horizontal pass: warp w takes halo rows w, w + TY,
+        // ...; lane l the 8 columns x0 + 8 l .. + 7 (RGB at byte 24 l + 16 +
+        // lead), and the two halo columns beyond the tile's edge, x0 - 2 and
+        // x0 - 1 for lane 0 (RGB at byte 10 + lead) and x0 + TILE_W and + 1
+        // for the others (byte 3 TILE_W + 16 + lead), which lanes 0 and 31
+        // need; the rest of each lane's halo comes from its neighbours. In
+        // the tiles at the image's left or right edge, columns left of 0 take
+        // column 0's gray and columns from W on take column W - 1's.
+        const bool at_edge = x0 == 0 || x0 + TILE_W + 2 > W;
+        uint32_t hreg[HALO_H / TY][4];
+#pragma unroll
+        for (int j = 0; j < HALO_H / TY; ++j) {
+            const int r = warp + TY * j;
+            const uint8_t* row_s = buf[k][r] + 16 + (3 * x0 - 16 - base_of(x0, halo_row(y0, r)));  // column x0
+            uint32_t w[6], u[2];
+            load_words<kAligned, 6>(row_s + 24 * lane, w);
+            load_words<kAligned, 2>(row_s + (lane == 0 ? -8 : 3 * TILE_W), u);
+            uint32_t ea, oa, eb, ob;
+            gray4(w[0], w[1], w[2], ea, oa);
+            gray4(w[3], w[4], w[5], eb, ob);
+            // The two halo columns: in the high halves for lane 0, else the low.
+            uint32_t ee = div3(__dp4a(u[1], lane == 0 ? 0x00000001u : 0u,
+                                      __dp4a(u[0], lane == 0 ? 0x01010000u : 0x00010101u, 0u)))
+                          << (lane == 0 ? 16 : 0);
+            uint32_t oe = div3(__dp4a(u[1], lane == 0 ? 0x01010100u : 0x00000101u,
+                                      __dp4a(u[0], lane == 0 ? 0u : 0x01000000u, 0u)))
+                          << (lane == 0 ? 16 : 0);
+            if (at_edge) {
+                const int c = min(W - 1 - x0, TILE_W + 1);  // the last column that counts
+                const uint8_t* p = row_s + 3 * c;
+                const uint32_t last = div3(p[0] + p[1] + p[2]);
+                const int n = W - x0 - RUN * lane;
+                clamp_right(ea, oa, n, last);
+                clamp_right(eb, ob, n - 4, last);
+                clamp_right(ee, oe, lane == 0 ? 4 : W - x0 - TILE_W, last);  // lane 0's lie left
+                if (x0 == 0 && lane == 0) ee = oe = ea << 16;  // column 0's gray
+            }
+            uint32_t el = __shfl_up_sync(0xFFFFFFFFu, eb, 1), ol = __shfl_up_sync(0xFFFFFFFFu, ob, 1);
+            uint32_t er = __shfl_down_sync(0xFFFFFFFFu, ea, 1), orr = __shfl_down_sync(0xFFFFFFFFu, oa, 1);
+            if (lane == 0) el = ee, ol = oe;
+            if (lane == 31) er = ee, orr = oe;
+            hsum8(el, ol, ea, oa, eb, ob, er, orr, hreg[j]);
+        }
+        __syncthreads();  // every read of buf[k] is done: its memory takes h_s
+        auto h_s = reinterpret_cast<uint32_t (*)[TILE_W / 2]>(buf[k]);
+#pragma unroll
+        for (int j = 0; j < HALO_H / TY; ++j) {
+            *reinterpret_cast<uint4*>(&h_s[warp + TY * j][4 * lane]) =
+                make_uint4(hreg[j][0], hreg[j][1], hreg[j][2], hreg[j][3]);
+        }
+        __syncthreads();
+
+        // 3. The vertical pass: lane l, warp w makes columns x .. x + 7 of
+        // output rows y0 + ROWS w .. + ROWS - 1 from h_s rows ROWS w .. ROWS w
+        // + ROWS + 3.
+        const int x = x0 + RUN * lane;
+        if (x < W) {
+            const int r0 = ROWS * warp;
+            uint32_t h[ROWS + 4][4];
+#pragma unroll
+            for (int j = 0; j < ROWS + 4; ++j) {
+                const uint4 q = *reinterpret_cast<const uint4*>(&h_s[r0 + j][4 * lane]);
+                h[j][0] = q.x;
+                h[j][1] = q.y;
+                h[j][2] = q.z;
+                h[j][3] = q.w;
+            }
+            const int n = min(RUN, W - x);
+#pragma unroll
+            for (int j = 0; j < ROWS; ++j) {
+                const int y = y0 + r0 + j;
+                if (y >= H) break;
+                uint32_t acc[4];
+#pragma unroll
+                for (int m = 0; m < 4; ++m) {
+                    acc[m] = (h[j][m] + h[j + 4][m] + 0x00800080u) +
+                             4u * (h[j + 1][m] + h[j + 3][m]) + 6u * h[j + 2][m];
+                }
+                // Each half's upper byte is its output: columns x .. x + 3, then x + 4 .. x + 7.
+                const uint32_t lo = __byte_perm(acc[0], acc[1], 0x7351);
+                const uint32_t hi = __byte_perm(acc[2], acc[3], 0x7351);
+                store_run<kAligned>(out + static_cast<size_t>(y) * W + x, lo, hi, n);
+                if constexpr (kHistogram) {
+                    if (n == RUN && lo == hi && lo == __byte_perm(lo, 0, 0)) {
+                        atomicAdd(&shist[lo & 0xFF], RUN);
+                    } else {
+#pragma unroll
+                        for (int q = 0; q < RUN; ++q) {
+                            if (q < n) atomicAdd(&shist[((q < 4 ? lo : hi) >> (8 * (q & 3))) & 0xFF], 1);
+                        }
+                    }
+                }
+            }
+        }
+        __syncthreads();  // step 3's reads of buf[k] are done before it is loaded again
+    }
 
     if constexpr (kHistogram) {
-        __syncthreads();
         for (int b = tid; b < 256; b += THREADS) {
             if (shist[b]) atomicAdd(&hist[b], shist[b]);
         }
     }
 }
 
+template <bool kHistogram, bool kAligned>
+int launch_kernel(const uint8_t* rgb, uint8_t* out, int* hist, int H, int W, int device,
+                  cudaStream_t stream) {
+    const auto kernel = gray_gauss_kernel<kHistogram, kAligned>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           SMEM_BYTES);
+    int sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, SMEM_BYTES);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int tiles_x = (W + TILE_W - 1) / TILE_W;
+    const int tiles = tiles_x * ((H + TILE_H - 1) / TILE_H);
+    const int grid = min(tiles, max(per_sm, 1) * sms);
+    kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(rgb, out, hist, H, W, tiles_x, tiles);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kHistogram>
 int launch(const void* rgb, void* out, void* hist, int H, int W, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((W + GAUSS_TILE_W - 1) / GAUSS_TILE_W, (H + GAUSS_TILE_H - 1) / GAUSS_TILE_H);
-    gray_gauss_kernel<kHistogram><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(rgb), static_cast<uint8_t*>(out),
-        static_cast<int*>(hist), H, W);
-    return static_cast<int>(cudaGetLastError());
+    const bool aligned = ((reinterpret_cast<uintptr_t>(rgb) | static_cast<uintptr_t>(W)) & 15) == 0 &&
+                         (reinterpret_cast<uintptr_t>(out) & 7) == 0;
+    const auto* in = static_cast<const uint8_t*>(rgb);
+    auto* o = static_cast<uint8_t*>(out);
+    auto* h = static_cast<int*>(hist);
+    const auto s = static_cast<cudaStream_t>(stream);
+    return aligned ? launch_kernel<kHistogram, true>(in, o, h, H, W, device, s)
+                   : launch_kernel<kHistogram, false>(in, o, h, H, W, device, s);
 }
 
 }  // namespace

@@ -42,7 +42,7 @@ import torch
 
 from imageprocessingtools_tpu_torch.kernels import _build
 
-_MAX_GRID_Y = 65535 * 32  # image rows per launch: grid.y tiles of 32 rows
+_MAX_GRID_Y = 65535 * 32  # image rows per stencil launch: grid.y tiles of 32 rows
 
 _GAUSS_TAPS = (1, 4, 6, 4, 1)
 _BOX = ((1, 1, 1),) * 3
@@ -213,7 +213,7 @@ def _check_rgb(name: str, img: torch.Tensor) -> None:
         raise TypeError(
             f"{name}: need a contiguous uint8[H, W, 3] tensor, got "
             f"{img.dtype} {tuple(img.shape)} contiguous={img.is_contiguous()}")
-    if img.shape[0] > _MAX_GRID_Y or img.numel() >= 2**31:
+    if img.numel() >= 2**31:
         raise RuntimeError(f"{name}: {img.shape[0]}x{img.shape[1]} is too large")
 
 

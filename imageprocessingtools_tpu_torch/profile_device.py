@@ -12,11 +12,12 @@ It prints the card's name and power limit, then one JSON object per line:
   time per call is the sum of the trace's device events (kernels, memcpys,
   memsets) over the 20 calls, divided by 20, also split by event name. The inputs are those of
   ``chip_smoke.py`` phase 3: noise from seed 1, its gray (made by the plain
-  ``core.grayscale_plain``, so that no kernel makes another's input), and
-  constant images. K8 is profiled with the empty chain (``grayscale``) and
+  ``core.grayscale_plain``, so that no kernel makes another's input),
+  constant images, and for K2 a diagonal gradient over 0..255. K8 is
+  profiled with the empty chain (``grayscale``) and
   with the full chain (invert, brightness 30, contrast 1.5, threshold 128).
   K1 is also profiled at 45 and 135 degrees. Back-to-back calls on one 4K
-  input find it in the 50 MB L2 cache, so K1, K6 and K8 are also profiled
+  input find it in the 50 MB L2 cache, so K1, K2, K6 and K8 are also profiled
   over four noise inputs in turn (seeds 1-4, 100 MB), and K7's three
   instances over their four grays in turn (33 MB, with the four outputs
   another 33 MB), where each call's input is cold or nearly so.
@@ -108,6 +109,9 @@ def profile_kernels(dev) -> None:
     grays_in_turn = itertools.cycle([core.grayscale_plain(x) for x in inputs])
     const_rgb = torch.full((H4K, W4K, 3), 201, dtype=torch.uint8, device=dev)
     gray, const = core.grayscale_plain(img), const_rgb[:, :, 0].contiguous()
+    ys, xs = torch.arange(H4K, device=dev)[:, None], torch.arange(W4K, device=dev)[None, :]
+    gradient = ((ys + xs) * 255 // (H4K + W4K - 2)).to(torch.uint8)[:, :, None].expand(
+        H4K, W4K, 3).contiguous()
     lut = _equalize_lut(core.histogram(gray), H4K * W4K)
     cases = {
         "K1 rotate 30, RGB": lambda: rotate.rotate_bicubic(img, 30.0),
@@ -116,6 +120,8 @@ def profile_kernels(dev) -> None:
         "K1 rotate 30, RGB, 4 inputs in turn": lambda: rotate.rotate_bicubic(next(in_turn), 30.0),
         "K2 gray_gauss_hist, noise": lambda: core.gray_gauss_hist(img),
         "K2 gray_gauss_hist, constant": lambda: core.gray_gauss_hist(const_rgb),
+        "K2 gray_gauss_hist, gradient": lambda: core.gray_gauss_hist(gradient),
+        "K2 gray_gauss_hist, 4 inputs in turn": lambda: core.gray_gauss_hist(next(in_turn)),
         "K3 lut_apply": lambda: core.lut_apply(gray, lut),
         "K4 histogram, noise": lambda: core.histogram(gray),
         "K4 histogram, constant": lambda: core.histogram(const),

@@ -39,6 +39,8 @@ CLASSES = {
     "LDS": lambda op: op.startswith("LDS"),
     "STS": lambda op: op.startswith("STS"),
     "STG": lambda op: op.startswith("STG"),
+    "ATOMS": lambda op: op.startswith("ATOMS"),
+    "IDP": lambda op: op.startswith("IDP"),
 }
 _INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 _PTXAS = re.compile(r"Function properties for (\S+)|Compiling entry function '(\S+)'"

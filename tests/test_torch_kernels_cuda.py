@@ -60,9 +60,43 @@ def test_rotate_kernel_matches_plain(cuda, shape, angle):
     assert torch.equal(out, exp)
 
 
-@pytest.mark.parametrize("shape", [(5, 17), (1, 1), (29, 130), (64, 300), (33, 129)])
-def test_gray_gauss_hist_kernel_matches_plain(cuda, shape):
-    img = _image(shape + (3,), seed=shape[0] * 1000 + shape[1]).to(cuda)
+def _rgb(cuda, shape, kind, offset):
+    """uint8[h, w, 3] on the card, as a contiguous view that starts ``offset``
+    bytes into a larger buffer (1-15: K2/K6's unaligned rows). Kinds: noise,
+    constant (one hot bin), white (the largest sums), checker (0/255, the
+    rounding), gradient (a diagonal ramp over 0..255)."""
+    h, w = shape
+    if kind == "noise":
+        img = _image((h, w, 3), seed=h * 1000 + w)
+    elif kind in ("constant", "white"):
+        img = torch.full((h, w, 3), 201 if kind == "constant" else 255, dtype=torch.uint8)
+    else:
+        ys, xs = torch.arange(h)[:, None], torch.arange(w)[None, :]
+        g = ((ys + xs) % 2 * 255 if kind == "checker"
+             else (ys + xs) * 255 // max(h + w - 2, 1)).to(torch.uint8)
+        img = g[:, :, None].expand(h, w, 3)
+    flat = torch.zeros(h * w * 3 + offset, dtype=torch.uint8, device=cuda)
+    flat[offset:] = img.reshape(-1).to(cuda)
+    view = flat[offset:].view(h, w, 3)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset % 16
+    return view
+
+
+# Widths whose 3W is not a multiple of 16 or whose last tile is ragged,
+# heights 1-4 (the halo larger than the image), each at four offsets; the
+# other kinds at a few shapes. The two largest have more tiles than the
+# card holds blocks, so each block stages one tile while it computes another.
+_GG_SHAPES = [(h, w) for h in (1, 2, 3, 4, 37) for w in (1, 2, 3, 4, 17, 130, 509, 3837, 4099)] + [
+    (5, 17), (7, 53), (29, 130), (33, 129), (64, 300), (5, 3840), (70, 256), (1081, 4099),
+    (2160, 3840)]
+_GG_CASES = [(shape, "noise", offset) for shape in _GG_SHAPES for offset in (0, 1, 6, 15)] + [
+    (shape, kind, offset) for kind in ("constant", "white", "checker", "gradient")
+    for shape in ((2, 3), (37, 509), (64, 300), (5, 3840), (37, 4099)) for offset in (0, 5)]
+
+
+@pytest.mark.parametrize("shape,kind,offset", _GG_CASES, ids=str)
+def test_gray_gauss_hist_kernel_matches_plain(cuda, shape, kind, offset):
+    img = _rgb(cuda, shape, kind, offset)
     before = core.gray_gauss_hist.launches
     blurred, hist = core.gray_gauss_hist(img)
     torch.cuda.synchronize()
@@ -73,10 +107,9 @@ def test_gray_gauss_hist_kernel_matches_plain(cuda, shape):
     assert int(hist.sum()) == shape[0] * shape[1]
 
 
-@pytest.mark.parametrize("shape", [(1, 1), (5, 17), (7, 53), (5, 3840), (29, 130), (33, 129),
-                                   (64, 300)])
-def test_gray_gauss_kernel_matches_plain(cuda, shape):
-    img = _image(shape + (3,), seed=shape[0] * 977 + shape[1]).to(cuda)
+@pytest.mark.parametrize("shape,kind,offset", _GG_CASES, ids=str)
+def test_gray_gauss_kernel_matches_plain(cuda, shape, kind, offset):
+    img = _rgb(cuda, shape, kind, offset)
     before = core.gray_gauss.launches
     out = core.gray_gauss(img)
     torch.cuda.synchronize()

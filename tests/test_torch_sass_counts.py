@@ -30,7 +30,9 @@ _SASS = """\
         /*0050*/                   LDS.64 R6, [R0] ;
         /*0060*/                   LDG.E.128.CONSTANT R8, desc[UR4][R2.64] ;
         /*0070*/                   DSETP.GEU.AND P0, PT, R2, R4, PT ;
-        /*0080*/                   EXIT ;
+        /*0080*/                   ATOMS.POPC.INC.32 RZ, [R3+UR4] ;
+        /*0090*/                   IDP.4A.U8.U8 R5, R6, R7, RZ ;
+        /*00a0*/                   EXIT ;
 \t\t..........
 \t\tFunction : _Z1gv
         /*0000*/                   MUFU.RSQ R0, R1 ;
@@ -43,8 +45,9 @@ def test_summarize_counts_each_class_per_function():
     assert [r["function"] for r in rows] == ["_Z1kPd", "_Z1gv"]
     k, g = rows
     assert (k["registers"], k["smem_bytes"], k["spill_store_bytes"]) == (72, 2048, 8)
-    assert k["instructions"] == 9
+    assert k["instructions"] == 11
     assert (k["DADD"], k["DMUL"], k["DSETP"], k["I2F.F64"], k["LDS"], k["LDG"]) == (2, 1, 1, 1, 1, 1)
-    assert k["DFMA"] == k["MUFU"] == k["STG"] == 0
+    assert (k["ATOMS"], k["IDP"]) == (1, 1)
+    assert k["DFMA"] == k["MUFU"] == k["STG"] == g["ATOMS"] == 0
     assert g["registers"] == 10 and "smem_bytes" not in g
     assert (g["instructions"], g["MUFU"], g["STG"]) == (2, 1, 1)
