@@ -307,13 +307,27 @@ def main() -> int:
     gray4k = core.grayscale_plain(img4k)
     const4k = torch.full((H4K, W4K), 201, dtype=torch.uint8, device=dev)
     one = torch.from_numpy(image((1, 1), seed=5)).to(dev)
-    for src, what in ((gray4k, "4K noise"), (const4k, "4K constant"), (one, "1x1")):
-        check("histogram", core.histogram(src), core.histogram_plain(src), what)
+    # Views 5 bytes into a buffer: K4 peels the bytes up to the first 16-byte
+    # boundary, K5 stages its rows at their own offset.
+    flat_gray = torch.empty(gray4k.numel() + 5, dtype=torch.uint8, device=dev)
+    flat_gray[5:] = gray4k.reshape(-1)
+    gray_view = flat_gray[5:].view(H4K, W4K)
+    gradient4k = ((ys + xs) * 255 // (H4K + W4K - 2)).to(torch.uint8)
+    for src, what in ((gray4k, "4K noise"), (const4k, "4K constant"), (one, "1x1"),
+                      (gradient4k, "4K gradient"), (gray_view, "4K view at byte 5")):
+        hist = core.histogram(src)
+        check("histogram", hist, core.histogram_plain(src), what)
+        if int(hist.sum()) != src.numel():
+            fail(f"histogram {what}: counts {int(hist.sum())} values of {src.numel()}")
     # K7 also at a width that is not a multiple of 16 (its unaligned path).
     stencil_inputs = [gray4k] + [torch.from_numpy(image(s, seed=6 + i)).to(dev)
                                  for i, s in enumerate([(37, 53), (1, 7), (5, 1),
                                                         (H4K, W4K - 3)])]
     edges4k = (gray4k > 127).to(torch.uint8) * 255  # reaches the clips and Sobel's largest m
+    # K5 where the halo is taller than the image, and on the unaligned view.
+    for src in [gray4k[:h].contiguous() for h in (1, 2, 3, 4)] + [gray_view]:
+        check("gaussian_blur", core.gaussian_blur(src), core.gaussian_blur_plain(src),
+              f"{tuple(src.shape)} at byte {src.data_ptr() % 16}")
     for name in ("gaussian_blur",) + STENCIL3:
         for src in stencil_inputs + [edges4k]:
             check(name, wrappers[name](src), plains[name](src), f"{tuple(src.shape)}")

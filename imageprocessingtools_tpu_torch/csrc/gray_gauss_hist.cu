@@ -56,10 +56,16 @@
 #include <cuda_runtime.h>
 
 #include "bulk_copy.cuh"
+#include "gauss_tile.cuh"
 
 namespace {
 
-constexpr int RUN = 8;                            // outputs per thread per row
+using ipt::RUN;                                   // outputs per thread per row
+using ipt::clamp_right;
+using ipt::hsum8;
+using ipt::load_words;
+using ipt::store_run;
+using ipt::vsum8;
 constexpr int TILE_W = 32 * RUN;                  // a warp spans the tile's width
 constexpr int TY = 4;                             // warps
 constexpr int TILE_H = 16;
@@ -83,76 +89,6 @@ __device__ __forceinline__ void gray4(uint32_t a, uint32_t b, uint32_t c, uint32
     const uint32_t g3 = div3(__dp4a(c, 0x01010100u, 0u));
     e = __byte_perm(g0, g2, 0x5410);
     o = __byte_perm(g1, g3, 0x5410);
-}
-
-// The horizontal 1-4-6-4-1 sums of columns x .. x + 7 from the gray of
-// columns x - 4 .. x + 11, four at a time as gray4 packs them ((e0, o0) for
-// x - 4 .. x - 1, of which only the high halves count, then (e1, o1),
-// (e2, o2) and (e3, o3), of which only the low halves count), as four
-// registers of two 16-bit halves: h[0] = (x, x + 2), h[1] = (x + 1, x + 3),
-// h[2] = (x + 4, x + 6), h[3] = (x + 5, x + 7). With z[n] = (g[x + n - 2],
-// g[x + n]), h[m] = z[n] + 4 z[n + 1] + 6 z[n + 2] + 4 z[n + 3] + z[n + 4] for
-// n = 0, 1, 4, 5.
-__device__ __forceinline__ void hsum8(uint32_t e0, uint32_t o0, uint32_t e1, uint32_t o1,
-                                      uint32_t e2, uint32_t o2, uint32_t e3, uint32_t o3,
-                                      uint32_t* h) {
-    const uint32_t z[10] = {
-        __funnelshift_r(e0, e1, 16), __funnelshift_r(o0, o1, 16), e1, o1,
-        __funnelshift_r(e1, e2, 16), __funnelshift_r(o1, o2, 16), e2, o2,
-        __funnelshift_r(e2, e3, 16), __funnelshift_r(o2, o3, 16)};
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-        const int n = (m & 1) + 4 * (m >> 1);
-        h[m] = (z[n] + z[n + 4]) + 4u * (z[n + 1] + z[n + 3]) + 6u * z[n + 2];
-    }
-}
-
-// Four columns c .. c + 3 as gray4 packs them, of which the first n lie
-// inside the image: the others take `last`, the last column's gray.
-__device__ __forceinline__ void clamp_right(uint32_t& e, uint32_t& o, int n, uint32_t last) {
-    const uint32_t both = last * 0x00010001u;
-    const uint32_t keep_e = (n >= 1 ? 0x0000FFFFu : 0u) | (n >= 3 ? 0xFFFF0000u : 0u);
-    const uint32_t keep_o = (n >= 2 ? 0x0000FFFFu : 0u) | (n >= 4 ? 0xFFFF0000u : 0u);
-    e = (e & keep_e) | (both & ~keep_e);
-    o = (o & keep_o) | (both & ~keep_o);
-}
-
-// Stores the run's n <= 8 bytes (lo: bytes 0-3, hi: 4-7) at dst.
-template <bool kAligned>
-__device__ __forceinline__ void store_run(uint8_t* dst, uint32_t lo, uint32_t hi, int n) {
-    const uintptr_t a = reinterpret_cast<uintptr_t>(dst);
-    if (n == RUN && (kAligned || (a & 7) == 0)) {
-        *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
-    } else if (n == RUN && (a & 3) == 0) {
-        reinterpret_cast<uint32_t*>(dst)[0] = lo;
-        reinterpret_cast<uint32_t*>(dst)[1] = hi;
-    } else {
-#pragma unroll
-        for (int k = 0; k < RUN; ++k) {
-            if (k < n) dst[k] = static_cast<uint8_t>((k < 4 ? lo : hi) >> (8 * (k & 3)));
-        }
-    }
-}
-
-// The n (even) words of bytes p .. p + 4 n - 1, p 8-byte aligned when kAligned.
-template <bool kAligned, int n>
-__device__ __forceinline__ void load_words(const uint8_t* p, uint32_t* w) {
-    if (kAligned) {
-#pragma unroll
-        for (int i = 0; i < n; i += 2) {
-            const uint2 q = reinterpret_cast<const uint2*>(p)[i / 2];
-            w[i] = q.x;
-            w[i + 1] = q.y;
-        }
-    } else {
-        const uint32_t* a = reinterpret_cast<const uint32_t*>(reinterpret_cast<uintptr_t>(p) & ~uintptr_t{3});
-        const int sh = 8 * static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
-        uint32_t v[n + 1];
-#pragma unroll
-        for (int i = 0; i <= n; ++i) v[i] = a[i];
-#pragma unroll
-        for (int i = 0; i < n; ++i) w[i] = __funnelshift_r(v[i], v[i + 1], sh);
-    }
 }
 
 // Dynamic shared memory: two staging buffers, their mbarriers, the histogram.
@@ -204,21 +140,7 @@ gray_gauss_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ out,
         if (tid >= HALO_H) return;
         const int x0 = (t % tiles_x) * TILE_W, y0 = (t / tiles_x) * TILE_H;
         const uint8_t* row = halo_row(y0, tid);
-        const int base = base_of(x0, row);
-        const int lo = base >= 0 ? 0 : (15 - base) / 16;   // first chunk from row byte 0 on
-        const int hi = min(RGB_CHUNKS, (W3 - base) / 16);  // chunks that end by row byte W3
-        const int n = max(hi - lo, 0);
-        uint8_t* dst = buf[k][tid];
-        ipt::fence_proxy_async();  // after the block's last generic access to buf[k]
-        ipt::mbar_arrive_expect_tx(&full[k], 16 * n);
-        if (n) ipt::bulk_load(dst + 16 * lo, row + base + 16 * lo, 16 * n, &full[k]);
-        auto copy_bytes = [&](int j) {  // the bytes of chunk j inside the row
-            for (int c = max(base + 16 * j, 0); c < min(base + 16 * j + 16, W3); ++c) {
-                dst[c - base] = __ldg(row + c);
-            }
-        };
-        if (lo > 0) copy_bytes(lo - 1);                       // holds row byte 0
-        if (hi < RGB_CHUNKS && hi != lo - 1) copy_bytes(hi);  // the row's last bytes, if any
+        ipt::stage_row<RGB_CHUNKS>(buf[k][tid], row, base_of(x0, row), W3, &full[k]);
     };
 
     const int first = blockIdx.x, step = gridDim.x;  // the launch makes first < tiles
@@ -302,15 +224,8 @@ gray_gauss_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ out,
             for (int j = 0; j < ROWS; ++j) {
                 const int y = y0 + r0 + j;
                 if (y >= H) break;
-                uint32_t acc[4];
-#pragma unroll
-                for (int m = 0; m < 4; ++m) {
-                    acc[m] = (h[j][m] + h[j + 4][m] + 0x00800080u) +
-                             4u * (h[j + 1][m] + h[j + 3][m]) + 6u * h[j + 2][m];
-                }
-                // Each half's upper byte is its output: columns x .. x + 3, then x + 4 .. x + 7.
-                const uint32_t lo = __byte_perm(acc[0], acc[1], 0x7351);
-                const uint32_t hi = __byte_perm(acc[2], acc[3], 0x7351);
+                uint32_t lo, hi;
+                vsum8(h[j], h[j + 1], h[j + 2], h[j + 3], h[j + 4], lo, hi);
                 store_run<kAligned>(out + static_cast<size_t>(y) * W + x, lo, hi, n);
                 if constexpr (kHistogram) {
                     if (n == RUN && lo == hi && lo == __byte_perm(lo, 0, 0)) {

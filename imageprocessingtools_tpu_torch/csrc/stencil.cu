@@ -9,19 +9,29 @@
 // The TPU kernels walked row blocks over the whole width and fetched the
 // neighbouring blocks for a row halo, padded the columns inside the kernel,
 // and needed the rows padded to a block multiple outside it. Here each block
-// loads its output tile plus the halo (radius 2 for K5, 1 for K7) into
-// shared memory with clamped coordinates, which gives replicate edges at any
-// H >= 1 and W >= 1 with no padding. Arithmetic is int32:
+// stages its output tile plus the halo (radius 2 for K5, 1 for K7) in shared
+// memory as the image's own bytes, which gives replicate edges at any H >= 1
+// and W >= 1 with no padding. Arithmetic is integer and exact:
 //
-// - K5 (a 32x128 tile, bytes loaded one by one into an int tile) runs the
-//   separable passes of gauss5.cuh, shared with K2;
+// - K5 is K2/K6's tile (gray_gauss_hist.cu) without its gray step: resident
+//   4-warp blocks walk 256x16 output tiles and stage the next tile's 20 halo
+//   rows (clamped at the top and bottom; one bulk copy per row on an
+//   mbarrier, bulk_copy.cuh) in one of two buffers while they compute the
+//   current one. A lane takes 8 columns of a row: it unpacks the 16 bytes
+//   around them into even and odd columns in 16-bit halves (two byte
+//   permutes a word), replicates the edge columns in those halves where the
+//   tile meets the image's left or right edge, and makes the horizontal
+//   1-4-6-4-1 sums two to a register; the vertical pass adds five rows of
+//   them in the same halves and stores 8 bytes (gauss_tile.cuh, shared with
+//   K2/K6). With one byte per pixel the sums (512 bytes a row) do not fit
+//   over the staged row (304), so they have a buffer of their own;
 // - K7 is one kernel template over three ops: box (2s+9)/18 (s >= 0, so the
 //   division is the floor); sharpen [0,-1,0; -1,5,-1; 0,-1,0] clipped to
 //   [0, 255]; Sobel clip(round_half_up(sqrt(gx^2 + gy^2)), 0, 255), exact
 //   (sobel_out below).
 //
 // What bounds them on an H100: bytes (1 read and 1 written per pixel, 8.3 MB
-// each way at 4K, plus halo re-reads of ~16% for K5 and ~6% of rows for K7).
+// each way at 4K, plus halo re-reads of 25% of rows for K5 and ~6% for K7).
 // K7's design is for that bound: a 256x32 tile whose halo rows are copied
 // as the image row's aligned 16-byte words, all in flight at once
 // (cp.async; a byte path only for chunks that cross the image's left or
@@ -35,39 +45,169 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
-#include "gauss5.cuh"
+#include "bulk_copy.cuh"
+#include "gauss_tile.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-
 // ---- K5 -------------------------------------------------------------------
 
-using ipt::GAUSS_HALO_H;
-using ipt::GAUSS_HALO_W;
-using ipt::GAUSS_RADIUS;
-using ipt::GAUSS_TILE_H;
-using ipt::GAUSS_TILE_W;
+using ipt::RUN;                         // outputs per thread per row
+constexpr int G_TILE_W = 32 * RUN;      // a warp spans the tile's width
+constexpr int G_TY = 4;                 // warps
+constexpr int G_TILE_H = 16;
+constexpr int G_ROWS = G_TILE_H / G_TY;  // output rows per thread
+constexpr int G_HALO_H = G_TILE_H + 4;
+constexpr int G_THREADS = 32 * G_TY;
+// 16-byte chunks per staged row: 16 bytes left of the tile, the tile and two
+// halo columns; with up to 15 bytes of lead, one chunk more.
+constexpr int G_CHUNKS = G_TILE_W / 16 + 2;
+constexpr int G_STRIDE = 16 * (G_CHUNKS + 1);
+constexpr int G_BUF_BYTES = G_HALO_H * G_STRIDE;
+constexpr int G_HS_BYTES = G_HALO_H * 2 * G_TILE_W;
+// Dynamic shared memory: two staging buffers, the sums, the mbarriers.
+constexpr int G_SMEM_BYTES = 2 * G_BUF_BYTES + G_HS_BYTES + 2 * 8;
+static_assert(G_HALO_H % G_TY == 0 && G_HALO_H <= G_THREADS, "a thread stages a halo row");
 
-__global__ void __launch_bounds__(THREADS)
-gaussian_blur_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ out, int H, int W) {
-    __shared__ int gray[GAUSS_HALO_H][GAUSS_HALO_W];
-    __shared__ int vsum[GAUSS_TILE_H][GAUSS_HALO_W];
+// Columns c .. c + 3 (the bytes of w) with even and odd columns apart, in
+// 16-bit halves: e = (c, c + 2), o = (c + 1, c + 3).
+__device__ __forceinline__ void unpack4(uint32_t w, uint32_t& e, uint32_t& o) {
+    e = __byte_perm(w, 0, 0x4240);
+    o = __byte_perm(w, 0, 0x4341);
+}
 
-    const int x0 = blockIdx.x * GAUSS_TILE_W;
-    const int y0 = blockIdx.y * GAUSS_TILE_H;
-    for (int k = threadIdx.x; k < GAUSS_HALO_H * GAUSS_HALO_W; k += THREADS) {
-        const int r = k / GAUSS_HALO_W;
-        const int c = k - r * GAUSS_HALO_W;
-        const int gy = min(max(y0 + r - GAUSS_RADIUS, 0), H - 1);
-        const int gx = min(max(x0 + c - GAUSS_RADIUS, 0), W - 1);
-        gray[r][c] = __ldg(src + static_cast<size_t>(gy) * W + gx);
+// kAligned: src and W are multiples of 16 and out of 8, so every staged row
+// starts on a 16-byte boundary (lead 0) and every run stores 8 bytes.
+//
+// A block stays resident and takes tiles blockIdx.x, + gridDim.x, ...; it
+// stages tile i + 1 in one buffer while it computes tile i from the other.
+template <bool kAligned>
+__global__ void __launch_bounds__(G_THREADS)
+gaussian_blur_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ out, int H, int W,
+                     int tiles_x, int tiles) {
+    // buf[k] row r: image row clamp(y0 - 2 + r), from column x0 - 16 - lead on,
+    // so that column x0 sits at byte 16 + lead. h_s row r, word 4 l + m: the
+    // horizontal sums h[m] of columns x0 + 8 l .. + 7 of that row (hsum8).
+    extern __shared__ __align__(16) uint8_t smem[];
+    auto buf = reinterpret_cast<uint8_t (*)[G_HALO_H][G_STRIDE]>(smem);
+    auto h_s = reinterpret_cast<uint32_t (*)[G_TILE_W / 2]>(smem + 2 * G_BUF_BYTES);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * G_BUF_BYTES + G_HS_BYTES);
+
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    if (tid == 0) {
+        ipt::mbar_init(&full[0], G_HALO_H);
+        ipt::mbar_init(&full[1], G_HALO_H);
     }
     __syncthreads();
+    auto halo_row = [&](int y0, int r) {
+        return src + static_cast<size_t>(min(max(y0 + r - 2, 0), H - 1)) * W;
+    };
+    // How far a row starts past a 16-byte boundary (x0 is a multiple of 16,
+    // so every tile of the row has the same lead).
+    auto lead_of = [&](const uint8_t* row) {
+        return kAligned ? 0 : static_cast<int>(reinterpret_cast<uintptr_t>(row) & 15);
+    };
+    // 1. Stage tile t in buf[k]: thread r < G_HALO_H stages halo row r.
+    auto load = [&](int t, int k) {
+        if (tid >= G_HALO_H) return;
+        const int x0 = (t % tiles_x) * G_TILE_W, y0 = (t / tiles_x) * G_TILE_H;
+        const uint8_t* row = halo_row(y0, tid);
+        ipt::stage_row<kAligned ? G_CHUNKS : G_CHUNKS + 1>(buf[k][tid], row,
+                                                           x0 - 16 - lead_of(row), W, &full[k]);
+    };
 
-    ipt::gauss5_tile<THREADS>(gray, vsum, y0, x0, H, W, [&](int y, int x, int val) {
-        out[static_cast<size_t>(y) * W + x] = static_cast<uint8_t>(val);
-    });
+    const int first = blockIdx.x, step = gridDim.x;  // the launch makes first < tiles
+    load(first, 0);
+    __syncthreads();  // the first tile's edge bytes (later tiles': the loop's barriers)
+    for (int t = first, i = 0; t < tiles; t += step, ++i) {
+        const int k = i & 1;
+        if (t + step < tiles) load(t + step, k ^ 1);
+        const int x0 = (t % tiles_x) * G_TILE_W, y0 = (t / tiles_x) * G_TILE_H;
+        ipt::mbar_wait(&full[k], (i >> 1) & 1);
+
+        // 2. The horizontal pass: warp w takes halo rows w, w + G_TY, ...; lane
+        // l the 8 columns x = x0 + 8 l .. + 7, from the 16 bytes of columns
+        // x - 4 .. x + 11 (lane 0's reach left to byte 12 + lead, lane 31's
+        // right to byte 283 + lead). In the tiles at the image's left or right
+        // edge, columns left of 0 take column 0's value and columns from W on
+        // take column W - 1's.
+        const bool at_edge = x0 == 0 || x0 + G_TILE_W + 2 > W;
+#pragma unroll
+        for (int j = 0; j < G_HALO_H / G_TY; ++j) {
+            const int r = warp + G_TY * j;
+            const uint8_t* row_s = buf[k][r] + 16 + lead_of(halo_row(y0, r));  // column x0
+            const uint8_t* p = row_s + RUN * lane;
+            uint32_t w[4];
+            if (kAligned) {
+                const uint2 q = *reinterpret_cast<const uint2*>(p);
+                w[0] = *reinterpret_cast<const uint32_t*>(p - 4);
+                w[1] = q.x;
+                w[2] = q.y;
+                w[3] = *reinterpret_cast<const uint32_t*>(p + 8);
+            } else {
+                ipt::load_words<false, 4>(p - 4, w);
+            }
+            uint32_t e[4], o[4];
+#pragma unroll
+            for (int g = 0; g < 4; ++g) unpack4(w[g], e[g], o[g]);
+            if (at_edge) {
+                const uint32_t last = row_s[min(W - 1 - x0, G_TILE_W + 1)];
+                const int n = W - x0 - RUN * lane;  // columns from x on inside the image
+#pragma unroll
+                for (int g = 1; g < 4; ++g) ipt::clamp_right(e[g], o[g], n - 4 * (g - 1), last);
+                if (x0 == 0 && lane == 0) e[0] = o[0] = e[1] << 16;  // column 0's value
+            }
+            uint32_t h[4];
+            ipt::hsum8(e[0], o[0], e[1], o[1], e[2], o[2], e[3], o[3], h);
+            *reinterpret_cast<uint4*>(&h_s[r][4 * lane]) = make_uint4(h[0], h[1], h[2], h[3]);
+        }
+        __syncthreads();
+
+        // 3. The vertical pass: lane l, warp w makes columns x .. x + 7 of
+        // output rows y0 + G_ROWS w .. + G_ROWS - 1 from h_s rows G_ROWS w ..
+        // G_ROWS w + G_ROWS + 3.
+        const int x = x0 + RUN * lane;
+        if (x < W) {
+            const int r0 = G_ROWS * warp;
+            uint32_t h[G_ROWS + 4][4];
+#pragma unroll
+            for (int j = 0; j < G_ROWS + 4; ++j) {
+                const uint4 q = *reinterpret_cast<const uint4*>(&h_s[r0 + j][4 * lane]);
+                h[j][0] = q.x;
+                h[j][1] = q.y;
+                h[j][2] = q.z;
+                h[j][3] = q.w;
+            }
+            const int n = min(RUN, W - x);
+#pragma unroll
+            for (int j = 0; j < G_ROWS; ++j) {
+                const int y = y0 + r0 + j;
+                if (y >= H) break;
+                uint32_t lo, hi;
+                ipt::vsum8(h[j], h[j + 1], h[j + 2], h[j + 3], h[j + 4], lo, hi);
+                ipt::store_run<kAligned>(out + static_cast<size_t>(y) * W + x, lo, hi, n);
+            }
+        }
+        __syncthreads();  // step 3's reads of h_s, and step 2's of buf[k], are done
+    }
+}
+
+template <bool kAligned>
+int launch_gaussian_blur(const uint8_t* src, uint8_t* out, int H, int W, int device,
+                         cudaStream_t stream) {
+    const auto kernel = gaussian_blur_kernel<kAligned>;
+    int sms = 0, per_sm = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, G_THREADS,
+                                                            G_SMEM_BYTES);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int tiles_x = (W + G_TILE_W - 1) / G_TILE_W;
+    const int tiles = tiles_x * ((H + G_TILE_H - 1) / G_TILE_H);
+    const int grid = min(tiles, max(per_sm, 1) * sms);
+    kernel<<<grid, G_THREADS, G_SMEM_BYTES, stream>>>(src, out, H, W, tiles_x, tiles);
+    return static_cast<int>(cudaGetLastError());
 }
 
 // ---- K7 -------------------------------------------------------------------
@@ -254,6 +394,8 @@ int launch_stencil3(const void* src, void* out, int H, int W, int device, void* 
     return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int THREADS = 256;  // of the test kernel below
+
 __global__ void sobel_out_kernel(int* out, int n) {
     const int m = blockIdx.x * blockDim.x + threadIdx.x;
     if (m < n) out[m] = sobel_out(m);
@@ -265,10 +407,13 @@ extern "C" int ipt_gaussian_blur(const void* src, void* out, int H, int W, int d
                                  void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((W + GAUSS_TILE_W - 1) / GAUSS_TILE_W, (H + GAUSS_TILE_H - 1) / GAUSS_TILE_H);
-    gaussian_blur_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(src), static_cast<uint8_t*>(out), H, W);
-    return static_cast<int>(cudaGetLastError());
+    const bool aligned = ((reinterpret_cast<uintptr_t>(src) | static_cast<uintptr_t>(W)) & 15) == 0 &&
+                         (reinterpret_cast<uintptr_t>(out) & 7) == 0;
+    const auto* in = static_cast<const uint8_t*>(src);
+    auto* o = static_cast<uint8_t*>(out);
+    const auto s = static_cast<cudaStream_t>(stream);
+    return aligned ? launch_gaussian_blur<true>(in, o, H, W, device, s)
+                   : launch_gaussian_blur<false>(in, o, H, W, device, s);
 }
 
 extern "C" int ipt_box_blur(const void* src, void* out, int H, int W, int device,

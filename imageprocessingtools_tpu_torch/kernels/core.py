@@ -12,9 +12,12 @@ Counterpart of ``imageprocessingtools_tpu/kernels/pallas_core.py``:
 - K3 ``lut_apply`` (``csrc/lut_apply.cu``) replaces ``lut_apply_pallas``:
   uint8 values through a uint8[256] LUT;
 - K4 ``histogram`` (``csrc/histogram.cu``) replaces ``histogram_pallas``:
-  uint8 values -> int32[256];
-- K5 ``gaussian_blur`` (``csrc/stencil.cu``) replaces
-  ``gaussian_blur_pallas``: the 5x5 binomial on uint8[H, W];
+  uint8 values -> int32[256], every bin stored by the launch (no zeroed
+  output);
+- K5 ``gaussian_blur`` (``csrc/stencil.cu``, K2/K6's tile without the gray
+  step; the packed arithmetic they share is ``csrc/gauss_tile.cuh``, the row
+  staging ``csrc/bulk_copy.cuh``) replaces ``gaussian_blur_pallas``: the 5x5
+  binomial on uint8[H, W];
 - K7 ``box_blur``, ``sharpen`` and ``sobel`` (``csrc/stencil.cu``, one
   template) replace ``box_blur_pallas``, ``sharpen_pallas`` and
   ``sobel_pallas`` (``_make_stencil3``): 3x3 stencils on uint8[H, W];
@@ -42,7 +45,7 @@ import torch
 
 from imageprocessingtools_tpu_torch.kernels import _build
 
-_MAX_GRID_Y = 65535 * 32  # image rows per stencil launch: grid.y tiles of 32 rows
+_MAX_GRID_Y = 65535 * 32  # image rows per K7 launch: grid.y tiles of 32 rows
 
 _GAUSS_TAPS = (1, 4, 6, 4, 1)
 _BOX = ((1, 1, 1),) * 3
@@ -196,13 +199,13 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_gray(name: str, img: torch.Tensor) -> None:
+def _check_gray(name: str, img: torch.Tensor, max_rows: int | None) -> None:
     _require_cuda(name, img)
     if img.dtype != torch.uint8 or img.ndim != 2 or not img.is_contiguous():
         raise TypeError(
             f"{name}: need a contiguous uint8[H, W] tensor, got "
             f"{img.dtype} {tuple(img.shape)} contiguous={img.is_contiguous()}")
-    if img.shape[0] > _MAX_GRID_Y or img.numel() >= 2**31:
+    if (max_rows is not None and img.shape[0] > max_rows) or img.numel() >= 2**31:
         raise RuntimeError(f"{name}: {img.shape[0]}x{img.shape[1]} is too large")
 
 
@@ -317,22 +320,25 @@ def histogram(values: torch.Tensor) -> torch.Tensor:
             f"histogram: need contiguous uint8 values, got {values.dtype} "
             f"contiguous={values.is_contiguous()}")
     _check_count(values)
-    hist = torch.zeros(256, dtype=torch.int32, device=values.device)
-    if values.numel():
-        status = _build.library().ipt_histogram(
-            values.data_ptr(), hist.data_ptr(), values.numel(),
-            values.device.index, _stream(values))
-        _build.check(status, "ipt_histogram")
-        histogram.launches += 1
+    if not values.numel():
+        return torch.zeros(256, dtype=torch.int32, device=values.device)
+    hist = torch.empty(256, dtype=torch.int32, device=values.device)  # K4 stores every bin
+    status = _build.library().ipt_histogram(
+        values.data_ptr(), hist.data_ptr(), values.numel(),
+        values.device.index, _stream(values))
+    _build.check(status, "ipt_histogram")
+    histogram.launches += 1
     return hist
 
 
-def _stencil(wrapper, entry: str, plain, img: torch.Tensor) -> torch.Tensor:
+def _stencil(wrapper, entry: str, plain, img: torch.Tensor,
+             max_rows: int | None = _MAX_GRID_Y) -> torch.Tensor:
     """The body of one stencil wrapper: ``plain`` on a CPU tensor, the C
-    entry point ``entry`` on a CUDA tensor (counted on ``wrapper``)."""
+    entry point ``entry`` on a CUDA tensor (counted on ``wrapper``).
+    ``max_rows``: the rows a 2-D grid of 32-row tiles can take (K7)."""
     if img.device.type == "cpu":
         return plain(img)
-    _check_gray(wrapper.__name__, img)
+    _check_gray(wrapper.__name__, img, max_rows)
     out = torch.empty_like(img)
     if out.numel():
         status = getattr(_build.library(), entry)(
@@ -345,7 +351,8 @@ def _stencil(wrapper, entry: str, plain, img: torch.Tensor) -> torch.Tensor:
 
 def gaussian_blur(img: torch.Tensor) -> torch.Tensor:
     """5x5 binomial, uint8[H, W] -> uint8[H, W]: K5 on CUDA, plain on CPU."""
-    return _stencil(gaussian_blur, "ipt_gaussian_blur", gaussian_blur_plain, img)
+    return _stencil(gaussian_blur, "ipt_gaussian_blur", gaussian_blur_plain, img,
+                    max_rows=None)  # a 1-D grid of resident blocks
 
 
 def box_blur(img: torch.Tensor) -> torch.Tensor:

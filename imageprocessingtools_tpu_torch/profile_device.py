@@ -13,14 +13,19 @@ It prints the card's name and power limit, then one JSON object per line:
   memsets) over the 20 calls, divided by 20, also split by event name. The inputs are those of
   ``chip_smoke.py`` phase 3: noise from seed 1, its gray (made by the plain
   ``core.grayscale_plain``, so that no kernel makes another's input),
-  constant images, and for K2 a diagonal gradient over 0..255. K8 is
+  constant images, and for K2 and K4 a diagonal gradient over 0..255. K8 is
   profiled with the empty chain (``grayscale``) and
   with the full chain (invert, brightness 30, contrast 1.5, threshold 128).
   K1 is also profiled at 45 and 135 degrees. Back-to-back calls on one 4K
   input find it in the 50 MB L2 cache, so K1, K2, K6 and K8 are also profiled
-  over four noise inputs in turn (seeds 1-4, 100 MB), and K7's three
-  instances over their four grays in turn (33 MB, with the four outputs
-  another 33 MB), where each call's input is cold or nearly so.
+  over four noise inputs in turn (seeds 1-4, 100 MB), and K4, K5 and K7's
+  three instances over their four grays in turn (33 MB; with K5's and K7's
+  four outputs another 33 MB), where each call's input is cold or nearly so.
+  Each line carries ``events``, the number of device events in its trace:
+  a case is printed only if every event name occurs 20 times as often as in
+  one profiled single call; a trace that lost events is taken again, and
+  after five attempts the run stops with a non-zero exit code and names
+  the case.
 - ``{"serving": "split", ...}``: ``serving.process_files`` with the four
   presets over 8 4K and 2 1080p P6 files (seeds 40-49, as in
   ``chip_smoke.py`` phase 6), sequential (no reader or writer thread),
@@ -79,10 +84,24 @@ def busy_us(events: list[dict]) -> float:
     return total
 
 
-def _profiled(fn, attempts: int = 3):
+def lost_events(events: list[dict], per_call: dict[str, int], reps: int) -> dict[str, list[int]]:
+    """``{name: [found, wanted]}`` for every event name whose count in
+    ``events``, the trace of ``reps`` calls, is not ``reps`` times its count
+    in one call (``per_call``). Empty when the trace is complete."""
+    found = collections.Counter(e["name"] for e in events)
+    return {name: [found[name], reps * per_call.get(name, 0)]
+            for name in sorted(set(found) | set(per_call))
+            if found[name] != reps * per_call.get(name, 0)}
+
+
+ATTEMPTS = 5
+
+
+def _profiled(fn, attempts: int = ATTEMPTS):
     """The device events of one profiled call of ``fn``. After many
     profiles in one process the tracer has returned a trace without device
-    events; such a profile is taken again, up to ``attempts`` times."""
+    events, also several times in a row; such a profile is taken again after
+    a pause, up to ``attempts`` times."""
     for attempt in range(attempts):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -93,6 +112,7 @@ def _profiled(fn, attempts: int = 3):
         except RuntimeError:
             if attempt == attempts - 1:
                 raise
+            time.sleep(0.5)
 
 
 def _image(shape, seed: int) -> np.ndarray:
@@ -112,6 +132,7 @@ def profile_kernels(dev) -> None:
     ys, xs = torch.arange(H4K, device=dev)[:, None], torch.arange(W4K, device=dev)[None, :]
     gradient = ((ys + xs) * 255 // (H4K + W4K - 2)).to(torch.uint8)[:, :, None].expand(
         H4K, W4K, 3).contiguous()
+    gradient_gray = gradient[:, :, 0].contiguous()
     lut = _equalize_lut(core.histogram(gray), H4K * W4K)
     cases = {
         "K1 rotate 30, RGB": lambda: rotate.rotate_bicubic(img, 30.0),
@@ -125,7 +146,10 @@ def profile_kernels(dev) -> None:
         "K3 lut_apply": lambda: core.lut_apply(gray, lut),
         "K4 histogram, noise": lambda: core.histogram(gray),
         "K4 histogram, constant": lambda: core.histogram(const),
+        "K4 histogram, gradient": lambda: core.histogram(gradient_gray),
+        "K4 histogram, 4 inputs in turn": lambda: core.histogram(next(grays_in_turn)),
         "K5 gaussian_blur": lambda: core.gaussian_blur(gray),
+        "K5 gaussian_blur, 4 inputs in turn": lambda: core.gaussian_blur(next(grays_in_turn)),
         "K6 gray_gauss": lambda: core.gray_gauss(img),
         "K7 box_blur": lambda: core.box_blur(gray),
         "K7 sharpen": lambda: core.sharpen(gray),
@@ -145,12 +169,30 @@ def profile_kernels(dev) -> None:
     for label, fn in cases.items():
         fn()  # warm-up: the build, the first launch
         torch.cuda.synchronize()
-        events = _profiled(lambda: [fn() for _ in range(REPS)])
+        events = _complete_trace(label, fn)
         by_name = collections.Counter()
         for e in events:
             by_name[e["name"][:80]] += e["dur"] / REPS
         print(json.dumps({"kernel": label, "device_us_per_call": sum(by_name.values()),
+                          "events": len(events),
                           "by_name": dict(by_name.most_common())}), flush=True)
+
+
+def _complete_trace(label: str, fn) -> list[dict]:
+    """The device events of ``REPS`` profiled calls of ``fn``, checked
+    against one profiled single call: every event name must occur ``REPS``
+    times as often. A trace that lost events (or a single call that did) is
+    taken again, up to ``ATTEMPTS`` times; then the run stops, so that no
+    time is ever printed from a short trace."""
+    for _ in range(ATTEMPTS):
+        per_call = collections.Counter(e["name"] for e in _profiled(fn))
+        events = _profiled(lambda: [fn() for _ in range(REPS)])
+        lost = lost_events(events, per_call, REPS)
+        if not lost:
+            return events
+    raise SystemExit(f"profile_device: case {label!r}: the trace of {REPS} calls does not hold "
+                     f"{REPS} x one call's events after {ATTEMPTS} attempts "
+                     f"(name: [found, wanted]): {json.dumps(lost)}")
 
 
 def profile_serving(tmp: str) -> None:

@@ -117,6 +117,31 @@ def test_gray_gauss_kernel_matches_plain(cuda, shape, kind, offset):
     assert out.dtype == torch.uint8 and torch.equal(out, core.gray_gauss_plain(img))
 
 
+def _gray(cuda, shape, kind, offset):
+    """uint8[h, w] on the card: ``_rgb``'s red plane, as a contiguous view
+    that starts ``offset`` bytes into a larger buffer (K5's unaligned rows)."""
+    h, w = shape
+    plane = _rgb(cuda, shape, kind, 0)[:, :, 0]
+    flat = torch.zeros(h * w + offset, dtype=torch.uint8, device=cuda)
+    flat[offset:] = plane.reshape(-1)
+    view = flat[offset:].view(h, w)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset % 16
+    return view
+
+
+# K5 walks K2/K6's tiles on one byte per pixel: the same shapes, offsets and
+# kinds (rows that are not 16-byte aligned, ragged last tiles, a halo larger
+# than the image, more tiles than resident blocks).
+@pytest.mark.parametrize("shape,kind,offset", _GG_CASES, ids=str)
+def test_gaussian_blur_kernel_matches_plain(cuda, shape, kind, offset):
+    img = _gray(cuda, shape, kind, offset)
+    before = core.gaussian_blur.launches
+    out = core.gaussian_blur(img)
+    torch.cuda.synchronize()
+    assert core.gaussian_blur.launches == before + 1
+    assert out.dtype == torch.uint8 and torch.equal(out, core.gaussian_blur_plain(img))
+
+
 _FULL_CHAIN = (("invert", 0), ("brightness", 30), ("contrast", 1.5), ("threshold", 128))
 _CHAINS = [(), _FULL_CHAIN, (("invert", 0),), (("brightness", 30),), (("brightness", -40),),
            (("threshold", 128),)] + [(("contrast", f),) for f in (0.5, 1.37, 1.5, 2.0)]
@@ -171,20 +196,94 @@ def test_lut_apply_kernel_matches_plain(cuda, n, offset):
     assert torch.equal(out, core.lut_apply_plain(values, lut))
 
 
+def _check_histogram(values):
+    before = core.histogram.launches
+    hist = core.histogram(values)
+    torch.cuda.synchronize()
+    assert core.histogram.launches == before + 1
+    assert hist.dtype == torch.int32 and torch.equal(hist, core.histogram_plain(values))
+    assert int(hist.sum()) == values.numel()
+
+
 @pytest.mark.parametrize("kind", ["noise", "constant", "offset"])
 @pytest.mark.parametrize("shape", [(1, 1), (5, 17), (37, 53), (64, 300), (1, 4099)])
 def test_histogram_kernel_matches_plain(cuda, shape, kind):
     img = _image(shape, seed=shape[0] * 31 + shape[1]).to(cuda)
     if kind == "constant":
         img.fill_(201)
-    elif kind == "offset":  # an unaligned view takes the byte-wise loop
+    elif kind == "offset":  # an unaligned view: the bytes before the first 16-byte boundary
         img = _image((img.numel() + 1,), seed=shape[1]).to(cuda)[1:]
-    before = core.histogram.launches
-    hist = core.histogram(img)
+    _check_histogram(img)
+
+
+def _values(cuda, n, kind, offset=0):
+    """uint8[n] on the card as a view ``offset`` bytes into a buffer. Kinds:
+    noise, constant (one bin, runs of 16 equal bytes), gradient (runs of
+    equal bytes that end inside a 16-byte word), two (values 32 apart: one
+    bank in a block-wide layout)."""
+    if kind == "noise":
+        v = _image((n,), seed=n % 9973 + offset)
+    elif kind == "constant":
+        v = torch.full((n,), 201, dtype=torch.uint8)
+    elif kind == "gradient":
+        v = (torch.arange(n) * 255 // max(n - 1, 1)).to(torch.uint8)
+    else:
+        v = (torch.arange(n) % 2 * 32 + 7).to(torch.uint8)
+    flat = torch.zeros(n + offset, dtype=torch.uint8, device=cuda)
+    flat[offset:] = v.to(cuda)
+    view = flat[offset:]
+    assert view.data_ptr() % 16 == offset % 16
+    return view
+
+
+@pytest.mark.parametrize("kind", ["noise", "constant", "gradient", "two"])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4099, 2160 * 3840])
+def test_histogram_kernel_counts_every_size(cuda, n, kind):
+    _check_histogram(_values(cuda, n, kind))
+
+
+@pytest.mark.parametrize("kind", ["noise", "gradient"])
+@pytest.mark.parametrize("n", [1, 17, 4099, 1 << 20])
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_histogram_kernel_counts_unaligned_views(cuda, offset, n, kind):
+    _check_histogram(_values(cuda, n, kind, offset))
+
+
+def test_histogram_kernel_counts_a_large_constant_buffer(cuda):
+    """2^26 + 5 equal bytes: one bin takes every count (a counter narrower
+    than 32 bits would have to fold before it wraps), from a view 3 bytes in."""
+    values = _values(cuda, (1 << 26) + 5, "constant", 3)
+    _check_histogram(values)
+    assert int(core.histogram(values)[201]) == values.numel()
+
+
+def test_histogram_kernel_on_two_streams_at_once(cuda):
+    """Calls on different streams run together; each stream has its own
+    arrival words, so neither disturbs the other's counts."""
+    inputs = [_values(cuda, 2160 * 3840, kind) for kind in ("noise", "gradient")]
+    want = [core.histogram_plain(v) for v in inputs]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
     torch.cuda.synchronize()
-    assert core.histogram.launches == before + 1
-    assert hist.dtype == torch.int32 and torch.equal(hist, core.histogram_plain(img))
-    assert int(hist.sum()) == img.numel()
+    got = [[], []]
+    for _ in range(25):
+        for k, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                got[k].append(core.histogram(inputs[k]))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for hist in got[k]:
+            assert torch.equal(hist, want[k])
+
+
+def test_histogram_kernel_needs_no_zeroed_output(cuda):
+    """Back-to-back calls reuse the allocator's block for the output: the
+    launch stores every bin, whatever the block held."""
+    values = _values(cuda, 4099, "two")
+    for _ in range(3):
+        hist = core.histogram(values)
+        assert torch.equal(hist, core.histogram_plain(values))
+        hist.fill_(-1)
+        del hist
 
 
 _STENCILS = [
