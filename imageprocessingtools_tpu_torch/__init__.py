@@ -9,6 +9,7 @@ pipeline, the presets and batched serving:
   ops/       torch ops on HWC uint8 tensors            (ref: ppmx-edward.c:477-1003)
   kernels/   hand-written CUDA kernels (csrc/*.cu) and their plain torch versions
   models/    named preset pipelines
+  parallel/  batches of images through the same ops on one device
   pipeline   fixed-order op pipeline                   (ref: ppmx-edward.c:1053-1172)
   cli        flag-compatible command line              (ref: ppmx-edward.c:117-205)
   serving    batched files -> decode -> device -> encode, and its CLI ``serve``
@@ -50,7 +51,9 @@ from imageprocessingtools_tpu_torch.ops import (  # noqa: F401
     invert,
     mono_dither,
     pack_bits_device,
+    resize,
     resize_width,
+    resize_width_exact,
     rotate,
     rotate_exact,
     sharpen,

@@ -5,9 +5,10 @@ Counterpart of the ``IPT_PLATFORM`` pin in ``imageprocessingtools_tpu/cli.py``.
 an error unless ``cpu`` was asked for: nothing falls back to the CPU behind
 the caller's back.
 
-Float32 matrix products run in full float32 (TF32 off), the torch form of the
-JAX package's ``Precision.HIGH``/``HIGHEST`` on its parity matmuls
-(``imageprocessingtools_tpu/ops/resize.py``).
+Float32 matrix products run in full float32 (TF32 off). No path of the port
+multiplies matrices; the setting serves ``ops/resize.py::resize_width_dense``,
+the dense form of the JAX package's resize kept as a yardstick, as the torch
+form of that package's ``Precision.HIGH``/``HIGHEST``.
 """
 
 from __future__ import annotations

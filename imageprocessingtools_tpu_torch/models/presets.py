@@ -5,7 +5,7 @@ same compositions. On a CUDA tensor the stages run through the port's
 kernels: ``edge_detect`` through K6 (gray fused into the Gaussian, as XLA
 fuses the two stages for the JAX package) and K7 (Sobel), ``enhance``
 through K8 (gray), K4, K3 and K7 (sharpen), ``print_ready`` through K8, K4
-and K3.
+and K3, ``thumbnail`` through K9 (one launch per axis; exact, like the rest).
 """
 
 from __future__ import annotations

@@ -4,6 +4,10 @@ Counterpart of ``imageprocessingtools_tpu/ops/common.py``. The reference
 rounds with ``floor(v + 0.5)`` (round-half-up, ``ppmx-edward.c:27``) and
 clamps with ``< 0 -> 0``, ``>= 256 -> 255`` (``ppmx-edward.c:831-837``).
 ``torch.round`` rounds half to even and must never be used on a parity path.
+
+The JAX package's ``float_stage_budget`` has no counterpart here: the port
+has no inexact stage (rotation and resize are f64 in the C's order), so every
+chain is held byte-equal to the golden model.
 """
 
 from __future__ import annotations
@@ -27,15 +31,3 @@ def quantize_u8(acc: torch.Tensor) -> torch.Tensor:
     """round-half-up + reference clamp + uint8 cast (resize epilogue)."""
     return clamp_u8(round_half_up(acc))
 
-
-def float_stage_budget(has_resize: bool) -> int:
-    """Max |ours - reference| in LSB for an op chain of the port.
-
-    Resize is the port's only float stage that is not exact: each of its
-    two passes is an fp32 matrix product whose sum order differs from the
-    C's f64 tap loop, so each quantized pass may round one step the other
-    way, and the second pass can stack on the first (the JAX package's
-    budget of 2, ``imageprocessingtools_tpu/ops/common.py``). Arbitrary
-    rotation is f64 in the C's order, hence exact, and adds nothing.
-    """
-    return 2 if has_resize else 0

@@ -1,17 +1,17 @@
-"""Separable bicubic resize to a target width (``-wN``).
+"""Separable bicubic resize: ``-wN`` and an explicit (H, W) target, exact.
 
-Counterpart of ``imageprocessingtools_tpu/ops/resize.py::resize_width``. The
-reference's taps (``ppmx-edward.c:516-641``) are scattered on the host into
-dense float64 weight matrices (``_exact.dense_weights``), cast to float32,
-and applied as two fp32 matrix products on the device with TF32 off (see
-``device.py``): ``quantize(W_h @ img)`` and ``quantize(img @ W_w^T)``, the
-smaller scale first, with the reference's uint8 requantization between
-passes (``ppmx-edward.c:1102-1120``). The fp32 sums carry the budget of
-``ops/common.py::float_stage_budget``.
+Counterpart of ``imageprocessingtools_tpu/ops/resize.py``. The reference's
+taps (``ppmx-edward.c:516-641``, ``_exact.calc_contributions``) are applied as
+they are, one pass per axis through ``kernels/resize.py::resize_pass`` (K9 on
+a CUDA tensor): f64 sums in the C's tap order, the smaller scale first, with
+the reference's uint8 requantization between the passes
+(``ppmx-edward.c:1102-1120``). Every geometry takes this one path and every
+result is byte-identical to the C, so the port has no inexact op and no
+budget. The tables stay on the device per geometry; nothing leaves it.
 
-Geometries whose dense matrices would be enormous (extreme aspect ratios,
-``_dense_infeasible``) take a float64 host tap path in the C's order
-instead, which is bit-exact.
+The JAX package multiplies by dense float32 weight matrices instead, because
+the TPU has a matrix unit and neither f64 nor a fast gather; that form is kept
+here as ``resize_width_dense``, a yardstick for K9's time that no path calls.
 """
 
 from __future__ import annotations
@@ -21,75 +21,76 @@ import functools
 import numpy as np
 import torch
 
+from imageprocessingtools_tpu_torch.kernels import resize as _k9
 from imageprocessingtools_tpu_torch.ops import _exact
 from imageprocessingtools_tpu_torch.ops.common import quantize_u8
 
-# Dense weight matrices above this element count take the f64 host path.
-_DENSE_LIMIT = 2**28
 
-
-def _dense_infeasible(height: int, width: int, new_width: int) -> bool:
-    new_height = _exact.resize_output_height(height, width, new_width)
-    if new_height < 1:
-        return False  # let plan_resize raise the B7 surface
-    return max(new_height * height, new_width * width) > _DENSE_LIMIT
-
-
-@functools.lru_cache(maxsize=32)
-def _resize_plan_arrays(height: int, width: int, new_width: int):
-    """((dim, float32[out, in]), ...) in pass order; host numpy only."""
-    plan = _exact.plan_resize(height, width, new_width)
-    mats = []
-    for dim, contrib in plan.passes:
-        in_size = height if dim == 0 else width
-        mats.append((dim, _exact.dense_weights(contrib, in_size).astype(np.float32)))
-    return tuple(mats)
-
-
-def _apply_pass(img: torch.Tensor, weight: torch.Tensor, dim: int) -> torch.Tensor:
-    squeeze = img.ndim == 2
-    src = (img[:, :, None] if squeeze else img).to(torch.float32)
-    if dim == 0:
-        acc = torch.einsum("oh,hwc->owc", weight, src)
-    else:
-        acc = torch.einsum("ow,hwc->hoc", weight, src)
-    out = quantize_u8(acc).contiguous()
-    return out[:, :, 0] if squeeze else out
-
-
-def _apply_contributions(img: np.ndarray, contrib: _exact.Contributions, dim: int) -> np.ndarray:
-    """One pass on the host in f64 with the C's tap order
-    (``ppmx-edward.c:820-868``; copy of ``golden/model.py::_apply_contributions``)."""
-    indices, weights = contrib.indices, contrib.weights
-    out_size, taps = indices.shape
-    src = img.astype(np.float64)
-    trail = (1,) * (img.ndim - 2)
-    if dim == 0:
-        acc = np.zeros((out_size,) + img.shape[1:], dtype=np.float64)
-        for z in range(taps):
-            acc += src[indices[:, z], :] * weights[:, z].reshape(-1, 1, *trail)
-    else:
-        acc = np.zeros(img.shape[:1] + (out_size,) + img.shape[2:], dtype=np.float64)
-        for z in range(taps):
-            acc += src[:, indices[:, z]] * weights[:, z].reshape(1, -1, *trail)
-    acc = np.floor(acc + 0.5)
-    out = np.where(acc < 0.0, 0.0, np.where(acc >= 256.0, 255.0, acc))
-    return out.astype(np.uint8)
+def _apply(img: torch.Tensor, target) -> torch.Tensor:
+    out = img.contiguous()
+    for dim, idx, w in _k9.device_passes(img.shape[0], img.shape[1], target, img.device):
+        out = _k9.resize_pass(out, idx, w, dim)
+    return out
 
 
 def resize_width(img: torch.Tensor, new_width: int) -> torch.Tensor:
     """Resize to ``new_width``; height = trunc(H * new_width / W) (B6).
 
     MATLAB-imresize-compatible bicubic with antialiasing on downscale and
-    mirror boundaries; raises the reference's B7/B9 messages as ValueError.
+    mirror boundaries, byte-identical to the C; raises the reference's B7/B9
+    messages as ValueError. uint8[H, W, C] or uint8[H, W].
     """
-    height, width, new_width = img.shape[0], img.shape[1], int(new_width)
-    if _dense_infeasible(height, width, new_width):
-        out = img.cpu().numpy()
-        for dim, contrib in _exact.plan_resize(height, width, new_width).passes:
-            out = _apply_contributions(out, contrib, dim)
-        return torch.from_numpy(out).to(img.device)
+    return _apply(img, int(new_width))
+
+
+def resize_width_exact(img: torch.Tensor, new_width: int) -> torch.Tensor:
+    """``resize_width`` under the JAX package's name for its f64 mode (a host
+    loop there, since the TPU has no f64; here the one path is already exact)."""
+    return resize_width(img, new_width)
+
+
+def resize(img: torch.Tensor, new_height: int, new_width: int) -> torch.Tensor:
+    """Library extension: resize to an explicit (new_height, new_width), with
+    the same taps, pass order and exact sums as ``resize_width``. Outputs
+    beyond the resource caps raise up front (a clear extension message, not
+    the ``-wN`` parity surface)."""
+    new_height, new_width = int(new_height), int(new_width)
+    if new_height < 1 or new_width < 1:
+        raise ValueError("invalid option for new width\n")
+    if (
+        max(new_height, new_width) > _exact._MAX_RESIZE_DIM
+        or new_height * new_width > _exact._MAX_RESIZE_OUT_PX
+    ):
+        raise ValueError(
+            f"resize output {new_height}x{new_width} exceeds the supported "
+            f"bound (dim <= 2^26, pixels <= 2^31)"
+        )
+    return _apply(img, (new_height, new_width))
+
+
+@functools.lru_cache(maxsize=8)
+def _dense_device_weights(height: int, width: int, new_width: int, device: torch.device):
+    """((dim, float32[out, in] on ``device``), ...) in pass order."""
+    plan = _exact.plan_resize(height, width, new_width)
+    return tuple(
+        (dim, torch.from_numpy(
+            _exact.dense_weights(contrib, height if dim == 0 else width).astype(np.float32)
+        ).to(device))
+        for dim, contrib in plan.passes)
+
+
+def resize_width_dense(img: torch.Tensor, new_width: int) -> torch.Tensor:
+    """``resize_width`` in the JAX package's dense form: two float32 matrix
+    products (TF32 off, see ``device.py``) by the taps scattered into
+    [out, in] matrices, which stay on the device per geometry. Within 2 of
+    ``resize_width`` (each quantized pass may round one step the other way).
+    A yardstick for K9's time; no path of the port calls it."""
     out = img
-    for dim, weight in _resize_plan_arrays(height, width, new_width):
-        out = _apply_pass(out, torch.from_numpy(weight).to(img.device), dim)
+    for dim, weight in _dense_device_weights(img.shape[0], img.shape[1], int(new_width),
+                                             img.device):
+        squeeze = out.ndim == 2
+        src = (out[:, :, None] if squeeze else out).to(torch.float32)
+        pattern = "oh,hwc->owc" if dim == 0 else "ow,hwc->hoc"
+        out = quantize_u8(torch.einsum(pattern, weight, src)).contiguous()
+        out = out[:, :, 0] if squeeze else out
     return out

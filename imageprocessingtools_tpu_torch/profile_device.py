@@ -2,8 +2,10 @@
 
 Run from the root of the repository, with one CUDA card:
 
-    python -m imageprocessingtools_tpu_torch.profile_device
+    python -m imageprocessingtools_tpu_torch.profile_device [WORD ...]
 
+With words, only the kernel cases whose label holds one of them are profiled
+(``K9``, ``rotate``), and the serving runs only if ``serving`` is among them.
 It prints the card's name and power limit, then one JSON object per line:
 
 - ``{"kernel": label, ...}``: each kernel wrapper (and the two kernel forms
@@ -16,7 +18,10 @@ It prints the card's name and power limit, then one JSON object per line:
   constant images, and for K2 and K4 a diagonal gradient over 0..255. K8 is
   profiled with the empty chain (``grayscale``) and
   with the full chain (invert, brightness 30, contrast 1.5, threshold 128).
-  K1 is also profiled at 45 and 135 degrees. Back-to-back calls on one 4K
+  K1 is also profiled at 45 and 135 degrees, and K9 (two launches per resize,
+  listed by kernel name) through ``resize_width`` at 4K -> 1920, 4K -> 256
+  (the ``thumbnail`` preset), 1080p -> 3840 and 4K gray -> 1920, beside the
+  dense float32 form ``resize_width_dense`` at 4K -> 1920. Back-to-back calls on one 4K
   input find it in the 50 MB L2 cache, so K1, K2, K6 and K8 are also profiled
   over four noise inputs in turn (seeds 1-4, 100 MB), and K4, K5 and K7's
   three instances over their four grays in turn (33 MB; with K5's and K7's
@@ -119,11 +124,13 @@ def _image(shape, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, 256, size=shape, dtype=np.uint8)
 
 
-def profile_kernels(dev) -> None:
+def profile_kernels(dev, words=()) -> None:
     from imageprocessingtools_tpu_torch.kernels import core, fused, rotate
     from imageprocessingtools_tpu_torch.ops.histogram import _equalize_lut
+    from imageprocessingtools_tpu_torch.ops.resize import resize_width, resize_width_dense
 
     img = torch.from_numpy(_image((H4K, W4K, 3), seed=1)).to(dev)
+    img_1080 = torch.from_numpy(_image((1080, 1920, 3), seed=5)).to(dev)
     inputs = [img] + [torch.from_numpy(_image((H4K, W4K, 3), seed=s)).to(dev) for s in (2, 3, 4)]
     in_turn = itertools.cycle(inputs)
     grays_in_turn = itertools.cycle([core.grayscale_plain(x) for x in inputs])
@@ -165,8 +172,17 @@ def profile_kernels(dev) -> None:
         "flagship mega": lambda: fused.fused_pipeline_mega(img),
         "flagship staged": lambda: fused.fused_pipeline_staged(img),
         "edge_detect": lambda: core.sobel(core.gray_gauss(img)),
+        "K9 resize_width 4K -> 1920, RGB": lambda: resize_width(img, 1920),
+        "K9 resize_width 4K -> 1920, RGB, 4 inputs in turn":
+            lambda: resize_width(next(in_turn), 1920),
+        "K9 resize_width 4K -> 256, RGB": lambda: resize_width(img, 256),
+        "K9 resize_width 1080p -> 3840, RGB": lambda: resize_width(img_1080, 3840),
+        "K9 resize_width 4K -> 1920, gray": lambda: resize_width(gray, 1920),
+        "dense resize_width_dense 4K -> 1920, RGB": lambda: resize_width_dense(img, 1920),
     }
     for label, fn in cases.items():
+        if words and not any(word in label for word in words):
+            continue
         fn()  # warm-up: the build, the first launch
         torch.cuda.synchronize()
         events = _complete_trace(label, fn)
@@ -251,17 +267,19 @@ def profile_serving(tmp: str) -> None:
                           **{f"{k}_ms": v for k, v in copies.items()}}), flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     from imageprocessingtools_tpu_torch import device
 
+    words = tuple(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_device: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     dev = device.get_device()
-    profile_kernels(dev)
-    with tempfile.TemporaryDirectory() as tmp:
-        profile_serving(tmp)
+    profile_kernels(dev, words)
+    if not words or "serving" in words:
+        with tempfile.TemporaryDirectory() as tmp:
+            profile_serving(tmp)
     return 0
 
 

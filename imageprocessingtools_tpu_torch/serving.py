@@ -6,9 +6,10 @@ reference is one image per process (decode, op chain, encode,
 over many files: files are bucketed by shape, each bucket is decoded in
 chunks of at most ``max_batch`` images by the native C++ batch decoder,
 each chunk is uploaded once to the device that ``IPT_DEVICE`` names and run
-through the pipeline there one image at a time (the JAX package's ``vmap``
-has no counterpart here), P4 bits are packed on the device, and the outputs
-come back once per chunk and are encoded by the native threaded encoder.
+through the pipeline there by ``parallel.batch_apply`` (a loop over the
+images on one stream, where the JAX package has ``vmap``), P4 bits are packed
+on the device, and the outputs come back once per chunk and are encoded by
+the native threaded encoder.
 A reader and a writer thread overlap decode and encode with the device.
 
 Not ported (ROADMAP): ``mesh=`` sharding and ``process_file_spatial``; and
@@ -23,11 +24,9 @@ import queue
 import threading
 
 import numpy as np
-import torch
 
 from imageprocessingtools_tpu_torch.codec import native, ppm
 from imageprocessingtools_tpu_torch.codec.ppm import FILETYPE_PBM
-from imageprocessingtools_tpu_torch.device import get_device
 from imageprocessingtools_tpu_torch.models import (
     PRESET_FILE_TYPES,
     get_preset,
@@ -35,6 +34,7 @@ from imageprocessingtools_tpu_torch.models import (
 )
 from imageprocessingtools_tpu_torch.ops import _exact
 from imageprocessingtools_tpu_torch.ops.packing import pack_bits_device
+from imageprocessingtools_tpu_torch.parallel.batch import batch_apply
 from imageprocessingtools_tpu_torch.pipeline import PipelineConfig, run_pipeline
 
 
@@ -160,13 +160,7 @@ def process_batch(images, config: PipelineConfig | str | tuple):
     image, and every fan-out element, runs on that copy.
     """
     one, file_type = _task_fn(config)
-    batch = torch.as_tensor(images).to(get_device())
-    outs = [one(batch[i]) for i in range(batch.shape[0])]
-    if isinstance(file_type, tuple):
-        out = tuple(torch.stack([o[k] for o in outs]) for k in range(len(file_type)))
-    else:
-        out = torch.stack(outs)
-    return out, file_type
+    return batch_apply(one, images), file_type
 
 
 def _encode_chunk(idxs, out_np, file_type, unpacked, paths, metas, suffix,

@@ -17,11 +17,17 @@ machine without JAX:
 
 from __future__ import annotations
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from imageprocessingtools_tpu_torch.kernels import core, fused, rotate
+from imageprocessingtools_tpu_torch.kernels import resize as k9
+
+# ``from ...ops import resize`` would give the function the package exports.
+resize_ops = importlib.import_module("imageprocessingtools_tpu_torch.ops.resize")
 
 pytestmark = pytest.mark.cuda
 
@@ -333,6 +339,114 @@ def test_sobel_root_is_exact_for_every_m(cuda):
         "ipt_sobel_out_test")
     m = torch.arange(n, dtype=torch.int32)
     assert torch.equal(out.cpu(), stencil._isqrt_round(m).clamp(max=255))
+
+
+def _resize_plain(img, target):
+    """The two passes of a resize through K9's plain version (no launch)."""
+    out = img
+    for dim, idx, w in k9.device_passes(img.shape[0], img.shape[1], target, img.device):
+        out = k9.resize_pass_plain(out, idx, w, dim)
+    return out
+
+
+def _check_resize(img, target):
+    before = k9.resize_pass.launches
+    if isinstance(target, tuple):
+        out = resize_ops.resize(img, *target)
+    else:
+        out = resize_ops.resize_width(img, target)
+    torch.cuda.synchronize()
+    assert k9.resize_pass.launches == before + 2
+    exp = _resize_plain(img, target)
+    assert out.dtype == torch.uint8 and out.shape == exp.shape and out.is_contiguous()
+    assert torch.equal(out, exp)
+
+
+# Down- and upscales, RGB and 2-D gray, rows that are and are not 4-byte
+# aligned, fewer source pixels than taps (5x7 -> 2, 3x3 -> 40), one row, more
+# taps than a staged chunk (40x400 -> 20: 82), more outputs and rows than one
+# block, source columns that do not fit in shared memory (400x20000 -> 100) and
+# that nearly fill it (2000x5000 gray -> 5: 4002 taps over all 5000 columns).
+@pytest.mark.parametrize("shape,new_width", [
+    ((48, 64, 3), 32), ((48, 64, 3), 100), ((37, 53, 3), 32), ((37, 53), 32), ((37, 53), 77),
+    ((5, 7, 3), 2), ((3, 3, 3), 40), ((1, 64, 3), 128), ((1, 64), 128), ((64, 1, 3), 3),
+    ((40, 400, 3), 20), ((40, 400), 20), ((400, 40, 3), 3), ((270, 480, 3), 240),
+    ((270, 480), 241), ((1079, 1913, 3), 777), ((135, 240, 3), 480), ((400, 20000, 3), 100),
+    ((400, 20000), 100), ((2000, 5000, 3), 5), ((2000, 5000), 5),
+])
+def test_resize_kernel_matches_plain(cuda, shape, new_width):
+    _check_resize(_image(shape, seed=sum(shape) + new_width).to(cuda), new_width)
+
+
+@pytest.mark.parametrize("shape,target", [
+    ((40, 30, 3), (20, 90)), ((40, 30), (90, 20)), ((33, 47, 3), (33, 47)),
+    ((400, 6, 3), (9, 300)), ((6, 400), (300, 9)), ((9, 9, 3), (1, 1)),
+])
+def test_resize_to_explicit_shape_kernel_matches_plain(cuda, shape, target):
+    _check_resize(_image(shape, seed=sum(shape) + sum(target)).to(cuda), target)
+
+
+@pytest.mark.parametrize("seed", range(40))
+def test_resize_kernel_matches_plain_on_random_geometries(cuda, seed):
+    """A seeded sweep: heights and widths 1-300, 1 or 3 channels or 2-D, a
+    target width from a 20th to 4 times the width (those whose height
+    truncates to 0 raise on both sides and are drawn again)."""
+    rng = np.random.default_rng(1000 + seed)
+    while True:
+        h, w = (int(v) for v in rng.integers(1, 301, size=2))
+        new_width = max(1, int(w * float(rng.choice([0.05, 0.3, 0.5, 0.9, 1.0, 1.7, 4.0]))))
+        if h * new_width >= w:
+            break
+    shape = [(h, w), (h, w, 1), (h, w, 3)][int(rng.integers(0, 3))]
+    _check_resize(torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8)).to(cuda),
+                  new_width)
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_resize_pass_kernel_on_unaligned_views(cuda, offset, dim):
+    """A view that starts off a 4-byte boundary: dim 0 takes its byte loads."""
+    h, w = 36, 48
+    flat = _image((h * w * 3 + offset,), seed=offset).to(cuda)
+    img = flat[offset:].view(h, w, 3)
+    assert img.is_contiguous() and img.data_ptr() % 4 == offset
+    _, idx, wts = k9.device_passes(h, w, (18, 24), cuda)[1 - dim]
+    assert torch.equal(k9.resize_pass(img, idx, wts, dim),
+                       k9.resize_pass_plain(img, idx, wts, dim))
+
+
+def test_resize_pass_kernel_keeps_the_tables_order(cuda):
+    """Taps that only the order of the sum tells apart, on equal pixels of
+    200: weights (2^60, 1, -2^60) lose the middle term (the sum is 0), and
+    (2^60, -2^60, 1) keep it (200). Repeated and backwards indices are taken
+    as they are."""
+    img = torch.full((3, 200, 3), 200, dtype=torch.uint8, device=cuda)
+    idx = torch.tensor([[2, 1, 0, 0], [0, 0, 1, 2]], dtype=torch.int32, device=cuda)
+    big = 2.0 ** 60
+    wts = torch.tensor([[big, 1.0, -big, 0.0], [big, -big, 1.0, 0.0]],
+                       dtype=torch.float64, device=cuda)
+    for dim, src in ((0, img), (1, img.transpose(0, 1).contiguous())):
+        out = k9.resize_pass(src, idx, wts, dim)
+        assert torch.equal(out, k9.resize_pass_plain(src, idx, wts, dim))
+        rows = out if dim == 0 else out.transpose(0, 1)
+        assert int(rows[0].max()) == 0 and int(rows[1].min()) == 200
+
+
+def test_resize_pass_refuses_what_the_kernel_does_not_take(cuda):
+    img = _image((8, 10, 3), seed=1).to(cuda)
+    _, idx, wts = k9.device_passes(8, 10, 5, cuda)[0]
+    with pytest.raises(TypeError):
+        k9.resize_pass(img.transpose(0, 1), idx, wts, 0)  # not contiguous
+    with pytest.raises(TypeError):
+        k9.resize_pass(img[:, :, :2].contiguous(), idx, wts, 0)  # 1 or 3 channels
+    with pytest.raises(TypeError):
+        k9.resize_pass(img, idx.to(torch.int64), wts, 0)
+    with pytest.raises(TypeError):
+        k9.resize_pass(img, idx, wts.to(torch.float32), 0)
+    with pytest.raises(TypeError):
+        k9.resize_pass(img, idx.cpu(), wts.cpu(), 0)  # tables on another device
+    with pytest.raises(ValueError):
+        k9.resize_pass(img, idx, wts, 2)
 
 
 def test_fused_mega_matches_plain(cuda):

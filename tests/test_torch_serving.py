@@ -5,8 +5,10 @@ Each case writes the same P6 inputs (numpy seeds) into two directories and
 serves one with each package. Exit codes, stdout and the skip lines on
 stderr must be equal, and every output file must exist on both sides with
 the same bytes. Tolerance: none, except for outputs of a chain with a
-resize (``thumbnail``, ``-wN``), whose pixels are held to
-``float_stage_budget(True)`` (2) with identical headers.
+resize (``thumbnail``, ``-wN``): the port's are exact (held byte-equal to the
+golden model below), the JAX package's are float32 matrix products, so the
+two are held to that package's ``float_stage_budget(True, False)`` (2) with
+identical headers.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ import torch
 
 from imageprocessingtools_tpu import serve as jax_serve
 from imageprocessingtools_tpu.codec import native as jax_native
+from imageprocessingtools_tpu.golden import model as golden
+from imageprocessingtools_tpu.ops.common import float_stage_budget as jax_budget
 from imageprocessingtools_tpu_torch import serve, serving
 from imageprocessingtools_tpu_torch.codec import native, ppm
-from imageprocessingtools_tpu_torch.ops.common import float_stage_budget
 from imageprocessingtools_tpu_torch.ops.packing import pack_bits_device
 from imageprocessingtools_tpu_torch.pipeline import PipelineConfig
 from tests.conftest import make_gradient, make_image
@@ -77,7 +80,54 @@ def _assert_same_outputs(jax_files, port_files, resize_chain=False):
         assert type_a == type_b and a.shape == b.shape, name
         assert got.split(b"\n", 3)[:3] == exp.split(b"\n", 3)[:3], name
         diff = np.abs(a.astype(np.int32) - b.astype(np.int32)).max()
-        assert diff <= float_stage_budget(True), (name, diff)
+        assert diff <= jax_budget(True, False), (name, diff)
+
+
+def _golden_chain(img, flags, max_color):
+    """The reference's fixed order on the golden model, encoded."""
+    out, file_type = img, ppm.FILETYPE_PPM
+    for f in flags:
+        if f.startswith("-w"):
+            out = golden.resize_width(out, int(f[2:]))
+    for f in flags:
+        if f.startswith("-r"):
+            out = golden.rotate(out, float(f[2:]))
+    if "-gray" in flags:
+        out, file_type = golden.grayscale(out), ppm.FILETYPE_PGM
+    if "-mono" in flags:
+        out, file_type = golden.mono_dither(out), ppm.FILETYPE_PBM
+    if "-fv" in flags:
+        out = golden.flip_vertical(out)
+    if "-fh" in flags:
+        out = golden.flip_horizontal(out)
+    return ppm.encode_ppm(out, file_type, max_color)
+
+
+def _assert_resize_outputs_golden(directory, files, args):
+    """Every output of the port whose chain has a resize (``thumbnail``, a
+    ``-wN`` fan-out element, ``-wN`` reference flags) is byte-equal to the
+    golden model's: the port's resize is exact. Returns how many it held."""
+    held = 0
+    for name, got in files.items():
+        stem, _, rest = name.partition(".ppm")
+        tag = rest[1:-len(".out")].strip(".")
+        if not tag and "--preset" in args:  # one preset alone: no tag in the name
+            tag = args[args.index("--preset") + 1]
+        if tag in ("edge_detect", "enhance", "print_ready"):
+            continue
+        if tag == "thumbnail":
+            flags = ["-w256"]
+        elif tag:
+            flags = ["-" + part for part in tag.split("-")]
+        else:
+            flags = [a for a in args if a.startswith("-") and not a.startswith("--")]
+        if not any(f.startswith("-w") for f in flags):
+            continue
+        with open(os.path.join(directory, stem + ".ppm"), "rb") as f:
+            img, max_color = ppm.decode_ppm(f.read())
+        assert got == _golden_chain(img, flags, max_color), name
+        held += 1
+    return held
 
 
 def _both(tmp_path, capsys, args, shapes=TWO_BUCKETS, bad=False, before=None,
@@ -86,6 +136,8 @@ def _both(tmp_path, capsys, args, shapes=TWO_BUCKETS, bad=False, before=None,
     port = _serve(serve.main, tmp_path / "port", args, shapes, capsys, bad, before)
     assert port[:3] == jax[:3]
     _assert_same_outputs(jax[3], port[3], resize_chain)
+    held = _assert_resize_outputs_golden(tmp_path / "port", port[3], args)
+    assert held > 0 or not resize_chain
     return port
 
 
