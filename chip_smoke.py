@@ -91,9 +91,12 @@ CHAINS = [(), (("invert", 0),), (("brightness", 30),), (("brightness", -40),),
 # The card's peak rates (NVIDIA's H100 SXM data sheet, at 700 W), per ms:
 # HBM3 bytes; float32 operations outside the tensor cores, which also bound
 # the integer kernels (their values are integers below 2^24, exact in f32).
-# K1's and K9's f64 operations may not be fused (one FMA moves a truncated
-# or rounded byte), so each takes a whole FP64 issue slot: 132 SMs x 64 lanes x 1.98 GHz, about
-# 16.7 T op/s, half the data sheet's 34 TFLOP/s, which counts an FMA as two.
+# K1's and K9's products may not be contracted into their sums (one FMA
+# there moves a truncated or rounded byte), so each counted operation takes a
+# whole FP64 issue slot: 132 SMs x 64 lanes x 1.98 GHz, about 16.7 T op/s,
+# half the data sheet's 34 TFLOP/s, which counts an FMA as two. K9's product
+# is one DFMA that rounds once (an exact addend, csrc/resize.cu::tap): one
+# slot, one counted operation.
 HBM_BYTES_PER_MS = 3.35e9
 F32_OPS_PER_MS = 67e9
 F64_UNFUSED_OPS_PER_MS = 17e9
@@ -178,10 +181,11 @@ def resize_cost(passes, shape) -> tuple[int, float]:
     between the passes is the reference's own); every output byte takes one
     multiply and one add per tap of its table as it is (pruned columns are
     gone, zero weights that stayed are counted). The tables' bytes, the
-    byte -> f64 step, the rounding add and the clamp are not counted."""
+    product's addend (one multiply per tap and thread), the rounding add and
+    the clamp are not counted."""
     shape = list(shape) + [1] * (3 - len(shape))
     nbytes, ops = 0, 0.0
-    for dim, idx, _ in passes:
+    for dim, idx, *_ in passes:
         nbytes += shape[0] * shape[1] * shape[2]
         shape[dim] = idx.shape[0]
         out_bytes = shape[0] * shape[1] * shape[2]
@@ -369,7 +373,7 @@ def main() -> int:
     # down.
     def resize_plain(src, target):
         out = src
-        for dim, idx, w in k9.device_passes(src.shape[0], src.shape[1], target, src.device):
+        for dim, idx, w, *_ in k9.device_passes(src.shape[0], src.shape[1], target, src.device):
             out = k9.resize_pass_plain(out, idx, w, dim)
         return out
 
@@ -440,13 +444,15 @@ def main() -> int:
         "stencil3": bound(2 * px, SOBEL_OPS * px),
         "fused_elementwise": bound(4 * px, GRAY_OPS * px),
     }
-    # K9's least times: the three timed geometries (the first is the entry's).
+    # K9's least times: the three timed geometries (the first is the entry's)
+    # and 4K gray -> 1920, which profile_device.py times.
     resize_bounds = {
         name: bound(*resize_cost(k9.device_passes(src.shape[0], src.shape[1], target, dev),
                                  src.shape), F64_UNFUSED_OPS_PER_MS)
         for name, src, target in (("resize_pass", img4k, 1920),
                                   ("resize_pass_4k_to_256", img4k, 256),
-                                  ("resize_pass_1080p_to_3840", img1080, 3840))}
+                                  ("resize_pass_1080p_to_3840", img1080, 3840),
+                                  ("resize_pass_4k_gray_to_1920", gray4k, 1920))}
     bounds["resize_pass"] = resize_bounds["resize_pass"]
     # K1's least time at the other angles that profile_device.py times.
     rotate_bounds = {angle: bound(*rotate_cost(torch, rotate, img4k, angle), F64_UNFUSED_OPS_PER_MS)

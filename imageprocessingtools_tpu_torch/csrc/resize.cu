@@ -13,29 +13,33 @@
 //   dim 1: out[y, o, c] = quantize(sum_z src[y, idx[o, z], c] * w[o, z])
 //
 // over z = 0 .. taps - 1 in that order, from 0.0, each product and each sum
-// rounded on its own (__dmul_rn, __dadd_rn: one contracted FMA moves a rounded
-// byte), then floor(acc + 0.5), < 0 -> 0, >= 256 -> 255. The tables are used
-// as they are: mirrored indices repeat and run backwards near an edge, and
-// zero-weight taps stay (adding 0.0 * px is exact). One launch per pass; the
-// uint8 image between the two passes of a resize is the C's own. The tap loop
-// is a run-time loop (8 taps at 4K -> 1920, 57 at 4K -> 256, tens of thousands
-// for extreme aspect ratios): nothing is sized by the tap count. Offsets are
+// rounded once on its own (tap: the product one exact fused operation, the sum
+// its own __dadd_rn; a product contracted into its sum moves a rounded byte),
+// then floor(acc + 0.5), < 0 -> 0, >= 256 -> 255. The tables are used as they
+// are: mirrored indices repeat and run backwards near an edge, and zero-weight
+// taps stay (adding 0.0 * px is exact). One launch per pass; the uint8 image
+// between the two passes of a resize is the C's own. The tap loop is a
+// run-time loop (8 taps at 4K -> 1920, 57 at 4K -> 256, tens of thousands for
+// extreme aspect ratios): nothing is sized by the tap count. Offsets are
 // 64-bit and both grids are one-dimensional, so no 65535 limit applies.
 //
-// What bounds it on an H100: f64 operations, one multiply and one add per
-// byte and tap, none fused, each a whole FP64 issue slot (132 SMs x 64
-// lanes, about 16.7 T op/s): 299 M at 4K -> 1920, about 18 us, against 56 MB,
-// 17 us. The kernel is far from that bound (PERF.md has its times and what
-// its cuts showed): what a tap costs beside its two counted operations is
-// the byte's way into an f64 register. The byte becomes f64 by the exact
-// 2^52 trick (one more DADD; an int -> f64 conversion issues at a quarter of
-// the f64 rate), after a byte permute (PRMT) and, in dim 1, two shared loads
-// and a funnel shift per pixel, all of which issue at the f64 rate or below.
+// What bounds it on an H100: f64 operations, one product and one sum per
+// byte and tap, each a whole FP64 issue slot (132 SMs x 64 lanes, about 16.7
+// T op/s): 299 M at 4K -> 1920, about 18 us, against 56 MB, 17 us. A tap is
+// exactly those two (DFMA, DADD) and one DMUL per tap and thread for the
+// product's addend; the byte needs no conversion (its bits go under 2^52's
+// exponent), only a byte permute (PRMT) and, in dim 1, two shared loads and a
+// funnel shift per pixel, all of which issue at the f64 rate or below. The
+// kernel is still far from the bound (PERF.md has its times and what its cuts
+// and stamps showed).
 //
-// - dim 0: a thread owns 8 neighbouring bytes of one output row, so a tap is
-//   one aligned 8-byte load (byte loads where rows or buffers are not 8-byte
-//   aligned); idx[o, z] and w[o, z] are the same for the whole block and are
-//   read as broadcasts.
+// - dim 0: a thread owns vec (8, 4, 2 or 1) neighbouring bytes of one output
+//   row, so a tap is one aligned vec-byte load (byte loads where rows or
+//   buffers are not vec-byte aligned); idx[o, z] and w[o, z] are the same for
+//   the whole block and are read as broadcasts. The host picks vec
+//   (kernels/resize.py::rows_vec): the most bytes a thread that still give
+//   every SM 4 blocks, so that a narrow output (4K -> 256: 144 rows of 768
+//   bytes) fills the card with 864 blocks rather than 144.
 // - dim 1: a block owns 128 neighbouring outputs of a strip of image rows
 //   and walks the strip 4 rows at a time; the grid is one wave of resident
 //   blocks. The block finds the source columns its tables reach (their least
@@ -43,8 +47,8 @@
 //   case) and stages those columns of the next steps' rows in shared memory
 //   as the image's aligned 16-byte chunks (cp.async; as many steps ahead as
 //   put 8 KB in flight per block, at most 3: beyond that, shared memory is
-//   better spent on more resident blocks). The tables are staged transposed, so that
-//   neighbouring threads read neighbouring words: once per block where the
+//   better spent on more resident blocks). The tables are staged transposed,
+//   so that neighbouring threads read neighbouring words: once per block where the
 //   taps fit one chunk of 16, else chunk by chunk in every step. A tap is
 //   then one index, one weight and, per row, one pixel (3 bytes from two
 //   aligned words and a funnel shift) from shared memory. Where the columns
@@ -60,7 +64,6 @@
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int VEC = 8;        // dim 0: bytes per thread
 constexpr int ROWS = 4;       // dim 1: image rows per step of a block
 constexpr int TAPS = 16;      // dim 1: most taps per staged chunk of the tables
 constexpr int PITCH = THREADS + 1;  // staged table rows, padded against bank conflicts
@@ -70,14 +73,20 @@ constexpr int MAX_STAGES = 4;       // dim 1: most steps whose rows are in fligh
 constexpr long long SMEM_MAX_BYTES = 100 * 1024;
 constexpr long long IN_FLIGHT_BYTES = 8 * 1024;  // dim 1: staged bytes a block keeps ahead
 
-__device__ __forceinline__ double byte_to_double(uint32_t b) {
-    // (2^52 + b) - 2^52: exact, and one DADD instead of a conversion.
-    return __dsub_rn(__hiloint2double(0x43300000, static_cast<int>(b)), 4503599627370496.0);
+// -2^52 * w, exact: the addend that makes tap's fused product exact.
+__device__ __forceinline__ double neg_shift(double w) {
+    return __dmul_rn(w, -4503599627370496.0);
 }
 
-// One tap: acc + b * w for a byte b, the product and the sum each rounded.
-__device__ __forceinline__ double tap(double acc, uint32_t b, double w) {
-    return __dadd_rn(acc, __dmul_rn(byte_to_double(b), w));
+// One tap: acc + b * w for a byte b, the product and the sum each rounded
+// once. The product is one fused operation on (2^52 + b), which is the byte's
+// bits under the exponent of 2^52: (2^52 + b) * w - 2^52 * w is b * w before
+// rounding, so the FMA rounds it once, to __dmul_rn(b, w). (For b = 0 and a
+// negative w it gives +0.0 where the multiply gives -0.0; acc starts at +0.0
+// and x + -x rounds to +0.0, so acc is never -0.0 and acc + ±0 is acc.) The
+// sum is its own __dadd_rn: the product is never contracted into it.
+__device__ __forceinline__ double tap(double acc, uint32_t b, double w, double nw) {
+    return __dadd_rn(acc, __fma_rn(__hiloint2double(0x43300000, static_cast<int>(b)), w, nw));
 }
 
 // Byte k of word, alone in a word (one PRMT).
@@ -91,36 +100,43 @@ __device__ __forceinline__ uint32_t quantize(double acc) {
     return static_cast<uint32_t>(min(max(v, 0), 255));
 }
 
-// dim 0. Block b owns bytes [piece * THREADS * VEC, ...) of output row
-// b / pieces. kWords: rows and buffers are VEC-byte aligned, so a tap is one
-// VEC-byte load.
-template <bool kWords>
+// dim 0's V bytes, loaded at once as words.
+template <int V> struct Bytes { uint32_t v[V / 4]; };
+template <> struct Bytes<2> { uint16_t v[1]; };
+template <> struct Bytes<1> { uint8_t v[1]; };
+
+// dim 0. Block b owns bytes [piece * THREADS * V, ...) of output row
+// b / pieces, V of them per thread. kWords: rows and buffers are V-byte
+// aligned, so a tap is one V-byte load.
+template <int V, bool kWords>
 __global__ void __launch_bounds__(THREADS)
 pass_rows_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
                  const int* __restrict__ idx, const double* __restrict__ w,
                  long long row_bytes, int taps, long long pieces) {
-    struct alignas(VEC) Words { uint32_t v[VEC / 4]; };
+    struct alignas(V) Words : Bytes<V> {};
     const long long o = blockIdx.x / pieces;
-    const long long j = ((blockIdx.x % pieces) * THREADS + threadIdx.x) * VEC;
+    const long long j = ((blockIdx.x % pieces) * THREADS + threadIdx.x) * V;
     if (j >= row_bytes) return;
-    const int n = kWords ? VEC : static_cast<int>(min(static_cast<long long>(VEC), row_bytes - j));
+    const int n = kWords ? V : static_cast<int>(min(static_cast<long long>(V), row_bytes - j));
     const int* row_idx = idx + o * taps;
     const double* row_w = w + o * taps;
-    double acc[VEC];
+    double acc[V];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] = 0.0;
+    for (int k = 0; k < V; ++k) acc[k] = 0.0;
 #pragma unroll 4
     for (int z = 0; z < taps; ++z) {
         const uint8_t* p = src + __ldg(row_idx + z) * row_bytes + j;
-        const double wz = __ldg(row_w + z);
+        const double wz = __ldg(row_w + z), nwz = neg_shift(wz);
         if (kWords) {
             const Words x = *reinterpret_cast<const Words*>(p);
 #pragma unroll
-            for (int k = 0; k < VEC; ++k) acc[k] = tap(acc[k], byte_of(x.v[k / 4], k % 4), wz);
+            for (int k = 0; k < V; ++k) {
+                acc[k] = tap(acc[k], byte_of(x.v[k / 4], k % 4), wz, nwz);
+            }
         } else {
 #pragma unroll
-            for (int k = 0; k < VEC; ++k) {
-                if (k < n) acc[k] = tap(acc[k], __ldg(p + k), wz);
+            for (int k = 0; k < V; ++k) {
+                if (k < n) acc[k] = tap(acc[k], __ldg(p + k), wz, nwz);
             }
         }
     }
@@ -128,17 +144,37 @@ pass_rows_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     if (kWords) {
         Words y;
 #pragma unroll
-        for (int k = 0; k < VEC / 4; ++k) {
-            y.v[k] = quantize(acc[4 * k]) | (quantize(acc[4 * k + 1]) << 8) |
-                     (quantize(acc[4 * k + 2]) << 16) | (quantize(acc[4 * k + 3]) << 24);
+        for (int k = 0; k < (V + 3) / 4; ++k) {
+            uint32_t word = 0;
+#pragma unroll
+            for (int b = 0; b < 4 && 4 * k + b < V; ++b) word |= quantize(acc[4 * k + b]) << (8 * b);
+            y.v[k] = word;
         }
         *reinterpret_cast<Words*>(q) = y;
     } else {
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) {
+        for (int k = 0; k < V; ++k) {
             if (k < n) q[k] = static_cast<uint8_t>(quantize(acc[k]));
         }
     }
+}
+
+template <int V>
+cudaError_t launch_rows(const uint8_t* src, uint8_t* dst, const int* idx, const double* w,
+                        long long row_bytes, long long out_size, int taps, cudaStream_t stream) {
+    const long long pieces = (row_bytes + THREADS * V - 1) / (THREADS * V);
+    const long long blocks = out_size * pieces;
+    if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+    const bool words = V > 1 && row_bytes % V == 0 && reinterpret_cast<uintptr_t>(src) % V == 0 &&
+                       reinterpret_cast<uintptr_t>(dst) % V == 0;
+    if (words) {
+        pass_rows_kernel<V, V != 1><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+            src, dst, idx, w, row_bytes, taps, pieces);
+    } else {
+        pass_rows_kernel<V, false><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+            src, dst, idx, w, row_bytes, taps, pieces);
+    }
+    return cudaGetLastError();
 }
 
 // Bytes of shared memory per staged row of seg_bytes image bytes: up to 15
@@ -255,7 +291,7 @@ __device__ __forceinline__ void walk_strip(const Strip& s) {
 #pragma unroll 4
                 for (int zl = 0; zl < nz; ++zl) {
                     const int ix = s.s_idx[zl * PITCH + t];
-                    const double wz = s.s_w[zl * PITCH + t];
+                    const double wz = s.s_w[zl * PITCH + t], nwz = neg_shift(wz);
 #pragma unroll
                     for (int r = 0; r < ROWS; ++r) {
                         if (r < n_rows) {
@@ -276,7 +312,7 @@ __device__ __forceinline__ void walk_strip(const Strip& s) {
                             }
 #pragma unroll
                             for (int c = 0; c < C; ++c) {
-                                acc[r][c] = tap(acc[r][c], C == 1 ? px : byte_of(px, c), wz);
+                                acc[r][c] = tap(acc[r][c], C == 1 ? px : byte_of(px, c), wz, nwz);
                             }
                         }
                     }
@@ -424,14 +460,16 @@ cudaError_t launch_cols(const uint8_t* src, uint8_t* dst, const int* idx, const 
 
 // One pass over src uint8[rows, cols, channels] (channels 1 or 3) with the
 // tables idx int32[out_size, taps] and w float64[out_size, taps]: dim 0 writes
-// dst uint8[out_size, cols, channels], dim 1 dst uint8[rows, out_size, channels].
+// dst uint8[out_size, cols, channels] with vec (8, 4, 2 or 1) bytes per
+// thread, dim 1 dst uint8[rows, out_size, channels].
 extern "C" int ipt_resize_pass(const void* src, void* dst, const void* idx, const void* w,
                                long long rows, long long cols, int channels, long long out_size,
-                               int taps, int dim, int device, void* stream) {
+                               int taps, int dim, int vec, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if ((channels != 1 && channels != 3) || (dim != 0 && dim != 1) || rows < 1 || cols < 1 ||
-        out_size < 1 || taps < 1) {
+        out_size < 1 || taps < 1 ||
+        (dim == 0 && vec != 1 && vec != 2 && vec != 4 && vec != 8)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const auto s = static_cast<const uint8_t*>(src);
@@ -445,17 +483,11 @@ extern "C" int ipt_resize_pass(const void* src, void* dst, const void* idx, cons
         return static_cast<int>(err);
     }
     const long long row_bytes = cols * channels;
-    const long long pieces = (row_bytes + THREADS * VEC - 1) / (THREADS * VEC);
-    const long long blocks = out_size * pieces;
-    if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-    const bool words = row_bytes % VEC == 0 && reinterpret_cast<uintptr_t>(src) % VEC == 0 &&
-                       reinterpret_cast<uintptr_t>(dst) % VEC == 0;
-    if (words) {
-        pass_rows_kernel<true><<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
-            s, d, i, wt, row_bytes, taps, pieces);
-    } else {
-        pass_rows_kernel<false><<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
-            s, d, i, wt, row_bytes, taps, pieces);
+    switch (vec) {
+        case 8: err = launch_rows<8>(s, d, i, wt, row_bytes, out_size, taps, st); break;
+        case 4: err = launch_rows<4>(s, d, i, wt, row_bytes, out_size, taps, st); break;
+        case 2: err = launch_rows<2>(s, d, i, wt, row_bytes, out_size, taps, st); break;
+        default: err = launch_rows<1>(s, d, i, wt, row_bytes, out_size, taps, st); break;
     }
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(err);
 }

@@ -51,9 +51,10 @@ _SIGNATURES = {
     "ipt_box_blur": [_P, _P, _I, _I, _I, _P],
     "ipt_sharpen": [_P, _P, _I, _I, _I, _P],
     "ipt_sobel": [_P, _P, _I, _I, _I, _P],
-    # src, dst, idx, w, rows, cols, channels, out_size, taps, dim, device, stream
+    # src, dst, idx, w, rows, cols, channels, out_size, taps, dim, vec (dim 0's bytes
+    # per thread), device, stream
     "ipt_resize_pass": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _I,
-                        ctypes.c_longlong, _I, _I, _I, _P],
+                        ctypes.c_longlong, _I, _I, _I, _I, _P],
     # out (int32[n]), n, device, stream: Sobel's clipped root of 0..n-1 (a test entry)
     "ipt_sobel_out_test": [_P, _I, _I, _P],
 }

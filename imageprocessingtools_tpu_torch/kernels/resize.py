@@ -24,8 +24,35 @@ from imageprocessingtools_tpu_torch.kernels import _build
 from imageprocessingtools_tpu_torch.ops import _exact
 from imageprocessingtools_tpu_torch.ops.common import quantize_u8
 
-_THREADS, _VEC, _ROWS = 128, 8, 4  # the kernel's block shapes (csrc/resize.cu)
-_MAX_BLOCKS = 2**31 - 1            # a one-dimensional grid
+_THREADS, _ROWS = 128, 4     # the kernel's block shapes (csrc/resize.cu)
+_VECS = (8, 4, 2, 1)         # dim 0: the bytes per thread that the kernel takes, most first
+_BLOCKS_PER_SM = 4           # dim 0: the fewest blocks per SM that rows_vec aims at
+_MAX_BLOCKS = 2**31 - 1      # a one-dimensional grid
+
+
+def rows_vec(out_size: int, row_bytes: int, sms: int) -> int:
+    """dim 0's bytes per thread: the most of ``_VECS`` whose grid still gives
+    each of ``sms`` SMs ``_BLOCKS_PER_SM`` blocks of ``_THREADS`` threads
+    (fewer bytes a thread, more blocks), else 1. 8 at 4K -> 1920 and 1080p ->
+    3840; 1 at 4K -> 256 (144 rows of 768 bytes)."""
+    for vec in _VECS:
+        if out_size * -(-row_bytes // (_THREADS * vec)) >= _BLOCKS_PER_SM * sms:
+            return vec
+    return 1
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def pass_vec(img: torch.Tensor, out_size: int, dim: int) -> int:
+    """dim 0's bytes per thread for ``img`` (uint8[H, W(, C)] on a CUDA
+    device): ``rows_vec`` on its card's SMs; 0 for dim 1."""
+    if dim != 0:
+        return 0
+    return rows_vec(out_size, img.shape[1] * (img.shape[2] if img.ndim == 3 else 1),
+                    _sm_count(img.device))
 
 
 def hw_passes(height: int, width: int, new_height: int, new_width: int):
@@ -77,6 +104,18 @@ def resize_pass_plain(img: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     return quantize_u8(acc)
 
 
+def launch_args(img: torch.Tensor, out: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                dim: int, vec: int | None = None) -> tuple:
+    """``ipt_resize_pass``'s arguments for one pass of ``img`` (uint8[H, W, C]
+    or [H, W], on a CUDA device) into ``out``; dim 0 with ``vec`` bytes per
+    thread, by default ``pass_vec``'s."""
+    if vec is None:
+        vec = pass_vec(img, idx.shape[0], dim)
+    return (img.data_ptr(), out.data_ptr(), idx.data_ptr(), w.data_ptr(), img.shape[0],
+            img.shape[1], 1 if img.ndim == 2 else img.shape[2], idx.shape[0], idx.shape[1], dim,
+            vec, img.device.index, torch.cuda.current_stream(img.device).cuda_stream)
+
+
 def resize_pass(img: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, dim: int) -> torch.Tensor:
     """One pass of a separable resize along ``dim`` (0 or 1): K9 on a CUDA
     tensor, the plain version on a CPU tensor. ``img`` is a contiguous
@@ -110,18 +149,16 @@ def resize_pass(img: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, dim: int)
     if out.numel():
         if taps < 1 or img.numel() == 0:
             raise ValueError(f"resize_pass: no taps or no source for a {out_shape} output")
+        vec = pass_vec(img, out_size, dim)
         if dim == 0:
-            blocks = out_size * -(-cols * c // (_THREADS * _VEC))
+            blocks = out_size * -(-cols * c // (_THREADS * vec))
         else:
             blocks = -(-out_size // _THREADS) * -(-rows // _ROWS)
         if blocks > _MAX_BLOCKS or taps >= 2**31:
             raise RuntimeError(
                 f"resize_pass: {rows}x{cols}x{c} -> {out_shape} with {taps} taps is too "
                 f"large for one launch")
-        status = _build.library().ipt_resize_pass(
-            img.data_ptr(), out.data_ptr(), idx.data_ptr(), w.data_ptr(), rows, cols, c,
-            out_size, taps, dim, img.device.index,
-            torch.cuda.current_stream(img.device).cuda_stream)
+        status = _build.library().ipt_resize_pass(*launch_args(img, out, idx, w, dim, vec))
         _build.check(status, "ipt_resize_pass")
         resize_pass.launches += 1
     return out[:, :, 0] if squeeze else out

@@ -25,10 +25,14 @@ at its end, runs each case's W pass once (after two warm-up launches) and
 prints, per case, the least, median and largest time of every stamp over the
 blocks, in us from the first block's start.
 
-What the cuts can and cannot show: ``no_f64`` replaces a tap's three f64
-operations by three integer ones, which issue at the same rate (16 lanes a
-cycle and scheduler), so it shows whether the FP64 unit's latency matters, not
-what the operations cost to issue.
+What the cuts can and cannot show: ``no_f64`` replaces a tap's two f64
+operations (the fused product and the sum) by integer ones, which issue at the
+same rate (16 lanes a cycle and scheduler), so it shows whether the FP64
+unit's latency matters, not what the operations cost to issue.
+``no_conversion`` drops the fused product's exact addend: the product becomes
+a DMUL of the byte's bits under 2^52's exponent (wrong bytes), and the DMUL
+per tap that forms the addend, -2^52 * w, goes with it, so it shows what the
+addend costs.
 """
 
 from __future__ import annotations
@@ -49,13 +53,13 @@ SOURCE = _build.CSRC / "resize.cu"
 # name -> [(text in csrc/resize.cu, its replacement, how often the text occurs)]
 CUTS = {
     "no_f64": [(
-        "    return __dadd_rn(acc, __dmul_rn(byte_to_double(b), w));",
+        "    return __dadd_rn(acc, __fma_rn(__hiloint2double(0x43300000, static_cast<int>(b)),"
+        " w, nw));",
         "    return __hiloint2double(__double2hiint(acc) ^ b,"
-        " __double2loint(acc) + b + __double2loint(w));", 1)],
+        " __double2loint(acc) + b + __double2loint(w) + __double2loint(nw));", 1)],
     "no_conversion": [(
-        "    return __dsub_rn(__hiloint2double(0x43300000, static_cast<int>(b)),"
-        " 4503599627370496.0);",
-        "    return __hiloint2double(0x43300000, static_cast<int>(b));", 1)],
+        "__fma_rn(__hiloint2double(0x43300000, static_cast<int>(b)), w, nw)",
+        "__dmul_rn(__hiloint2double(0x43300000, static_cast<int>(b)), w)", 1)],
     "no_pixel_loads": [
         ("                                px = s.seg[staged_at[r] + (ix - s.lo)];",
          "                                px = staged_at[r] + (ix - s.lo);", 1),
@@ -176,16 +180,13 @@ def build(cuts: list[str]) -> ctypes.CDLL:
 
 
 def time_cut(lib: ctypes.CDLL, images: dict, dev, check: bool) -> dict:
-    stream = torch.cuda.current_stream(dev).cuda_stream
     row = {}
     for label, (shape, new_width) in CASES.items():
         src = images[label]
         for dim, idx, w in k9.device_passes(shape[0], shape[1], new_width, dev):
             exp = k9.resize_pass(src, idx, w, dim)  # the library's kernel: the next pass's input
-            channels = 1 if src.ndim == 2 else 3
             dst = torch.empty_like(exp)
-            args = (src.data_ptr(), dst.data_ptr(), idx.data_ptr(), w.data_ptr(), src.shape[0],
-                    src.shape[1], channels, idx.shape[0], idx.shape[1], dim, dev.index, stream)
+            args = k9.launch_args(src, dst, idx, w, dim)
 
             def launch():
                 status = lib.ipt_resize_pass(*args)
@@ -217,7 +218,6 @@ def read_stamps(lib: ctypes.CDLL, images: dict, dev) -> dict:
 
     lib.ipt_resize_stamps.argtypes = [ctypes.c_void_p]
     lib.ipt_resize_stamps.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
     buf = np.zeros(8 * MAX_STAMPED_BLOCKS, dtype=np.uint64)
     rows = {}
     for label, (shape, new_width) in CASES.items():
@@ -226,9 +226,7 @@ def read_stamps(lib: ctypes.CDLL, images: dict, dev) -> dict:
         if dim != 1:
             raise RuntimeError(f"{label}: the first pass is not the W pass")
         dst = torch.empty_like(k9.resize_pass(src, idx, w, dim))
-        args = (src.data_ptr(), dst.data_ptr(), idx.data_ptr(), w.data_ptr(), src.shape[0],
-                src.shape[1], 1 if src.ndim == 2 else 3, idx.shape[0], idx.shape[1], dim,
-                dev.index, stream)
+        args = k9.launch_args(src, dst, idx, w, dim)
         for _ in range(3):  # the third launch's stamps are read
             torch.cuda.synchronize()
             if lib.ipt_resize_stamps(buf.ctypes.data):

@@ -432,6 +432,50 @@ def test_resize_pass_kernel_keeps_the_tables_order(cuda):
         assert int(rows[0].max()) == 0 and int(rows[1].min()) == 200
 
 
+@pytest.mark.parametrize("rows", [1, 5, 37])
+def test_resize_pass_kernel_on_negative_weights_and_zero_bytes(cuda, rows):
+    """The fused product gives +0.0 where a multiply gives -0.0 (b = 0 and a
+    negative weight): rows of zeros, a zero column, and weights that are
+    negative, -0.0, tiny and large, in both passes, each byte as the plain
+    version's. The tables have 130 outputs: two blocks' worth in the W pass."""
+    gen = np.random.default_rng(rows)
+    out_size, taps = 130, 6
+    img = _image((rows * 8, 40, 3), seed=rows)
+    img[::3] = 0                               # whole rows of zero bytes
+    img[:, 7] = 0
+    idx = torch.from_numpy(gen.integers(0, 40, size=(out_size, taps), dtype=np.int32))
+    w = gen.choice([-0.75, -0.0, 0.0, -1e-300, -2.5, 1.25, 3.0, 2.0 ** -40, -(2.0 ** 40)],
+                   size=(out_size, taps))
+    wts = torch.from_numpy(w)
+    idx, wts = idx.to(cuda), wts.to(cuda)
+    for dim, src in ((1, img), (0, img.transpose(0, 1).contiguous())):  # 40 source pixels
+        src = src.to(cuda)
+        out = k9.resize_pass(src, idx, wts, dim)
+        torch.cuda.synchronize()
+        assert torch.equal(out, k9.resize_pass_plain(src, idx, wts, dim))
+
+
+@pytest.mark.parametrize("vec", [8, 4, 2, 1])
+@pytest.mark.parametrize("offset", [0, 1, 2, 4])
+def test_resize_rows_pass_at_every_bytes_per_thread(cuda, vec, offset):
+    """The H pass at each bytes-per-thread choice the kernel takes (the
+    wrapper picks one from the card's SMs, ``rows_vec``), on rows of 3 x 701
+    bytes (not a multiple of 2) and of 3 x 704, at a view 0-4 bytes into its
+    buffer: word loads where rows and buffers allow, byte loads elsewhere."""
+    from imageprocessingtools_tpu_torch.kernels import _build
+
+    for width in (701, 704):
+        h = 97
+        flat = _image((h * width * 3 + offset,), seed=vec + offset).to(cuda)
+        img = flat[offset:].view(h, width, 3)
+        _, idx, wts = k9.device_passes(h, width, (40, width), cuda)[0]
+        out = torch.empty((40, width, 3), dtype=torch.uint8, device=cuda)
+        _build.check(_build.library().ipt_resize_pass(*k9.launch_args(img, out, idx, wts, 0, vec)),
+                     "ipt_resize_pass")
+        torch.cuda.synchronize()
+        assert torch.equal(out, k9.resize_pass_plain(img, idx, wts, 0))
+
+
 def test_resize_pass_refuses_what_the_kernel_does_not_take(cuda):
     img = _image((8, 10, 3), seed=1).to(cuda)
     _, idx, wts = k9.device_passes(8, 10, 5, cuda)[0]

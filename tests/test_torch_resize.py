@@ -17,6 +17,7 @@ held to the plain version on the card by tests/test_torch_kernels_cuda.py.
 from __future__ import annotations
 
 import importlib
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -233,6 +234,74 @@ def test_a_failed_plan_is_not_cached():
     for _ in range(2):
         with pytest.raises(ValueError, match="allocating ind2store"):
             port.resize_width(torch.zeros((4, 18, 3), dtype=torch.uint8), 2)
+
+
+TWO52 = 2.0 ** 52
+
+
+def _table_weights(*geometries):
+    """The weights of both passes' tables at each (height, width, new width)."""
+    return np.unique(np.concatenate([
+        contrib.weights.ravel() for h, w, new_w in geometries
+        for _, contrib in _exact.plan_resize(h, w, new_w).passes]))
+
+
+# The three timed geometries' weights (4K -> 1920, 4K -> 256, 1080p -> 3840),
+# some odd ones, and edge weights: subnormal, the least normal, +-0, +-2^60,
+# negative and near 1.
+IDENTITY_WEIGHTS = {
+    "4K -> 1920": lambda: _table_weights((2160, 3840, 1920)),
+    "4K -> 256": lambda: _table_weights((2160, 3840, 256)),
+    "1080p -> 3840": lambda: _table_weights((1080, 1920, 3840)),
+    "odd geometries": lambda: _table_weights((1079, 1913, 777), (37, 53, 32), (5, 7, 2),
+                                             (3, 3, 40), (40, 400, 20)),
+    "edges": lambda: np.array([5e-324, -5e-324, 1e-310, -3e-320, 2.2250738585072014e-308,
+                               0.0, -0.0, 2.0 ** 60, -2.0 ** 60, -0.0625, -1 / 3, 1 / 3,
+                               0.9999999999999999, -1.0000000000000002, 1.0, 255.5]),
+}
+
+
+@pytest.mark.parametrize("case", IDENTITY_WEIGHTS)
+def test_exact_product_identity(case):
+    """K9's tap forms a byte's product as fma(2^52 + b, w, nw), nw = -2^52 * w
+    (``csrc/resize.cu::tap``). In exact rationals: nw is exact, and the fused
+    value (2^52 + b) * w + nw, rounded once, is b * w rounded once, which is
+    ``__dmul_rn(b, w)``, for all 256 bytes. (A zero's sign is not modelled:
+    where b * w is exactly 0 the FMA gives +0.0; the sums start at +0.0 and
+    x + -x rounds to +0.0, so no sum is -0.0 and adding either zero is the
+    same.)"""
+    weights = IDENTITY_WEIGHTS[case]()
+    assert len(weights) >= 4
+    shifted = [Fraction(TWO52 + b) for b in range(256)]  # the byte's bits under 2^52's exponent
+    assert shifted == [Fraction(2**52 + b) for b in range(256)]
+    for w in weights.tolist():
+        nw = w * -TWO52
+        assert Fraction(nw) == -Fraction(TWO52) * Fraction(w)
+        for b, s in enumerate(shifted):
+            assert float(s * Fraction(w) + Fraction(nw)) == float(b) * w
+    zero = np.float64(0.0) + np.float64(-0.0)
+    assert not np.signbit(zero) and not np.signbit(np.float64(0.7) + np.float64(-0.7))
+
+
+@pytest.mark.parametrize("out_size,row_bytes,sms,vec", [
+    (1080, 5760, 132, 8),     # 4K -> 1920, the H pass: 6,480 blocks of 8 bytes a thread
+    (2160, 11520, 132, 8),    # 1080p -> 3840
+    (144, 768, 132, 1),       # 4K -> 256: 864 blocks of one byte a thread, not 144
+    (144, 768, 100, 2),       # fewer SMs: 2 bytes a thread already give 4 blocks per SM
+    (144, 768, 50, 4),
+    (144, 768, 36, 8),
+    (500, 640, 132, 4),       # 4 blocks per SM at 4 bytes a thread, not at 8
+    (1, 3, 132, 1),           # one short row: one block whatever the choice
+    (10**6, 3, 132, 8),
+])
+def test_rows_vec_fills_the_card(out_size, row_bytes, sms, vec):
+    """The H pass's bytes per thread: the most of 8, 4, 2, 1 whose grid of
+    128-thread blocks still gives each SM 4 blocks."""
+    assert k9.rows_vec(out_size, row_bytes, sms) == vec
+    blocks = out_size * -(-row_bytes // (128 * vec))
+    assert blocks >= 4 * sms or vec == 1
+    if vec < 8:  # twice the bytes a thread would leave SMs short
+        assert out_size * -(-row_bytes // (256 * vec)) < 4 * sms
 
 
 def test_gray_and_preset_reach_the_one_entry_point(monkeypatch):
