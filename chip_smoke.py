@@ -33,11 +33,23 @@ per phase:
    file (``--skip-bad``), every output byte-equal to the presets' plain
    bodies on the same decoded image on the card; a reference-flag fan-out
    over the 4K files; and a byte-for-byte cross-check of a smaller file
-   against the same ``serve`` run on the CPU in a subprocess.
+   against the same ``serve`` run on the CPU in a subprocess;
+7. spatial and mesh (``parallel/spatial.py``): on a 4K noise image, with a
+   mesh that names the card four times (four row bands), the fused pipeline,
+   the four presets, ``-w1920 -r30 -mono -fv`` and ``-r90``, each byte-equal
+   to the unsharded path on the card and to the plain path on the CPU (K1
+   runs in its band form there); the band and unsharded forms of the fused
+   pipeline and of edge_detect timed side by side (ms per call, and device
+   us from a ``torch.profiler`` trace); then ``serve --mesh`` and ``serve
+   --spatial`` over phase 6's files, byte-equal to phase 6's outputs. Where
+   torch sees more than one card, the spatial paths and a batch also run
+   over a mesh of every card (copies between cards); otherwise the line
+   says that they were not exercised.
 
 Every kernel's launch count is set to 0 just before each of phases 4, 5 (the
-flagship, then the batch) and 6 and read just after it; a kernel that a
-phase's path uses and that was not launched there is a failure. The line before the last is a JSON object with
+flagship, then the batch), 6 and 7 (the band paths, then the moved serving)
+and read just after it; a kernel that a phase's path uses and that was not
+launched there is a failure. The line before the last is a JSON object with
 each kernel's launches (summed over the four paths), error, times, least
 time and the PyTorch call's time; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, and the
@@ -194,12 +206,160 @@ def resize_cost(passes, shape) -> tuple[int, float]:
     return nbytes, ops
 
 
+@contextlib.contextmanager
+def ipt_device(name: str):
+    """``IPT_DEVICE`` set to ``name`` inside the block."""
+    saved = os.environ.get("IPT_DEVICE")
+    os.environ["IPT_DEVICE"] = name
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("IPT_DEVICE", None)
+        else:
+            os.environ["IPT_DEVICE"] = saved
+
+
 def max_abs_err(torch, a, b) -> int:
     if a.shape != b.shape:
         fail(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     if a.numel() == 0:
         return 0
     return int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+
+
+SPATIAL_CONFIGS = {"-w1920 -r30 -mono -fv": dict(new_width=1920, angle=30.0, mono=True,
+                                                   flip_v=True),
+                   "-r90": dict(angle=90.0)}
+
+
+def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files, bad,
+            fanout_flags, n_good, plain_presets) -> list[str]:
+    """Spatial and mesh: the band paths on a mesh that names the card four
+    times, then ``serve --mesh`` and ``serve --spatial`` over phase 6's
+    files. Returns the lines to print."""
+    from imageprocessingtools_tpu_torch import parallel
+    from imageprocessingtools_tpu_torch.kernels import core, fused
+    from imageprocessingtools_tpu_torch.models import PRESETS as PRESET_FNS
+    from imageprocessingtools_tpu_torch.parallel import spatial
+    from imageprocessingtools_tpu_torch.pipeline import PipelineConfig, run_pipeline
+    from imageprocessingtools_tpu_torch.profile_device import device_us_per_call
+
+    card0 = torch.device("cuda", torch.cuda.current_device())
+    mesh4 = (card0,) * 4
+    configs = {k: PipelineConfig(**v) for k, v in SPATIAL_CONFIGS.items()}
+    labels = ["fused", *PRESETS.split(","), *configs]
+
+    def banded(label, src, mesh):
+        if label == "fused":
+            return spatial.fused_pipeline_spatial(src, mesh)
+        if label in configs:
+            return spatial.run_pipeline_spatial(src, configs[label], mesh)
+        return spatial.preset_pipeline_spatial(src, label, mesh)
+
+    def unsharded(label, src):
+        if label == "fused":
+            return fused.fused_pipeline_mega(src)
+        if label in configs:
+            return run_pipeline(src, configs[label])[0]
+        return PRESET_FNS[label](src)
+
+    host = image((H4K, W4K, 3), seed=80)
+    outs = {}
+    # Four bands each: fused K6, K4, K3; edge_detect K6, Sobel; enhance K8, K4,
+    # K3, sharpen; print_ready K8, K4, K3; thumbnail and -w1920 two K9 passes
+    # of four launches; -r30 K1 in its band form, four launches.
+    path_counts["spatial"] = drive(
+        "phase 7 spatial",
+        {"gray_gauss": 8, "sobel": 4, "sharpen": 4, "fused_elementwise": 8, "histogram": 12,
+         "lut_apply": 12, "resize_pass": 16, "rotate": 4},
+        lambda: outs.update({label: banded(label, host, mesh4) for label in labels}))
+    src = torch.from_numpy(host).to(dev)
+    expected = {}
+    for label in labels:
+        bands = outs[label]
+        if any(b.data.device != card0 for b in bands):
+            fail(f"spatial {label}: a band left the card")
+        got = spatial.gather(bands, card0)
+        expected[label] = unsharded(label, src)
+        if not torch.equal(got, expected[label]):
+            fail(f"spatial {label} differs from the unsharded path on the card by "
+                 f"{max_abs_err(torch, got, expected[label])}")
+        with ipt_device("cpu"):
+            plain = unsharded(label, torch.from_numpy(host))
+        if not torch.equal(got.cpu(), plain):
+            fail(f"spatial {label} differs from the plain path on the cpu")
+    n_bands = {label: len(outs[label]) for label in labels}
+    lines = [f"phase 7 spatial: {', '.join(labels)} on {H4K}x{W4K} in bands {n_bands} over a mesh "
+             f"of the card x4, byte-equal to the unsharded path on the card and to the plain "
+             f"path on the cpu"]
+
+    # Band and unsharded forms side by side, input on the card.
+    timed = {"fused": (lambda: spatial.fused_pipeline_spatial(src, mesh4),
+                       lambda: fused.fused_pipeline_mega(src)),
+             "edge_detect": (lambda: spatial.preset_pipeline_spatial(src, "edge_detect", mesh4),
+                             lambda: core.sobel(core.gray_gauss(src)))}
+    parts = []
+    for label, (band_fn, one_fn) in timed.items():
+        ms = (median_ms(torch, band_fn), median_ms(torch, one_fn))
+        # A trace that still lost events after profile_device's retries stops the run.
+        us = (device_us_per_call(f"spatial {label}", band_fn), device_us_per_call(label, one_fn))
+        parts.append(f"{label} ms per call {ms[0]:.4f} / {ms[1]:.4f}, "
+                     f"device us {us[0]:.2f} / {us[1]:.2f}")
+    lines.append(f"phase 7 times, 4 bands / unsharded, {H4K}x{W4K} on {card}: " + "; ".join(parts))
+
+    # serve --mesh and serve --spatial over phase 6's files (one band and one
+    # shard per card), byte-equal to phase 6's outputs.
+    def moved_serving():
+        for mode in ("--mesh", "--spatial"):
+            sfx = "." + mode[2:]
+            serve_run(f"{mode} presets",
+                      [mode, "--preset", PRESETS, "--skip-bad", "--suffix", sfx, *files, bad])
+            serve_run(f"{mode} fanout", [mode, "--fanout", fanout_flags, "--suffix", sfx,
+                                         *files[:8]])
+
+    path_counts["serving moved"] = drive(
+        "phase 7 serving",
+        {"gray_gauss": 2 * n_good, "sobel": 2 * n_good, "sharpen": 2 * n_good,
+         "fused_elementwise": 2 * (2 * n_good + 8), "histogram": 4 * n_good,
+         "lut_apply": 4 * n_good, "rotate": 16, "resize_pass": 2 * (2 * n_good + 2 * 8)},
+        moved_serving)
+    n_equal = 0
+    for i, path in enumerate(files):
+        for tag in list(plain_presets)[:4] + (["gray", "w1920-r30"] if i < 8 else []):
+            with open(f"{path}.{tag}.out", "rb") as f:
+                want = f.read()
+            for mode in ("mesh", "spatial"):
+                with open(f"{path}.{tag}.{mode}", "rb") as f:
+                    if f.read() != want:
+                        fail(f"serve --{mode} {path}.{tag} differs from phase 6's output")
+                n_equal += 1
+    if os.path.exists(bad + ".edge_detect.spatial"):
+        fail("serve --spatial wrote an output for the truncated file")
+    lines.append(f"phase 7 serving: --mesh and --spatial wrote {n_equal} outputs byte-equal to "
+                 f"phase 6's; wall on {card}: " + ", ".join(
+                     f"{label} {wall:.3f} s" for label, (wall, _) in serve_walls.items()
+                     if label.startswith("--")))
+
+    # Every card torch sees, where there are several.
+    if torch.cuda.device_count() > 1:
+        every = parallel.default_mesh()
+        for label in labels:
+            got = spatial.gather(banded(label, host, every), card0)
+            if not torch.equal(got, expected[label]):
+                fail(f"spatial {label} over {len(every)} cards differs from the unsharded path")
+        batch_in = torch.from_numpy(image((len(every), 1080, 1920, 3), seed=81))
+        shards = parallel.batched_fused_pipeline(batch_in, mesh=every)
+        for i, shard in enumerate(shards):
+            if shard.device != every[i] or not torch.equal(
+                    shard[0].to(card0), fused.fused_pipeline(batch_in[i].to(card0))):
+                fail(f"batched_fused_pipeline shard {i} over {len(every)} cards is wrong")
+        lines.append(f"phase 7 cards: the band paths and a batch over {len(every)} cards "
+                     f"byte-equal (copies between cards exercised)")
+    else:
+        lines.append("phase 7 cards: torch sees one card; copies between cards were not "
+                     "exercised")
+    return lines
 
 
 def main() -> int:
@@ -727,6 +887,10 @@ def main() -> int:
             cross_worst[tag] = int(np.abs(a - b).max())
             if on_cuda != on_cpu:
                 fail(f"serve {tag}: cuda and cpu outputs differ by {cross_worst[tag]}")
+
+        # Phase 7: spatial and mesh.
+        phase7 = phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files,
+                         bad, fanout_flags, n_good, plain_presets)
     finally:
         shutil.rmtree(tmp)
     for label, n_files in (("presets", len(files)), ("fanout", 8)):
@@ -736,6 +900,8 @@ def main() -> int:
               f"{serve_walls[label][1].splitlines()[-1]}")
     print(f"phase 6 serving: {n_checked} outputs byte-equal to the plain bodies on the card; "
           f"768x1024 cuda and cpu outputs byte-equal {cross_worst}; native codec built")
+    for line in phase7:
+        print(line)
     print("launches per path (counts set to 0 before each): "
           + "; ".join(f"{p} {c}" for p, c in path_counts.items())
           + f"; {' and '.join(OFF_PATH)} are on no path (phase 3 holds them to plain)")

@@ -9,7 +9,8 @@ pipeline, the presets and batched serving:
   ops/       torch ops on HWC uint8 tensors            (ref: ppmx-edward.c:477-1003)
   kernels/   hand-written CUDA kernels (csrc/*.cu) and their plain torch versions
   models/    named preset pipelines
-  parallel/  batches of images through the same ops on one device
+  parallel/  batches of images over one device or a mesh of devices, and
+             one image in row bands over a mesh (spatial)
   pipeline   fixed-order op pipeline                   (ref: ppmx-edward.c:1053-1172)
   cli        flag-compatible command line              (ref: ppmx-edward.c:117-205)
   serving    batched files -> decode -> device -> encode, and its CLI ``serve``
@@ -59,5 +60,12 @@ from imageprocessingtools_tpu_torch.ops import (  # noqa: F401
     sharpen,
     sobel,
     threshold,
+)
+from imageprocessingtools_tpu_torch.parallel import (  # noqa: F401
+    default_mesh,
+    fused_pipeline_spatial,
+    preset_pipeline_spatial,
+    resize_width_spatial,
+    rotate_spatial,
 )
 from imageprocessingtools_tpu_torch.pipeline import PipelineConfig, run_pipeline  # noqa: F401

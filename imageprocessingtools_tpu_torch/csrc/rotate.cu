@@ -47,7 +47,10 @@
 //   sum is taken as the sum (0 + x = x; only the sign of a zero sum could
 //   differ, and it truncates to the same byte);
 // - the tile's bytes leave through shared memory as 16-byte stores; each
-//   row's unaligned head and tail go as naturally aligned 1-8 byte pieces.
+//   row's unaligned head and tail go as naturally aligned 1-8 byte pieces;
+// - a launch may take one band of output rows (32-row tiles) from a window
+//   of source rows, for the row bands of parallel/spatial.py: only the
+//   staging's addresses move, so the whole image is the band of all rows.
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -215,9 +218,10 @@ __device__ __forceinline__ void store_part(uint8_t* a, const uint8_t* s, int lo,
 // box_w x box_h is the largest footprint of the launch.
 template <int C>
 __global__ void __launch_bounds__(THREADS, 6)
-rotate_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, int H, int W,
-              int newH, int newW, double cos_t, double sin_t, int xc, int yc, int xoff,
-              int yoff, const int4* __restrict__ plan, int box_w, int box_h) {
+rotate_kernel(const uint8_t* __restrict__ src, int src_row0, int src_rows,
+              uint8_t* __restrict__ dst, int H, int W, int newH, int newW, double cos_t,
+              double sin_t, int xc, int yc, int xoff, int yoff, const int4* __restrict__ plan,
+              int box_w, int box_h) {
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ double row_sin[TILE], row_cos[TILE];  // sin*ys, cos*ys per tile row
     constexpr int OUT_W = out_stride(C);
@@ -235,10 +239,10 @@ rotate_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, int H,
         const int lo_x = p.y, lo_y = p.z, bw = p.w & 0xFFFF, bh = p.w >> 16;
         // The footprint's rows as aligned 16-byte chunks, all copies in
         // flight at once (cp.async); a chunk that reaches past either end of
-        // the image is copied byte by byte.
-        const uint8_t* end = src + static_cast<size_t>(H) * W * C;
+        // the source window is copied byte by byte.
+        const uint8_t* end = src + static_cast<size_t>(src_rows) * W * C;
         for (int r = ty; r < bh; r += BY) {
-            const uint8_t* g = src + (static_cast<size_t>(lo_y + r) * W + lo_x) * C;
+            const uint8_t* g = src + (static_cast<size_t>(lo_y - src_row0 + r) * W + lo_x) * C;
             const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(g) & 15);
             const uint8_t* a = g - sh;
             const int chunks = (sh + bw * C + 15) / 16;
@@ -307,9 +311,9 @@ rotate_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, int H,
 }
 
 template <int C>
-cudaError_t launch(const uint8_t* src, uint8_t* dst, int H, int W, int newH, int newW,
-                   double cos_t, double sin_t, int xc, int yc, int xoff, int yoff,
-                   const int4* plan, int box_w, int box_h, cudaStream_t stream) {
+cudaError_t launch(const uint8_t* src, int src_row0, int src_rows, uint8_t* dst, int H, int W,
+                   int newH, int newW, double cos_t, double sin_t, int xc, int yc, int xoff,
+                   int yoff, const int4* plan, int box_w, int box_h, cudaStream_t stream) {
     const size_t smem = smem_bytes(box_w, box_h, C);
     cudaError_t err = cudaFuncSetAttribute(rotate_kernel<C>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -317,17 +321,26 @@ cudaError_t launch(const uint8_t* src, uint8_t* dst, int H, int W, int newH, int
     if (err != cudaSuccess) return err;
     const dim3 grid((newW + TILE - 1) / TILE, (newH + TILE - 1) / TILE);
     rotate_kernel<C><<<grid, dim3(BX, BY), smem, stream>>>(
-        src, dst, H, W, newH, newW, cos_t, sin_t, xc, yc, xoff, yoff, plan, box_w, box_h);
+        src, src_row0, src_rows, dst, H, W, newH, newW, cos_t, sin_t, xc, yc, xoff, yoff, plan,
+        box_w, box_h);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// C is 1 or 3 (the wrapper refuses others). plan: int32[tiles][4] for the
-// ceil(newH / 32) x ceil(newW / 32) output tiles (see rotate_kernel);
-// box_w x box_h: the largest footprint in the plan.
-extern "C" int ipt_rotate(const void* src, void* dst, int H, int W, int C,
-                          int newH, int newW, double cos_t, double sin_t,
+// C is 1 or 3 (the wrapper refuses others). The launch computes output rows
+// [oy0, oy0 + newH) of the rotation of an H x W x C image, oy0 a multiple of
+// 32, into dst; the caller passes yoff - oy0 for yoff and the plan from tile
+// row oy0 / 32 on (an integer offset is exact in f64, so each row's ys is
+// the full image's). src holds source rows [src_row0, src_row0 + src_rows),
+// which must hold the footprint of every tile of the band that is not
+// outside (kernels/rotate.py::band_window). The zone tests take the whole
+// image's H and W. plan: int32[tiles][4] for the ceil(newH / 32) x
+// ceil(newW / 32) output tiles (see rotate_kernel); box_w x box_h: the
+// largest footprint in the plan. The whole image is oy0 0 with the window
+// of all its rows.
+extern "C" int ipt_rotate(const void* src, int src_row0, int src_rows, void* dst, int H, int W,
+                          int C, int newH, int newW, double cos_t, double sin_t,
                           int xc, int yc, int xoff, int yoff,
                           const void* plan, int box_w, int box_h,
                           int device, void* stream) {
@@ -338,9 +351,11 @@ extern "C" int ipt_rotate(const void* src, void* dst, int H, int W, int C,
     const auto* p = static_cast<const int4*>(plan);
     const auto st = static_cast<cudaStream_t>(stream);
     if (C == 3) {
-        err = launch<3>(s, d, H, W, newH, newW, cos_t, sin_t, xc, yc, xoff, yoff, p, box_w, box_h, st);
+        err = launch<3>(s, src_row0, src_rows, d, H, W, newH, newW, cos_t, sin_t, xc, yc, xoff,
+                        yoff, p, box_w, box_h, st);
     } else if (C == 1) {
-        err = launch<1>(s, d, H, W, newH, newW, cos_t, sin_t, xc, yc, xoff, yoff, p, box_w, box_h, st);
+        err = launch<1>(s, src_row0, src_rows, d, H, W, newH, newW, cos_t, sin_t, xc, yc, xoff,
+                        yoff, p, box_w, box_h, st);
     } else {
         err = cudaErrorInvalidValue;
     }

@@ -33,9 +33,10 @@ NVCC_FLAGS = [
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C entry points: each returns the launch's cudaGetLastError() as an int.
 _SIGNATURES = {
-    # src, dst, H, W, C, newH, newW, cos, sin, xc, yc, xoff, yoff, plan, box_w,
-    # box_h, device, stream
-    "ipt_rotate": [_P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _I, _P, _I, _I, _I, _P],
+    # src, src_row0, src_rows, dst, H, W, C, newH, newW, cos, sin, xc, yc, xoff, yoff, plan,
+    # box_w, box_h, device, stream
+    "ipt_rotate": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _I, _P, _I, _I, _I,
+                   _P],
     # rgb, out, hist, H, W, device, stream
     "ipt_gray_gauss_hist": [_P, _P, _P, _I, _I, _I, _P],
     # rgb, out, H, W, device, stream

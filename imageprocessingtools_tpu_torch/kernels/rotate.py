@@ -100,9 +100,51 @@ def tile_plan(height: int, width: int, angle: float):
 
 
 @functools.lru_cache(maxsize=32)
+def _host_plan(height: int, width: int, angle: float):
+    return tile_plan(height, width, angle)
+
+
+@functools.lru_cache(maxsize=32)
 def _device_plan(height: int, width: int, angle: float, device: torch.device):
-    plan, box_w, box_h = tile_plan(height, width, angle)
+    plan, box_w, box_h = _host_plan(height, width, angle)
     return plan.to(device), box_w, box_h
+
+
+@functools.lru_cache(maxsize=256)
+def band_window(height: int, width: int, angle: float, oy0: int, oy1: int):
+    """The source rows [lo, hi) that output rows [oy0, oy1) read, or None
+    when every pixel there is 0. ``oy0`` is a multiple of TILE; the window
+    is the union of the footprints of the band's tiles that are not
+    OUTSIDE (their ``bh`` is 0 and sets nothing)."""
+    if oy0 % TILE or not 0 <= oy0 < oy1:
+        raise ValueError(f"band_window: rows [{oy0}, {oy1}) do not start on a tile row")
+    plan, _, _ = _host_plan(height, width, angle)
+    tiles_x = -(-_geometry(height, width, angle)[1] // TILE)
+    rows = plan[oy0 // TILE * tiles_x : -(-oy1 // TILE) * tiles_x]
+    rows = rows[rows[:, 0] != OUTSIDE]
+    if not len(rows):
+        return None
+    lo_y = rows[:, 2].to(torch.int64)
+    return int(lo_y.min()), int((lo_y + (rows[:, 3].to(torch.int64) >> 16)).max())
+
+
+def _band(img: torch.Tensor, angle: float, height, src_row0: int, out_rows):
+    """(global height, src_row0, oy0, oy1) of a band call, checked: the
+    source window must hold the rows that the band reads (``band_window``)."""
+    height = img.shape[0] if height is None else int(height)
+    new_h = _geometry(height, img.shape[1], angle)[0]
+    oy0, oy1 = (0, new_h) if out_rows is None else map(int, out_rows)
+    if not (0 <= src_row0 and src_row0 + img.shape[0] <= height and 0 <= oy0 <= oy1 <= new_h
+            and oy0 % TILE == 0):
+        raise ValueError(
+            f"rotate: a window of rows [{src_row0}, {src_row0 + img.shape[0]}) of {height} "
+            f"and output rows [{oy0}, {oy1}) of {new_h} (a multiple of {TILE} first)")
+    window = band_window(height, img.shape[1], angle, oy0, oy1) if oy1 > oy0 else None
+    if window is not None and not (src_row0 <= window[0] and window[1] <= src_row0 + img.shape[0]):
+        raise ValueError(
+            f"rotate: output rows [{oy0}, {oy1}) read source rows [{window[0]}, {window[1]}), "
+            f"outside the window [{src_row0}, {src_row0 + img.shape[0]})")
+    return height, src_row0, oy0, oy1
 
 
 def _cubic(x: torch.Tensor) -> torch.Tensor:
@@ -117,20 +159,27 @@ def _cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where((absx > 1.0) & (absx <= 2.0), outer, ret)
 
 
-def rotate_plain(img: torch.Tensor, angle_deg: float) -> torch.Tensor:
+def rotate_plain(img: torch.Tensor, angle_deg: float, height: int | None = None,
+                 src_row0: int = 0, out_rows=None) -> torch.Tensor:
     """Plain torch form of K1, on the input's device: f64 with separate ops
     (no fused multiply-add), byte-identical to ``golden.rotate``.
 
-    uint8[H, W, C] or uint8[H, W] -> uint8[newH, newW(, C)].
+    uint8[H, W, C] or uint8[H, W] -> uint8[newH, newW(, C)]. The band form,
+    as K1's: ``img`` holds rows [src_row0, src_row0 + rows) of an image of
+    ``height`` rows, and the result is output rows ``out_rows`` = (oy0, oy1)
+    of its rotation (oy0 a multiple of TILE); the window must hold what
+    they read.
     """
+    angle = float(angle_deg)
+    h, src_row0, oy0, oy1 = _band(img, angle, height, int(src_row0), out_rows)
     squeeze = img.ndim == 2
     src = img[:, :, None] if squeeze else img
-    h, w, c = src.shape
-    geometry = _geometry(h, w, float(angle_deg))
-    new_h, new_w = geometry[0], geometry[1]
+    rows, w, c = src.shape
+    geometry = _geometry(h, w, angle)
+    new_w = geometry[1]
     f64, dev = torch.float64, img.device
     nX, nY = _inverse_map(geometry, torch.arange(new_w, device=dev),
-                          torch.arange(new_h, device=dev))
+                          torch.arange(oy0, oy1, device=dev))
     rX = torch.floor(nX + 0.5)
     rY = torch.floor(nY + 0.5)
     in_bounds = (rX < w) & (rY < h) & (rY >= 0) & (rX >= 0)
@@ -138,8 +187,11 @@ def rotate_plain(img: torch.Tensor, angle_deg: float) -> torch.Tensor:
                 & (rX < max(w - 2, 0)) & (rY < max(h - 2, 0)))
     edge = in_bounds & ~interior
 
-    flat = src.reshape(h * w, c)
-    nearest = flat[rY.clamp(0, h - 1).long() * w + rX.clamp(0, w - 1).long()]
+    # Source rows are global; the window starts at src_row0. Discarded
+    # pixels may reach outside it, so every row index clamps into it.
+    flat = src.reshape(rows * w, c)
+    near_y = rY.clamp(0, h - 1).long() - src_row0
+    nearest = flat[near_y.clamp(0, max(rows - 1, 0)) * w + rX.clamp(0, w - 1).long()]
 
     by = torch.floor(nY) - 1.0
     bx = torch.floor(nX) - 1.0
@@ -148,10 +200,10 @@ def rotate_plain(img: torch.Tensor, angle_deg: float) -> torch.Tensor:
     iy = by.clamp(0, max(h - 4, 0)).long()
     ix = bx.clamp(0, max(w - 4, 0)).long()
     src64 = flat.to(f64)
-    acc = torch.zeros((new_h, new_w, c), dtype=f64, device=dev)
+    acc = torch.zeros((oy1 - oy0, new_w, c), dtype=f64, device=dev)
     for j in range(4):
         wy = _cubic(nY - (by + j))[:, :, None]
-        ty = (iy + j).clamp(0, h - 1) * w
+        ty = ((iy + j).clamp(0, h - 1) - src_row0).clamp(0, max(rows - 1, 0)) * w
         p = torch.zeros_like(acc)
         for i in range(4):
             wx = _cubic(nX - (bx + i))[:, :, None]
@@ -161,38 +213,44 @@ def rotate_plain(img: torch.Tensor, angle_deg: float) -> torch.Tensor:
     acc = torch.where(acc >= 256.0, torch.full_like(acc, 255.0), acc)
     interior_val = acc.to(torch.int64).to(torch.uint8)  # (int) cast truncates
 
-    out = torch.zeros((new_h, new_w, c), dtype=torch.uint8, device=dev)
+    out = torch.zeros((oy1 - oy0, new_w, c), dtype=torch.uint8, device=dev)
     out = torch.where(edge[:, :, None], nearest, out)
     out = torch.where(interior[:, :, None], interior_val, out)
     return out[:, :, 0] if squeeze else out
 
 
-def rotate_bicubic(img: torch.Tensor, angle_deg: float) -> torch.Tensor:
+def rotate_bicubic(img: torch.Tensor, angle_deg: float, height: int | None = None,
+                   src_row0: int = 0, out_rows=None) -> torch.Tensor:
     """Rotate clockwise by ``angle_deg``: K1 on a CUDA tensor, the plain
-    version on a CPU tensor. uint8[H, W, C] or uint8[H, W], contiguous."""
+    version on a CPU tensor. uint8[H, W, C] or uint8[H, W], contiguous.
+    ``height``, ``src_row0`` and ``out_rows`` give the band form (see
+    ``rotate_plain``); by default the whole image."""
     if img.device.type == "cpu":
-        return rotate_plain(img, angle_deg)
+        return rotate_plain(img, angle_deg, height, src_row0, out_rows)
     if img.device.type != "cuda":
         raise TypeError(f"rotate_bicubic: unsupported device {img.device}")
     if img.dtype != torch.uint8 or img.ndim not in (2, 3) or not img.is_contiguous():
         raise TypeError(
             f"rotate_bicubic: need a contiguous uint8[H, W(, C)] tensor, got "
             f"{img.dtype} {tuple(img.shape)} contiguous={img.is_contiguous()}")
+    angle = float(angle_deg)
+    h, src_row0, oy0, oy1 = _band(img, angle, height, int(src_row0), out_rows)
     squeeze = img.ndim == 2
-    h, w = img.shape[0], img.shape[1]
+    w = img.shape[1]
     c = 1 if squeeze else img.shape[2]
     if c not in (1, 3):
         raise TypeError(f"rotate_bicubic: the kernel takes 1 or 3 channels, got {c}")
-    new_h, new_w, cos_t, sin_t, xc, yc, xoff, yoff = _geometry(h, w, float(angle_deg))
-    if new_h > _MAX_GRID_Y or max(h * w * c, new_h * new_w * c) >= 2**31:
+    new_h, new_w, cos_t, sin_t, xc, yc, xoff, yoff = _geometry(h, w, angle)
+    if oy1 - oy0 > _MAX_GRID_Y or max(h * w * c, new_h * new_w * c) >= 2**31:
         raise RuntimeError(f"rotate_bicubic: {h}x{w}x{c} -> {new_h}x{new_w} is too large")
-    out = torch.empty((new_h, new_w, c), dtype=torch.uint8, device=img.device)
+    out = torch.empty((oy1 - oy0, new_w, c), dtype=torch.uint8, device=img.device)
     if out.numel():
-        plan, box_w, box_h = _device_plan(h, w, float(angle_deg), img.device)
+        plan, box_w, box_h = _device_plan(h, w, angle, img.device)
+        first_tile = plan[oy0 // TILE * -(-new_w // TILE):]
         status = _build.library().ipt_rotate(
-            img.data_ptr(), out.data_ptr(), h, w, c, new_h, new_w, cos_t, sin_t,
-            xc, yc, xoff, yoff, plan.data_ptr(), box_w, box_h, img.device.index,
-            torch.cuda.current_stream(img.device).cuda_stream)
+            img.data_ptr(), src_row0, img.shape[0], out.data_ptr(), h, w, c, oy1 - oy0, new_w,
+            cos_t, sin_t, xc, yc, xoff, yoff - oy0, first_tile.data_ptr(), box_w, box_h,
+            img.device.index, torch.cuda.current_stream(img.device).cuda_stream)
         _build.check(status, "ipt_rotate")
         rotate_bicubic.launches += 1
     return out[:, :, 0] if squeeze else out

@@ -21,7 +21,10 @@ It prints the card's name and power limit, then one JSON object per line:
   K1 is also profiled at 45 and 135 degrees, and K9 (two launches per resize,
   listed by kernel name) through ``resize_width`` at 4K -> 1920, 4K -> 256
   (the ``thumbnail`` preset), 1080p -> 3840 and 4K gray -> 1920, beside the
-  dense float32 form ``resize_width_dense`` at 4K -> 1920. Back-to-back calls on one 4K
+  dense float32 form ``resize_width_dense`` at 4K -> 1920; the fused
+  pipeline, edge_detect, K1 at 30 degrees and K9 at 4K -> 1920 in four row
+  bands on the card (``parallel/spatial.py``, input on the card, cases
+  "spatial ..."). Back-to-back calls on one 4K
   input find it in the 50 MB L2 cache, so K1, K2, K6 and K8 are also profiled
   over four noise inputs in turn (seeds 1-4, 100 MB), and K4, K5 and K7's
   three instances over their four grays in turn (33 MB; with K5's and K7's
@@ -128,6 +131,9 @@ def profile_kernels(dev, words=()) -> None:
     from imageprocessingtools_tpu_torch.kernels import core, fused, rotate
     from imageprocessingtools_tpu_torch.ops.histogram import _equalize_lut
     from imageprocessingtools_tpu_torch.ops.resize import resize_width, resize_width_dense
+    from imageprocessingtools_tpu_torch.parallel import spatial
+
+    mesh4 = (dev,) * 4  # four row bands on the one card
 
     img = torch.from_numpy(_image((H4K, W4K, 3), seed=1)).to(dev)
     img_1080 = torch.from_numpy(_image((1080, 1920, 3), seed=5)).to(dev)
@@ -179,6 +185,12 @@ def profile_kernels(dev, words=()) -> None:
         "K9 resize_width 1080p -> 3840, RGB": lambda: resize_width(img_1080, 3840),
         "K9 resize_width 4K -> 1920, gray": lambda: resize_width(gray, 1920),
         "dense resize_width_dense 4K -> 1920, RGB": lambda: resize_width_dense(img, 1920),
+        "spatial fused, 4 bands": lambda: spatial.fused_pipeline_spatial(img, mesh4),
+        "spatial edge_detect, 4 bands":
+            lambda: spatial.preset_pipeline_spatial(img, "edge_detect", mesh4),
+        "spatial K1 rotate 30, RGB, 4 bands": lambda: spatial.rotate_spatial(img, 30.0, mesh4),
+        "spatial K9 resize_width 4K -> 1920, RGB, 4 bands":
+            lambda: spatial.resize_width_spatial(img, 1920, mesh4),
     }
     for label, fn in cases.items():
         if words and not any(word in label for word in words):
@@ -209,6 +221,14 @@ def _complete_trace(label: str, fn) -> list[dict]:
     raise SystemExit(f"profile_device: case {label!r}: the trace of {REPS} calls does not hold "
                      f"{REPS} x one call's events after {ATTEMPTS} attempts "
                      f"(name: [found, wanted]): {json.dumps(lost)}")
+
+
+def device_us_per_call(label: str, fn) -> float:
+    """Device us per call of ``fn``: the device events of ``REPS`` profiled
+    calls (a complete trace, ``_complete_trace``) summed, over ``REPS``."""
+    fn()
+    torch.cuda.synchronize()
+    return sum(e["dur"] for e in _complete_trace(label, fn)) / REPS
 
 
 def profile_serving(tmp: str) -> None:

@@ -9,14 +9,20 @@ reference itself is strictly one image per process
 (``ppmx-edward.c:1053-1172``). This entry point runs the same pipeline over
 a whole file set through `serving.process_files` (shape bucketing, native
 batch decode, decode/device/encode overlap) on the device that
-``IPT_DEVICE`` names (``cuda`` by default, or ``cpu``).
+``IPT_DEVICE`` names (``cuda`` by default, or ``cpu``), or over every card
+(``--mesh``, ``--spatial``).
 
 Serve options (extensions, hence the ``--`` prefix space):
+    --spatial       process each file as ONE giant image in row bands over
+                    the local cards (spatial parallelism) instead of batching;
+                    a fan-out decodes and uploads each file once
+    --mesh          split each batch over all local cards (data parallel)
     --max-batch N   images per device upload (default 256)
     --sequential    disable the reader/writer overlap threads
     --preset NAMES  serve a models/ preset pipeline instead of reference op
                     flags (edge_detect | enhance | thumbnail | print_ready);
-                    mutually exclusive with op flags. A comma-separated list
+                    mutually exclusive with op flags; composes with
+                    --spatial and --mesh. A comma-separated list
                     FANS OUT: all presets run on one upload per chunk and
                     each writes <input>.<preset><suffix>
     --fanout SPEC   fan out REFERENCE op-flag pipelines: SPEC is
@@ -36,9 +42,6 @@ Serve options (extensions, hence the ``--`` prefix space):
                     "skipped <path>: <message>" line per file on stderr)
                     instead of failing the whole run; default keeps the
                     reference's fail-fast stdout/exit-255 surface
-    --mesh, --spatial
-                    not available in the port yet: they exit 255 with a
-                    message, and are never ignored
 Exit codes/messages follow the single-image CLI: errors print to stdout,
 exit 255 (quirk B3); success prints one summary line to stderr, which
 counts the files processed in this run (resumed files separately), and
@@ -53,12 +56,12 @@ import time
 
 from imageprocessingtools_tpu_torch import serving
 from imageprocessingtools_tpu_torch.cli import _CliError, _parse_args
+from imageprocessingtools_tpu_torch.codec import native
 from imageprocessingtools_tpu_torch.codec.ppm import PPMError
 from imageprocessingtools_tpu_torch.models import PRESETS
 from imageprocessingtools_tpu_torch.ops import _exact
+from imageprocessingtools_tpu_torch.parallel.batch import default_mesh
 from imageprocessingtools_tpu_torch.utils import log
-
-_NOT_PORTED = ("--mesh", "--spatial")
 
 
 def _report_skipped(failures: dict) -> None:
@@ -70,9 +73,9 @@ def _report_skipped(failures: dict) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    serve_opts = {"max_batch": 256, "overlap": True, "preset": None,
-                  "fanout": None, "suffix": ".out", "resume": False,
-                  "skip_bad": False}
+    serve_opts = {"spatial": False, "max_batch": 256, "overlap": True,
+                  "mesh": False, "preset": None, "fanout": None,
+                  "suffix": ".out", "resume": False, "skip_bad": False}
     op_args: list[str] = []
     files: list[str] = []
     i = 0
@@ -81,13 +84,12 @@ def main(argv: list[str] | None = None) -> int:
         if a == "--help":
             sys.stderr.write(__doc__)
             return 0
-        if a in _NOT_PORTED:
-            sys.stdout.write(
-                f"Error: {a} is not available in the port yet "
-                "(use imageprocessingtools_tpu.serve)\n")
-            return 255
-        if a == "--sequential":
+        if a == "--spatial":
+            serve_opts["spatial"] = True
+        elif a == "--sequential":
             serve_opts["overlap"] = False
+        elif a == "--mesh":
+            serve_opts["mesh"] = True
         elif a == "--resume":
             serve_opts["resume"] = True
         elif a == "--skip-bad":
@@ -206,14 +208,31 @@ def main(argv: list[str] | None = None) -> int:
     failures: dict = {}
     t0 = time.perf_counter()
     try:
-        outs = serving.process_files(
-            files, config,
-            suffix=serve_opts["suffix"],
-            max_batch=serve_opts["max_batch"],
-            overlap=serve_opts["overlap"],
-            on_error="skip" if serve_opts["skip_bad"] else "raise",
-            failures=failures,
-        )
+        mesh = default_mesh() if serve_opts["mesh"] or serve_opts["spatial"] else None
+        if serve_opts["spatial"]:
+            outs = []
+            for p in files:
+                if serve_opts["skip_bad"]:
+                    # Probe the input only (open, header, payload length
+                    # against the file's size); a failure past this point
+                    # is a compute or write error and fails the run.
+                    try:
+                        native.parse_file_header(p)
+                    except (PPMError, OSError) as e:
+                        failures[p] = (e.message if isinstance(e, PPMError)
+                                       else "error. can not open file\n")
+                        continue
+                outs.append(serving.process_file_spatial(
+                    p, config, mesh=mesh, suffix=serve_opts["suffix"]))
+        else:
+            outs = serving.process_files(
+                files, config, mesh=mesh,
+                suffix=serve_opts["suffix"],
+                max_batch=serve_opts["max_batch"],
+                overlap=serve_opts["overlap"],
+                on_error="skip" if serve_opts["skip_bad"] else "raise",
+                failures=failures,
+            )
     except (PPMError, ValueError, OSError, MemoryError) as e:
         if isinstance(e, PPMError):
             message = e.message

@@ -1,20 +1,24 @@
 """Batched end-to-end serving: files -> decode -> device pipeline -> encode.
 
-Counterpart of ``imageprocessingtools_tpu/serving.py`` for one device. The
-reference is one image per process (decode, op chain, encode,
-``ppmx-edward.c:1053-1172``). This module amortizes codec and device work
-over many files: files are bucketed by shape, each bucket is decoded in
-chunks of at most ``max_batch`` images by the native C++ batch decoder,
-each chunk is uploaded once to the device that ``IPT_DEVICE`` names and run
-through the pipeline there by ``parallel.batch_apply`` (a loop over the
-images on one stream, where the JAX package has ``vmap``), P4 bits are packed
-on the device, and the outputs come back once per chunk and are encoded by
-the native threaded encoder.
-A reader and a writer thread overlap decode and encode with the device.
+Counterpart of ``imageprocessingtools_tpu/serving.py``. The reference is one
+image per process (decode, op chain, encode, ``ppmx-edward.c:1053-1172``).
+This module amortizes codec and device work over many files: files are
+bucketed by shape, each bucket is decoded in chunks of at most ``max_batch``
+images by the native C++ batch decoder, each chunk is uploaded once to the
+device that ``IPT_DEVICE`` names, or in equal shards to the devices of a
+mesh (``mesh=``, padded by repeating the last image), and run through the
+pipeline there by ``parallel.batch_apply`` (a loop over the images on a
+device's stream, where the JAX package has ``vmap``), P4 bits are packed on
+the device, and the outputs come back once per chunk (per shard) and are
+encoded by the native threaded encoder. A reader and a writer thread
+overlap decode and encode with the device.
 
-Not ported (ROADMAP): ``mesh=`` sharding and ``process_file_spatial``; and
-the strict-rotation branches, since the port's rotation is exact and needs
-no audit.
+``process_file_spatial`` takes one giant image in row bands over a mesh
+(``parallel/spatial.py``), decoded once and uploaded once for every fan-out
+element.
+
+Not ported: the strict-rotation branches, since the port's rotation is exact
+and needs no audit.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import threading
 import numpy as np
 
 from imageprocessingtools_tpu_torch.codec import native, ppm
-from imageprocessingtools_tpu_torch.codec.ppm import FILETYPE_PBM
+from imageprocessingtools_tpu_torch.codec.ppm import FILETYPE_PBM, FILETYPE_PGM
 from imageprocessingtools_tpu_torch.models import (
     PRESET_FILE_TYPES,
     get_preset,
@@ -34,7 +38,8 @@ from imageprocessingtools_tpu_torch.models import (
 )
 from imageprocessingtools_tpu_torch.ops import _exact
 from imageprocessingtools_tpu_torch.ops.packing import pack_bits_device
-from imageprocessingtools_tpu_torch.parallel.batch import batch_apply
+from imageprocessingtools_tpu_torch.parallel import spatial
+from imageprocessingtools_tpu_torch.parallel.batch import batch_apply, default_mesh
 from imageprocessingtools_tpu_torch.pipeline import PipelineConfig, run_pipeline
 
 
@@ -150,7 +155,7 @@ def _task_unpacked_shape(config, h: int, w: int) -> tuple:
     return (h, w) if (config.gray or config.mono) else (h, w, 3)
 
 
-def process_batch(images, config: PipelineConfig | str | tuple):
+def process_batch(images, config: PipelineConfig | str | tuple, mesh: tuple | None = None):
     """uint8[N, H, W, 3] -> (uint8[N, ...] on the device, file_type).
 
     ``config`` is a PipelineConfig (reference ops), a preset name from
@@ -158,9 +163,84 @@ def process_batch(images, config: PipelineConfig | str | tuple):
     preset names and/or PipelineConfigs (fan-out: returns a tuple of
     outputs and a tuple of file_types). The batch is uploaded once; every
     image, and every fan-out element, runs on that copy.
+    With a mesh (a tuple of devices), the batch is split into one shard per
+    device, each uploaded once, and the output is the list of the shards'
+    outputs (``parallel.batch.gather`` joins them); a batch that does not
+    divide the mesh is padded by repeating its last image, and the padding
+    is sliced off every fan-out element's output.
     """
     one, file_type = _task_fn(config)
-    return batch_apply(one, images), file_type
+    if mesh is None:
+        return batch_apply(one, images), file_type
+    n = images.shape[0]
+    pad = (-n) % len(mesh)
+    if pad:
+        images = np.concatenate([images, np.repeat(images[-1:], pad, axis=0)], axis=0)
+    shards = batch_apply(one, images, mesh=mesh)
+    if pad:
+        size = images.shape[0] // len(mesh)
+        kept = [min(size, max(0, n - k * size)) for k in range(len(shards))]
+        shards = [tuple(o[:m] for o in s) if isinstance(s, tuple) else s[:m]
+                  for s, m in zip(shards, kept) if m]
+    return shards, file_type
+
+
+def _spatial_task(item):
+    """(fn(bands, mesh) -> bands, file_type) for one element of a spatial
+    run: ``"fused"``, a preset name or a PipelineConfig."""
+    if item == "fused":
+        return spatial.fused_pipeline_spatial, FILETYPE_PGM
+    if isinstance(item, str):
+        get_preset(item)  # raises ValueError for unknown names
+        return (lambda bands, mesh: spatial.preset_pipeline_spatial(bands, item, mesh),
+                PRESET_FILE_TYPES[item])
+    return (lambda bands, mesh: spatial.run_pipeline_spatial(bands, item, mesh),
+            item.file_type)
+
+
+def _write_bands(out_path: str, bands: list, file_type: int, max_color: int) -> None:
+    """Encode one image held in bands: P4 bits packed per band on its
+    device, the bands joined on the host, written by the native encoder."""
+    width = bands[0].data.shape[1]
+    if file_type == FILETYPE_PBM:
+        bands = [spatial.Band(b.row0, pack_bits_device(b.data)) for b in bands]
+    out = spatial.gather(bands).numpy()
+    native.encode_batch_files(
+        [out_path], out[None], file_type, [max_color],
+        p4_dims=(out.shape[0], width) if file_type == FILETYPE_PBM else None)
+
+
+def process_file_spatial(path: str, config, mesh: tuple | None = None,
+                         suffix: str = ".out"):
+    """ONE giant image in row bands over a mesh (``parallel/spatial.py``).
+
+    ``config`` is a PipelineConfig (the reference's pipeline), ``"fused"``
+    (gray -> 5x5 Gaussian -> histogram equalization, written as P5), a
+    preset name, or a tuple of these (fan-out): the file is decoded once and
+    its bands uploaded once for every element, each written to
+    ``<path>.<tag><suffix>`` (`config_tag`). ``mesh`` defaults to
+    ``parallel.batch.default_mesh()``. Writes ``<path><suffix>`` and
+    returns its path, or the list of paths for a fan-out.
+    """
+    if mesh is None:
+        mesh = default_mesh()
+    items = config if isinstance(config, tuple) else (config,)
+    if isinstance(config, tuple):
+        tags = [config_tag(it) for it in items]  # validates B2 per element
+        if len(set(tags)) != len(tags):
+            raise ValueError(f"duplicate fan-out outputs: {sorted(tags)}")
+        names = ["." + t + suffix for t in tags]
+    else:
+        names = [suffix]
+    tasks = [_spatial_task(it) for it in items]
+    with open(path, "rb") as f:
+        img, max_color = ppm.decode_ppm(f.read())
+    bands = spatial.shard_rows(img, mesh)
+    out_paths = []
+    for name, (fn, file_type) in zip(names, tasks):
+        out_paths.append(path + name)
+        _write_bands(out_paths[-1], fn(bands, mesh), file_type, max_color)
+    return out_paths if isinstance(config, tuple) else out_paths[0]
 
 
 def _encode_chunk(idxs, out_np, file_type, unpacked, paths, metas, suffix,
@@ -191,7 +271,15 @@ def _encode_chunk(idxs, out_np, file_type, unpacked, paths, metas, suffix,
 
 def _to_host(out):
     """Device output(s) to host numpy; the copy waits for the device.
-    Fan-out outputs are a tuple."""
+    Fan-out outputs are a tuple; a mesh's outputs are a list of shards,
+    joined here on the host."""
+    if isinstance(out, list):
+        shards = [_to_host(s) for s in out]
+        if len(shards) == 1:
+            return shards[0]
+        if isinstance(shards[0], tuple):
+            return tuple(np.concatenate([s[k] for s in shards]) for k in range(len(shards[0])))
+        return np.concatenate(shards)
     if isinstance(out, tuple):
         return tuple(o.cpu().numpy() for o in out)
     return out.cpu().numpy()
@@ -233,6 +321,7 @@ def process_files(
     overlap: bool = True,
     on_error: str = "raise",
     failures: dict | None = None,
+    mesh: tuple | None = None,
 ) -> list[str]:
     """Run the pipeline over many files; writes ``<path><suffix>``.
 
@@ -255,6 +344,8 @@ def process_files(
     skipped (input path -> stdout-style message in the caller's
     ``failures`` dict) and the rest of the run proceeds. The default
     ``"raise"`` keeps the reference's fail-fast semantics.
+
+    ``mesh``: split each chunk over these devices (``process_batch``).
     """
     if on_error not in ("raise", "skip"):
         raise ValueError(f"on_error must be 'raise' or 'skip', got {on_error!r}")
@@ -312,7 +403,7 @@ def process_files(
                     paths, idxs, (h, w), on_error, idx_failures)
                 if not kept:
                     continue
-                out, file_type = process_batch(batch, config)
+                out, file_type = process_batch(batch, config, mesh)
                 _encode_chunk(kept, _to_host(out), file_type, unpacked,
                               paths, metas, suffix, out_paths,
                               names=fanout_tags)
@@ -370,7 +461,7 @@ def process_files(
                 if item is None:
                     break
                 idxs, batch = item
-                out, file_type = process_batch(batch, config)
+                out, file_type = process_batch(batch, config, mesh)
                 if not put_to_writer((idxs, _to_host(out), file_type, unpacked)):
                     break
         except BaseException as e:

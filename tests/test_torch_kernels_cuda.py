@@ -66,6 +66,128 @@ def test_rotate_kernel_matches_plain(cuda, shape, angle):
     assert torch.equal(out, exp)
 
 
+def _bands(new_h):
+    """Output bands of a rotation with ``new_h`` rows: the top, a middle
+    one, the bottom, one of an odd height and the whole image."""
+    mid = new_h // 2 // rotate.TILE * rotate.TILE
+    last = max(0, (new_h - 1) // rotate.TILE * rotate.TILE - rotate.TILE)
+    return [(0, min(64, new_h)), (mid, min(new_h, mid + 96)), (last, new_h),
+            (0, min(37, new_h)), (0, new_h)]
+
+
+@pytest.mark.parametrize("angle", [30.0, 45.0, 135.0, 359.0])
+@pytest.mark.parametrize("shape", [(257, 509, 3), (301, 203), (1080, 1920, 3), (70, 45, 1)])
+@pytest.mark.parametrize("layout", ["copy", "view"])
+def test_rotate_kernel_band_form(cuda, shape, angle, layout):
+    """K1's band form: output rows [oy0, oy1) from the source window that
+    ``band_window`` gives, on its own allocation or as a view into the whole
+    image (the 16-byte chunks before the window's first byte are not read),
+    equal to the plain band form and to the same rows of the full K1."""
+    img = _image(shape, seed=sum(shape) + int(angle)).to(cuda)
+    h, w = shape[:2]
+    full = rotate.rotate_bicubic(img, angle)
+    for oy0, oy1 in _bands(full.shape[0]):
+        lo, hi = rotate.band_window(h, w, angle, oy0, oy1)
+        src = img[lo:hi].clone() if layout == "copy" else img[lo:hi]
+        before = rotate.rotate_bicubic.launches
+        band = rotate.rotate_bicubic(src, angle, h, lo, (oy0, oy1))
+        torch.cuda.synchronize()
+        assert rotate.rotate_bicubic.launches == before + 1
+        assert torch.equal(band, full[oy0:oy1]), (oy0, oy1)
+        assert torch.equal(band, rotate.rotate_plain(src, angle, h, lo, (oy0, oy1)))
+
+
+def test_rotate_kernel_band_form_refuses_a_short_window(cuda):
+    img = _image((257, 509, 3), seed=3).to(cuda)
+    lo, hi = rotate.band_window(257, 509, 30.0, 64, 128)
+    before = rotate.rotate_bicubic.launches
+    with pytest.raises(ValueError, match="outside the window"):
+        rotate.rotate_bicubic(img[lo + 1:hi], 30.0, 257, lo + 1, (64, 128))
+    assert rotate.rotate_bicubic.launches == before
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("shape,new_width", [((1080, 1920, 3), 256), ((97, 701, 3), 1400),
+                                             ((48, 64), 21)])
+def test_resize_sub_table_band_through_the_c_entry(cuda, n, shape, new_width):
+    """The H pass of ``parallel/spatial.py``: each output band's sub-table,
+    rebased to its window, through ``ipt_resize_pass``, gives the band's
+    rows of the whole-image pass."""
+    from imageprocessingtools_tpu_torch.kernels import _build
+    from imageprocessingtools_tpu_torch.parallel import spatial
+
+    img = _image(shape, seed=n).to(cuda)
+    h, w = shape[:2]
+    src = img
+    for dim, idx, wts in k9.device_passes(h, w, new_width, cuda):
+        if dim == 0:
+            break
+        src = k9.resize_pass(src, idx, wts, dim)  # the W pass first
+    whole = k9.resize_pass(src, idx, wts, 0)
+    for o0, o1, lo, hi, sub_idx, sub_w in spatial._resize_plan(h, w, new_width, (cuda,) * n):
+        window = src[lo:hi]
+        out = torch.empty((o1 - o0,) + tuple(src.shape[1:]), dtype=torch.uint8, device=cuda)
+        _build.check(_build.library().ipt_resize_pass(
+            *k9.launch_args(window, out, sub_idx, sub_w, 0)), "ipt_resize_pass")
+        torch.cuda.synchronize()
+        assert torch.equal(out, whole[o0:o1]), (o0, o1)
+        assert torch.equal(out, k9.resize_pass_plain(window, sub_idx, sub_w, 0))
+
+
+def _spatial_cases():
+    from imageprocessingtools_tpu_torch.pipeline import PipelineConfig
+
+    return ["fused", "edge_detect", "enhance", "print_ready", "thumbnail",
+            PipelineConfig(new_width=300, angle=30.0, gray=True, mono=False, flip_v=True),
+            PipelineConfig(angle=135.0, mono=True, flip_h=True), PipelineConfig(angle=90.0),
+            PipelineConfig(angle=270.0, gray=True)]
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+@pytest.mark.parametrize("case", _spatial_cases(), ids=str)
+def test_spatial_paths_on_the_card_equal_the_unsharded_paths(cuda, n, case):
+    """``parallel/spatial.py`` on a mesh that names the card n times, byte
+    for byte the unsharded path on the card."""
+    from imageprocessingtools_tpu_torch.models import PRESETS
+    from imageprocessingtools_tpu_torch.parallel import spatial
+    from imageprocessingtools_tpu_torch.pipeline import run_pipeline
+
+    img = _image((203, 301, 3), seed=n).to(cuda)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = (dev,) * n
+    if case == "fused":
+        got, exp = spatial.fused_pipeline_spatial(img, mesh), fused.fused_pipeline_mega(img)
+    elif isinstance(case, str):
+        got, exp = spatial.preset_pipeline_spatial(img, case, mesh), PRESETS[case](img)
+    else:
+        got, exp = spatial.run_pipeline_spatial(img, case, mesh), run_pipeline(img, case)[0]
+    assert all(b.data.device == dev for b in got)
+    assert torch.equal(spatial.gather(got, dev), exp)
+
+
+def test_spatial_and_batch_over_every_card(cuda):
+    """Bands and batch shards on every card torch sees: the peer copies of
+    ``row_window`` and each shard's upload."""
+    from imageprocessingtools_tpu_torch.parallel import batch, spatial
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: copies between cards")
+    mesh = batch.default_mesh()
+    img = _image((517, 301, 3), seed=7)
+    on_first = img.to(mesh[0])
+    for got, exp in [
+        (spatial.fused_pipeline_spatial(img, mesh), fused.fused_pipeline(on_first)),
+        (spatial.rotate_spatial(img, 30.0, mesh), rotate.rotate_plain(on_first, 30.0)),
+        (spatial.resize_width_spatial(img, 150, mesh), resize_ops.resize_width(on_first, 150)),
+    ]:
+        assert sorted({b.data.device.index for b in got}) == [d.index for d in mesh]
+        assert torch.equal(spatial.gather(got, mesh[0]), exp)
+    imgs = torch.stack([img] * len(mesh))
+    shards = batch.batched_fused_pipeline(imgs, mesh=mesh)
+    assert [s.device for s in shards] == list(mesh)
+    assert torch.equal(batch.gather(shards, mesh[0])[-1], fused.fused_pipeline(on_first))
+
+
 def _rgb(cuda, shape, kind, offset):
     """uint8[h, w, 3] on the card, as a contiguous view that starts ``offset``
     bytes into a larger buffer (1-15: K2/K6's unaligned rows). Kinds: noise,

@@ -1,9 +1,11 @@
-"""The port's one-device batch module (``parallel/batch.py``) on the CPU.
+"""The port's batch module (``parallel/batch.py``) on the CPU.
 
 The same batches (numpy seeds) go through the JAX package's
-``parallel.batch.batch_apply`` / ``batched_fused_pipeline`` on a one-device
-mesh (on the CPU the JAX side runs its plain XLA pipeline, as its own tests
-do) and through the port's. Tolerance: none. Every op used here is
+``parallel.batch.batch_apply`` / ``batched_fused_pipeline`` on a mesh of
+one or more of its virtual CPU devices (on the CPU the JAX side runs its
+plain XLA pipeline, as its own tests do) and through the port's, on one
+device or split over a mesh that names the CPU several times; split runs
+must also equal the port's one-device run. Tolerance: none. Every op used here is
 integer-exact, or float32 in the same operation order on both sides (the
 equalization LUT).
 """
@@ -125,3 +127,106 @@ def test_process_batch_goes_through_batch_apply_with_the_same_outputs(monkeypatc
             assert all(torch.equal(out[k][i], exp[k]) for k in range(len(exp)))
         else:
             assert torch.equal(out[i], exp)
+
+
+# ---------------------------------------------------------------------------
+# The mesh half: a batch split over a tuple of devices (here the CPU device,
+# named more than once).
+# ---------------------------------------------------------------------------
+
+CPU = torch.device("cpu")
+
+
+def test_default_mesh_on_the_cpu_and_from_devices():
+    assert parallel.default_mesh() == (CPU,)
+    assert port.default_mesh(["cpu", torch.device("cpu")]) == (CPU, CPU)
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 3])
+def test_batch_apply_over_a_mesh_equals_the_one_device_run(n_dev):
+    imgs = _batch(6, 13, 17)
+    shards = batch.batch_apply(port.grayscale, imgs, mesh=(CPU,) * n_dev)
+    assert isinstance(shards, list) and len(shards) == n_dev
+    assert all(tuple(s.shape) == (6 // n_dev, 13, 17) for s in shards)
+    assert torch.equal(batch.gather(shards), batch.batch_apply(port.grayscale, imgs))
+
+
+def test_batch_apply_over_a_mesh_with_a_tuple_returning_fn():
+    imgs = _batch(4, 12, 16)
+
+    def two(img):
+        return port.grayscale(img), port.resize_width(img, 8)
+
+    gray, small = batch.gather(batch.batch_apply(two, imgs, mesh=(CPU, CPU)))
+    exp_gray, exp_small = batch.batch_apply(two, imgs)
+    assert torch.equal(gray, exp_gray) and torch.equal(small, exp_small)
+
+
+def test_batch_apply_over_a_mesh_refuses_an_indivisible_batch():
+    with pytest.raises(ValueError, match="not divisible"):
+        batch.batch_apply(port.grayscale, _batch(5, 4, 4), mesh=(CPU, CPU))
+
+
+def test_batch_apply_uploads_each_shard_once_to_its_device(monkeypatch):
+    moved = []
+    real = torch.Tensor.to
+
+    def spy(self, *args, **kwargs):
+        moved.append(tuple(self.shape))
+        return real(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.Tensor, "to", spy)
+    batch.batch_apply(lambda im: im[:1], _batch(6, 5, 7), mesh=(CPU,) * 3)
+    assert moved == [(2, 5, 7, 3)] * 3
+
+
+@pytest.mark.parametrize("n, n_dev", [(8, 8), (8, 2)])
+def test_batched_fused_pipeline_over_a_mesh_matches_jax(n, n_dev):
+    imgs = _batch(n, 16, 24)
+    exp = np.asarray(jax_batch.batched_fused_pipeline(
+        imgs, mesh=jax_batch.default_mesh(devices=jax.devices()[:n_dev])))
+    out = batch.gather(parallel.batched_fused_pipeline(imgs, mesh=(CPU,) * n_dev))
+    np.testing.assert_array_equal(out.numpy(), exp)
+
+
+@pytest.mark.parametrize("config", [
+    PipelineConfig(gray=True), PipelineConfig(new_width=8, mono=True), "print_ready",
+    ("edge_detect", PipelineConfig(angle=30.0), "thumbnail"),
+], ids=str)
+@pytest.mark.parametrize("n, n_dev", [(4, 2), (4, 3), (1, 3), (5, 3)])
+def test_process_batch_over_a_mesh_pads_and_slices(config, n, n_dev):
+    imgs = _batch(n, 16, 24)
+    shards, file_type = serving.process_batch(imgs, config, mesh=(CPU,) * n_dev)
+    exp, exp_type = serving.process_batch(imgs, config)
+    assert file_type == exp_type
+    assert sum(len(s[0] if isinstance(s, tuple) else s) for s in shards) == n
+    out = serving._to_host(shards)
+    exp = serving._to_host(exp)
+    if isinstance(exp, tuple):
+        assert len(out) == len(exp)
+        for a, b in zip(out, exp):
+            np.testing.assert_array_equal(a, b)
+    else:
+        np.testing.assert_array_equal(out, exp)
+
+
+@pytest.mark.parametrize("n_files, n_dev, max_batch", [(8, 2, 256), (5, 3, 256), (9, 3, 8)])
+def test_process_files_over_a_mesh_equals_the_one_device_run(tmp_path, n_files, n_dev,
+                                                             max_batch):
+    """The JAX package's sharded-mesh, non-divisible and tiny-remainder
+    cases (tests/test_serving.py), here against the port's own one-device
+    run, byte for byte."""
+    from imageprocessingtools_tpu_torch.codec import ppm
+
+    paths = []
+    for i in range(n_files):
+        paths.append(str(tmp_path / f"in{i}.ppm"))
+        ppm.write_ppm(paths[-1], make_image(8, 16, seed=i))
+    config = ("print_ready", PipelineConfig(gray=True))
+    one = serving.process_files(paths, config, suffix=".one", max_batch=max_batch)
+    sharded = serving.process_files(paths, config, suffix=".mesh", max_batch=max_batch,
+                                    mesh=(CPU,) * n_dev)
+    assert len(one) == len(sharded) == n_files
+    for a_paths, b_paths in zip(one, sharded):
+        for a, b in zip(a_paths, b_paths):
+            assert open(a, "rb").read() == open(b, "rb").read()

@@ -1,5 +1,6 @@
-"""The port's server (``serve.main``, ``serving.process_files``) against the
-JAX package's, on the same files, on the CPU.
+"""The port's server (``serve.main``, ``serving.process_files``,
+``serving.process_file_spatial``, with and without ``--mesh`` and
+``--spatial``) against the JAX package's, on the same files, on the CPU.
 
 Each case writes the same P6 inputs (numpy seeds) into two directories and
 serves one with each package. Exit codes, stdout and the skip lines on
@@ -220,14 +221,104 @@ def test_serve_probes_match_jax(tmp_path, capsys, args):
     assert rc == 255
 
 
-@pytest.mark.parametrize("flag", ["--mesh", "--spatial"])
-def test_serve_unported_options_fail_loudly(tmp_path, capsys, flag):
-    path = str(tmp_path / "x.ppm")
-    ppm.write_ppm(path, make_image(4, 6))
-    assert serve.main([flag, "--preset", "enhance", path]) == 255
-    assert capsys.readouterr().out == f"Error: {flag} is not available in the port yet " \
-                                      "(use imageprocessingtools_tpu.serve)\n"
-    assert not os.path.exists(path + ".out")
+@pytest.mark.parametrize("mode", ["--mesh", "--spatial"])
+@pytest.mark.parametrize("args", [
+    ["--preset", "edge_detect,enhance,print_ready,thumbnail"],
+    ["--preset", "enhance"],
+    ["-r30", "-mono"],
+    ["-w12", "-gray", "-fv"],
+    ["-r90", "-fh"],
+    ["--preset", "enhance", "--fanout", "-gray;-w10 -r30;-mono -fh"],
+], ids=" ".join)
+def test_serve_mesh_and_spatial_match_jax(tmp_path, capsys, mode, args):
+    resize_chain = any(a.startswith("-w") for a in args) or "--fanout" in args
+    rc, _, err, files = _both(tmp_path, capsys, [mode] + args, resize_chain=resize_chain)
+    assert rc == 0 and "3 files processed" in err and files
+
+
+@pytest.mark.parametrize("mode", ["--mesh", "--spatial"])
+def test_serve_mesh_and_spatial_skip_bad_match_jax(tmp_path, capsys, mode):
+    rc, out, err, files = _both(
+        tmp_path, capsys, [mode, "--skip-bad", "--preset", "print_ready,edge_detect"], bad=True)
+    assert rc == 0 and out == ""
+    assert "skipped <dir>/truncated.ppm: Error: unexpected end of file." in err
+    assert "1 bad skipped" in err and len(files) == 6
+
+
+@pytest.mark.parametrize("mode", ["--mesh", "--spatial"])
+def test_serve_mesh_and_spatial_fail_fast_match_jax(tmp_path, capsys, mode):
+    rc, out, _, files = _both(tmp_path, capsys, [mode, "--preset", "enhance"], bad=True)
+    assert rc == 255 and out == "Error: unexpected end of file.\n"
+
+
+@pytest.mark.parametrize("mode", ["--mesh", "--spatial"])
+@pytest.mark.parametrize("args", [["--preset", "thumbnail,edge_detect"], ["-r135", "-mono"]],
+                         ids=" ".join)
+def test_serve_mesh_and_spatial_write_the_bytes_of_a_plain_serve(tmp_path, capsys, mode, args):
+    """The flags change where the work runs, never a byte."""
+    plain = _serve(serve.main, tmp_path / "plain", args, TWO_BUCKETS, capsys)
+    moved = _serve(serve.main, tmp_path / "moved", [mode] + args, TWO_BUCKETS, capsys)
+    assert plain[0] == moved[0] == 0 and plain[3] == moved[3] and plain[3]
+
+
+def test_serve_help_lists_mesh_and_spatial(capsys):
+    assert serve.main(["--help"]) == 0
+    err = capsys.readouterr().err
+    assert "--mesh" in err and "--spatial" in err and "not available" not in err
+
+
+def test_spatial_fan_out_decodes_each_file_once(tmp_path, monkeypatch):
+    paths = _write_inputs(tmp_path, TWO_BUCKETS)
+    decodes = []
+    real = serving.ppm.decode_ppm
+
+    def counting(data):
+        decodes.append(len(data))
+        return real(data)
+
+    monkeypatch.setattr(serving.ppm, "decode_ppm", counting)
+    config = ("edge_detect", "print_ready", "thumbnail", PipelineConfig(angle=30.0, mono=True))
+    outs = [serving.process_file_spatial(p, config, mesh=(torch.device("cpu"),) * 3)
+            for p in paths]
+    assert len(decodes) == len(paths)
+    assert [len(o) for o in outs] == [4] * len(paths)
+    assert outs[0][3] == paths[0] + ".r30-mono.out"
+
+
+@pytest.mark.parametrize("config", ["fused", "print_ready", PipelineConfig(new_width=10,
+                                    angle=135.0, mono=True, flip_v=True)], ids=str)
+@pytest.mark.parametrize("n_dev", [1, 3, 8])
+def test_process_file_spatial_equals_the_one_device_path(tmp_path, config, n_dev):
+    from imageprocessingtools_tpu_torch.kernels.fused import fused_pipeline
+
+    path = _write_inputs(tmp_path, [(37, 53)])[0]
+    img, max_color = ppm.read_ppm(path)
+    out = serving.process_file_spatial(path, config, mesh=(torch.device("cpu"),) * n_dev,
+                                       suffix=".sp")
+    assert out == path + ".sp"
+    if config == "fused":
+        exp = ppm.encode_ppm(fused_pipeline(torch.from_numpy(img)).numpy(), ppm.FILETYPE_PGM,
+                             max_color)
+    else:
+        one, file_type = serving._task_fn(config)
+        unpacked = serving._task_unpacked_shape(config, 37, 53)
+        packed = one(torch.from_numpy(img)).numpy()
+        exp_path = str(tmp_path / "exp.out")
+        native.encode_batch_files([exp_path], packed[None], file_type, [max_color],
+                                  p4_dims=unpacked if file_type == ppm.FILETYPE_PBM else None)
+        exp = open(exp_path, "rb").read()
+    assert open(out, "rb").read() == exp
+
+
+def test_process_file_spatial_refuses_before_decoding(tmp_path):
+    path = _write_inputs(tmp_path, [(8, 8)])[0]
+    with pytest.raises(ValueError, match="unknown preset"):
+        serving.process_file_spatial(path, "bogus", mesh=(torch.device("cpu"),))
+    with pytest.raises(ValueError, match="duplicate fan-out"):
+        serving.process_file_spatial(path, ("enhance", "enhance"), mesh=(torch.device("cpu"),))
+    with pytest.raises(ValueError, match="no data to write"):
+        serving.process_file_spatial(path, PipelineConfig(), mesh=(torch.device("cpu"),))
+    assert os.listdir(tmp_path) == ["in0.ppm"]
 
 
 def test_process_files_writer_error_no_deadlock(tmp_path, monkeypatch):
