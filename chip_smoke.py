@@ -6,8 +6,9 @@ Run from the root of the repository, with one NVIDIA Hopper card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``imageprocessingtools_tpu_torch/csrc``
-(nvcc, sm_90a, one process per source) and runs, in order, printing one line
-per phase:
+(nvcc, sm_90a, one process per source, into the port's cache directory:
+``$IPT_CACHE_DIR``, the checkout's ``.cache/`` or the user's cache) and runs,
+in order, printing one line per phase:
 
 1. the device: torch and CUDA versions, the card's name and power limit;
 2. the kernel build, with its seconds;
@@ -26,7 +27,9 @@ per phase:
    run on the CPU in a subprocess (``IPT_DEVICE=cpu``);
 5. the flagship fused pipeline at 4K through K2 and K3, and its staged form
    through K8, K5, K4 and K3, each byte-equal to the plain torch pipeline;
-   then a batch of four 4K images through ``parallel.batched_fused_pipeline``
+   mega's ``utils.timing.device_loop_rate`` and ``dispatch_time`` beside its
+   ms per call and its device us (taken in phase 7, printed after it); then
+   a batch of four 4K images through ``parallel.batched_fused_pipeline``
    (K2 and K3 once per image), byte-equal to the plain pipeline per image;
 6. preset serving (``imageprocessingtools_tpu_torch.serve.main``): the four
    presets fanned out over eight 4K and two 1080p P6 files and one truncated
@@ -40,24 +43,36 @@ per phase:
    to the unsharded path on the card and to the plain path on the CPU (K1
    runs in its band form there); the band and unsharded forms of the fused
    pipeline and of edge_detect timed side by side (ms per call, and device
-   us from a ``torch.profiler`` trace); then ``serve --mesh`` and ``serve
+   us from ``torch.profiler`` traces; the unsharded fused pipeline, which is
+   the flagship mega, is traced by ``utils.profiling.trace_to`` with 20 calls
+   in an ``annotate`` region, read with ``profile_device.device_events``, and
+   the trace must hold the region and 20 times one call's device events, or
+   the run fails); then ``serve --mesh`` and ``serve
    --spatial`` over phase 6's files, byte-equal to phase 6's outputs. Where
    torch sees more than one card, the spatial paths and a batch also run
    over a mesh of every card (copies between cards); otherwise the line
-   says that they were not exercised.
+   says that they were not exercised;
+8. images of 2^31 bytes and more, made on the card from a seeded
+   ``torch.Generator``: K1 (30 degrees), K2 and K6 on uint8[27000, 27000, 3],
+   K5 and K7 (Sobel) on uint8[46341, 46341], each one launch; output rows
+   whose offsets, or whose source rows' offsets, pass 2^31 held byte-equal
+   to the plain versions on the same window, K2's histogram to
+   ``torch.bincount``, and each kernel's time per call (CUDA events).
 
 Every kernel's launch count is set to 0 just before each of phases 4, 5 (the
 flagship, then the batch), 6 and 7 (the band paths, then the moved serving)
 and read just after it; a kernel that a phase's path uses and that was not
 launched there is a failure. The line before the last is a JSON object with
 each kernel's launches (summed over the four paths), error, times, least
-time and the PyTorch call's time; the last line is
+time and the PyTorch call's time (and, for the kernels of phase 8, what it
+checked and timed there); the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, and the
 script then exits non-zero without printing either line.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -172,15 +187,18 @@ def rotate_cost(torch, rotate, src, angle: float) -> tuple[int, float]:
       4 and 3 for the column (35).
 
     Floors and compares are not counted. The zones are counted with K1's
-    own geometry on the card."""
+    own geometry on the card, 1024 output rows at a time."""
     h, w, c = src.shape
     geometry = rotate._geometry(h, w, angle)
     new_h, new_w = geometry[0], geometry[1]
-    n_x, n_y = rotate._inverse_map(geometry, torch.arange(new_w, device=src.device),
-                                   torch.arange(new_h, device=src.device))
-    rx, ry = torch.floor(n_x + 0.5), torch.floor(n_y + 0.5)
-    in_bounds = int(((rx >= 0) & (ry >= 0) & (rx < w) & (ry < h)).sum())
-    interior = int(((rx > 1) & (ry > 1) & (rx < max(w - 2, 0)) & (ry < max(h - 2, 0))).sum())
+    in_bounds = interior = 0
+    for y0 in range(0, new_h, 1024):
+        n_x, n_y = rotate._inverse_map(geometry, torch.arange(new_w, device=src.device),
+                                       torch.arange(y0, min(y0 + 1024, new_h), device=src.device))
+        rx, ry = torch.floor(n_x + 0.5), torch.floor(n_y + 0.5)
+        in_bounds += int(((rx >= 0) & (ry >= 0) & (rx < w) & (ry < h)).sum())
+        interior += int(((rx > 1) & (ry > 1) & (rx < max(w - 2, 0))
+                         & (ry < max(h - 2, 0))).sum())
     ops = (2.0 * (new_w + new_h) + 4.0 * in_bounds + 2.0 * (in_bounds - interior)
            + interior * (2 * (4 + 28) + 35.0 * c))
     return src.numel() + new_h * new_w * c, ops
@@ -234,7 +252,7 @@ SPATIAL_CONFIGS = {"-w1920 -r30 -mono -fv": dict(new_width=1920, angle=30.0, mon
 
 
 def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files, bad,
-            fanout_flags, n_good, plain_presets) -> list[str]:
+            fanout_flags, n_good, plain_presets, trace_dir) -> tuple[list[str], tuple]:
     """Spatial and mesh: the band paths on a mesh that names the card four
     times, then ``serve --mesh`` and ``serve --spatial`` over phase 6's
     files. Returns the lines to print."""
@@ -299,11 +317,20 @@ def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files,
                        lambda: fused.fused_pipeline_mega(src)),
              "edge_detect": (lambda: spatial.preset_pipeline_spatial(src, "edge_detect", mesh4),
                              lambda: core.sobel(core.gray_gauss(src)))}
+    # The run's only traces, taken within seconds of each other: a trace
+    # taken long after the process's first one loses device events at its
+    # start. The unsharded fused pipeline is the flagship mega: it is traced
+    # with utils.profiling (trace_to, an annotate region).
     parts = []
     for label, (band_fn, one_fn) in timed.items():
         ms = (median_ms(torch, band_fn), median_ms(torch, one_fn))
         # A trace that still lost events after profile_device's retries stops the run.
-        us = (device_us_per_call(f"spatial {label}", band_fn), device_us_per_call(label, one_fn))
+        band_us = device_us_per_call(f"spatial {label}", band_fn)
+        if label == "fused":
+            mega_trace = traced_us(torch, "chip_smoke: flagship mega", one_fn, REPS, trace_dir)
+            us = (band_us, mega_trace[0])
+        else:
+            us = (band_us, device_us_per_call(label, one_fn))
         parts.append(f"{label} ms per call {ms[0]:.4f} / {ms[1]:.4f}, "
                      f"device us {us[0]:.2f} / {us[1]:.2f}")
     lines.append(f"phase 7 times, 4 bands / unsharded, {H4K}x{W4K} on {card}: " + "; ".join(parts))
@@ -359,7 +386,138 @@ def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files,
     else:
         lines.append("phase 7 cards: torch sees one card; copies between cards were not "
                      "exercised")
-    return lines
+    return lines, mega_trace
+
+
+def traced_us(torch, label: str, fn, reps: int, trace_dir: str) -> tuple[float, int]:
+    """(device us per call of ``fn``, device events): ``reps`` calls traced by
+    ``utils.profiling.trace_to`` inside an ``annotate(label)`` region, their
+    device events (``profile_device.device_events``) summed over ``reps``.
+    The trace file must hold the region, and ``reps`` times the events of
+    one traced call (``profile_device.lost_events``); a trace without device
+    events or with lost ones is taken again, up to ``profile_device.ATTEMPTS``
+    times, and then the run fails. ``fn``'s outputs are not kept."""
+    from imageprocessingtools_tpu_torch.profile_device import ATTEMPTS, device_events, lost_events
+    from imageprocessingtools_tpu_torch.utils.profiling import annotate, trace_to
+
+    fn()  # warm-up: the first launches
+    torch.cuda.synchronize()
+    problem = "no attempt"
+    for _ in range(ATTEMPTS):
+        with trace_to(trace_dir) as one:
+            fn()
+        with trace_to(trace_dir) as prof:
+            with annotate(label):
+                for _ in range(reps):
+                    fn()
+        with open(prof.chrome_trace) as f:
+            trace = json.load(f)
+        trace = trace["traceEvents"] if isinstance(trace, dict) else trace
+        if not any(e.get("name") == label and e.get("cat") == "user_annotation" for e in trace):
+            fail(f"the trace of {label!r} ({prof.chrome_trace}) does not hold its annotate region")
+        try:
+            per_call = collections.Counter(e["name"] for e in device_events(one))
+            events = device_events(prof)
+        except RuntimeError as e:  # the tracer returned no device event
+            problem = str(e)
+        else:
+            lost = lost_events(events, per_call, reps)
+            if not lost:
+                return sum(e["dur"] for e in events) / reps, len(events)
+            problem = f"lost events (name: [found, wanted]): {json.dumps(lost)}"
+        time.sleep(0.5)
+    fail(f"the trace of {label!r} after {ATTEMPTS} attempts: {problem}")
+
+
+# Phase 8: images of 2^31 bytes and more, made on the card. uint8[27000,
+# 27000, 3] is 2,187,000,000 bytes; uint8[46341, 46341] 2,147,488,281. Each
+# kernel's last BOTTOM output rows are held to the plain version on the
+# bottom window with its halo: rows whose input (and for K1 output) offsets
+# pass 2^31; on the gray image the last row's tail passes it. K1's bottom
+# rows hold the source's corner only, so a band of BOTTOM rows at three
+# quarters of its output, past 2^31 in both, is checked too.
+BIG_RGB, BIG_GRAY, BOTTOM = (27000, 27000, 3), (46341, 46341), 64
+
+
+def phase_8(torch, dev, card) -> tuple[list[str], dict]:
+    """K1 (30 degrees), K2 and K6 on the RGB image, K5 and K7 (Sobel) on the
+    gray one. Returns the lines to print and, per kernel, its input shape,
+    the output rows and the byte ranges checked, its error and device us."""
+    from imageprocessingtools_tpu_torch.kernels import core, rotate
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2**31)
+    results = {}
+
+    def check(name, src, out, bands, fn, least):
+        """Hold each band (row0, row1, exp, (lo, hi)) of ``out`` to ``exp``,
+        which the plain version made from the source rows [lo, hi); then
+        time ``fn`` (CUDA events, ``median_ms``: at these sizes the card's
+        time, the launch is a few us of it) beside its ``least`` time."""
+        out_row, src_row = out[0].numel(), src[0].numel()
+        entry = {"input": list(src.shape), "output": list(out.shape), "max_abs_err": 0,
+                 "output_bytes_checked": [], "input_bytes_read": [],
+                 "bound_us": least[0] * 1e3, "bound_by": least[1]}
+        for row0, row1, exp, (lo, hi) in bands:
+            err = max_abs_err(torch, out[row0:row1], exp)
+            if err:
+                fail(f"phase 8 {name} rows [{row0}, {row1}) differ from plain by {err}")
+            entry["output_bytes_checked"].append([row0 * out_row, row1 * out_row])
+            entry["input_bytes_read"].append([lo * src_row, hi * src_row])
+        entry["device_us"] = median_ms(torch, fn, repeats=3) * 1e3
+        results[name] = entry
+
+    big = torch.randint(0, 256, BIG_RGB, dtype=torch.uint8, device=dev, generator=gen)
+    h, w, _ = BIG_RGB
+    out = rotate.rotate_bicubic(big, 30.0)
+    bands = []
+    for row0 in (out.shape[0] * 3 // 4 // rotate.TILE * rotate.TILE,
+                 (out.shape[0] - BOTTOM) // rotate.TILE * rotate.TILE):
+        row1 = min(row0 + BOTTOM, out.shape[0])
+        lo, hi = rotate.band_window(h, w, 30.0, row0, row1)
+        bands.append((row0, row1, rotate.rotate_plain(
+            big[lo:hi], 30.0, height=h, src_row0=lo, out_rows=(row0, row1)), (lo, hi)))
+    check("rotate", big, out, bands, lambda: rotate.rotate_bicubic(big, 30.0),
+          bound(*rotate_cost(torch, rotate, big, 30.0), F64_UNFUSED_OPS_PER_MS))
+    del out, bands
+
+    gray, hist = core.gray_gauss_hist(big)
+    exp = core.gray_gauss_plain(big[h - BOTTOM - 2:])[2:]
+    bottom = [(h - BOTTOM, h, exp, (h - BOTTOM - 2, h))]
+    px = h * w
+    check("gray_gauss_hist", big, gray, bottom, lambda: core.gray_gauss_hist(big),
+          bound(4 * px + 256 * 4, (GRAY_OPS + GAUSS_OPS + 1) * px))
+    count = torch.bincount(gray.reshape(-1), minlength=256).to(torch.int32)
+    if not torch.equal(hist, count):
+        fail(f"phase 8 gray_gauss_hist's histogram differs from torch.bincount by "
+             f"{int((hist - count).abs().max())}")
+    out = core.gray_gauss(big)
+    check("gray_gauss", big, out, bottom, lambda: core.gray_gauss(big),
+          bound(4 * px, (GRAY_OPS + GAUSS_OPS) * px))
+    if not torch.equal(out, gray):
+        fail("phase 8 gray_gauss differs from gray_gauss_hist's image")
+    del big, gray, out, exp, bottom
+
+    g = torch.randint(0, 256, BIG_GRAY, dtype=torch.uint8, device=dev, generator=gen)
+    h, px = BIG_GRAY[0], g.numel()
+    check("gaussian_blur", g, core.gaussian_blur(g),
+          [(h - BOTTOM, h, core.gaussian_blur_plain(g[h - BOTTOM - 2:])[2:], (h - BOTTOM - 2, h))],
+          lambda: core.gaussian_blur(g), bound(2 * px, GAUSS_OPS * px))
+    check("sobel", g, core.sobel(g),
+          [(h - BOTTOM, h, core.sobel_plain(g[h - BOTTOM - 1:])[1:], (h - BOTTOM - 1, h))],
+          lambda: core.sobel(g), bound(2 * px, SOBEL_OPS * px))
+    del g
+    torch.cuda.empty_cache()
+    line = (f"phase 8 large images on {card}: output rows byte-equal to plain (output bytes "
+            f"checked; input bytes read) — "
+            + "; ".join(f"{k} {'x'.join(map(str, v['input']))} -> "
+                        f"{'x'.join(map(str, v['output']))} {v['output_bytes_checked']}; "
+                        f"{v['input_bytes_read']}" for k, v in results.items())
+            + "; gray_gauss_hist's histogram equal to torch.bincount; device us per call "
+            f"(CUDA events around {REPS} calls, median of 3): "
+            + ", ".join(f"{k} {v['device_us']:.2f} (least {v['bound_us']:.2f}, {v['bound_by']})"
+                        for k, v in results.items()))
+    return [line], results
 
 
 def main() -> int:
@@ -385,6 +543,7 @@ def main() -> int:
     from imageprocessingtools_tpu_torch.ops.dither import mono_dither
     from imageprocessingtools_tpu_torch.ops.histogram import _equalize_lut
     from imageprocessingtools_tpu_torch.ops.resize import resize, resize_width, resize_width_dense
+    from imageprocessingtools_tpu_torch.utils import device_loop_rate, dispatch_time
 
     dev = device.get_device()
     if dev.type != "cuda":
@@ -424,7 +583,7 @@ def main() -> int:
     built = not _build.library_path().exists()
     lib_path = _build.build()
     _build.library()
-    print(f"phase 2 build: {'built' if built else 'reused'} {os.path.relpath(lib_path, REPO)}"
+    print(f"phase 2 build: {'built' if built else 'reused'} {lib_path}"
           f" from {len(_build.sources())} sources in {time.perf_counter() - t0:.2f} s")
 
     # Phase 3: each kernel against its plain version.
@@ -627,6 +786,7 @@ def main() -> int:
           f"{library['resize_pass']:.4f} (max |dense - K9| {dense_err})")
 
     tmp = tempfile.mkdtemp(prefix="ipt_chip_smoke_")
+    trace_dir = os.path.join(tmp, "traces")
     try:
         # Phase 4: the CLI over four 4K files.
         rot30 = _exact.calc_rot_size(30.0, W4K, H4K)             # (w, h)
@@ -763,6 +923,14 @@ def main() -> int:
         print(f"phase 5 flagship 2160x3840 mega and staged byte-equal to plain; ms per call "
               f"mega {mega_ms:.3f} ({H4K * W4K / mega_ms / 1e3:.1f} MPix/s), staged "
               f"{staged_ms:.3f}, plain {plain_ms:.3f} on {card}")
+        # The flagship's device time beside its host rates (utils/timing.py);
+        # its traced device us come from phase 7's window of traces.
+        loop_ms = device_loop_rate(fused.fused_pipeline_mega, flagship, iters=REPS, repeats=5,
+                                   stat="median") * 1e3
+        dispatch_ms = dispatch_time(fused.fused_pipeline_mega, flagship) * 1e3
+        mega_timing = (f"device_loop_rate {loop_ms:.4f} ms per iteration (its feedback "
+                       f"included, median of 5), ms per call {mega_ms:.4f}, dispatch_time "
+                       f"{dispatch_ms:.4f} ms")
 
         # The batch module: four 4K images through the mega form, K2 and K3
         # once per image, each output byte-equal to the plain pipeline's.
@@ -889,10 +1057,17 @@ def main() -> int:
                 fail(f"serve {tag}: cuda and cpu outputs differ by {cross_worst[tag]}")
 
         # Phase 7: spatial and mesh.
-        phase7 = phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files,
-                         bad, fanout_flags, n_good, plain_presets)
+        phase7, (mega_us, mega_events) = phase_7(
+            torch, dev, card, drive, path_counts, serve_run, serve_walls, files, bad,
+            fanout_flags, n_good, plain_presets, trace_dir)
+
+        # Phase 8: images of 2^31 bytes and more.
+        phase8, large = phase_8(torch, dev, card)
     finally:
         shutil.rmtree(tmp)
+    print(f"phase 5 flagship mega timing on {card}: {mega_timing}; device us per call "
+          f"{mega_us:.2f} (phase 7: trace_to, {REPS} calls on its 4K image in an annotate region, "
+          f"{mega_events} device events)")
     for label, n_files in (("presets", len(files)), ("fanout", 8)):
         wall = serve_walls[label][0]
         print(f"phase 6 serving {label}: {n_files} files in {wall:.3f} s "
@@ -900,7 +1075,7 @@ def main() -> int:
               f"{serve_walls[label][1].splitlines()[-1]}")
     print(f"phase 6 serving: {n_checked} outputs byte-equal to the plain bodies on the card; "
           f"768x1024 cuda and cpu outputs byte-equal {cross_worst}; native codec built")
-    for line in phase7:
+    for line in phase7 + phase8:
         print(line)
     print("launches per path (counts set to 0 before each): "
           + "; ".join(f"{p} {c}" for p, c in path_counts.items())
@@ -931,6 +1106,8 @@ def main() -> int:
                 entry.update({f"{case}_ms": times[key][0], f"{case}_plain_ms": times[key][1],
                               f"{case}_bound_ms": resize_bounds[key][0],
                               f"{case}_bound_by": resize_bounds[key][1]})
+        if name in large or name == "stencil3":  # phase 8; K7's is Sobel's
+            entry["large"] = large["sobel" if name == "stencil3" else name]
         if name == "fused_elementwise":  # off the paths: the full chain
             entry.update(full_chain_ms=times["fused_elementwise_full_chain"][0],
                          full_chain_plain_ms=times["fused_elementwise_full_chain"][1])

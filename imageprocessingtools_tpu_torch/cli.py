@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import sys
 
+import torch
+
 from imageprocessingtools_tpu_torch.codec.ppm import PPMError, read_ppm, write_ppm
 from imageprocessingtools_tpu_torch.ops import _exact
 from imageprocessingtools_tpu_torch.pipeline import PipelineConfig, run_pipeline
@@ -175,13 +177,16 @@ def main(argv: list[str] | None = None) -> int:
         sys.stdout.write(message)
         log.emit("pipeline_error", file=filename, message=message.strip())
         return 255
-    except MemoryError:
-        # Backstop for host allocation failure anywhere in the pipeline: the
+    except (MemoryError, torch.OutOfMemoryError) as e:
+        # Backstop for an allocation that fails anywhere in the pipeline, on
+        # the host or on the card, and for a kernel's refusal of a tensor
+        # too large for its launch (kernels.TooLarge, a MemoryError): the
         # reference's every malloc site prints through CHECK_ERROR and
         # exits 255 (ppmx-edward.c:31-36); plan_resize's B9 bound rejects
-        # oversized resizes before allocation.
+        # oversized resizes before allocation. A failed launch is none of
+        # these and stays a traceback.
         sys.stdout.write(_exact.B9_MESSAGE)
-        log.emit("pipeline_error", file=filename, message="MemoryError")
+        log.emit("pipeline_error", file=filename, message=type(e).__name__)
         return 255
     log.emit("ok", file=filename, out=filename + ".out", file_type=file_type)
     return 0

@@ -4,8 +4,9 @@ Counterpart of ``imageprocessingtools_tpu/codec/native.py``, with the same
 API and messages. It builds the port's own copy of the C++ source,
 ``codec/csrc/ppmcodec.cpp`` in this package (byte-identical to the JAX
 package's ``codec/csrc/ppmcodec.cpp``; a test holds the two equal), with g++
-at first use into ``build/imageprocessingtools_tpu_torch/`` at the root of
-the checkout. Every
+at first use into the first of the port's cache directories that takes it
+(``utils/cache.py``: ``$IPT_CACHE_DIR``, the checkout's ``.cache/``, the
+user's cache; never the package's own directory). Every
 entry point falls back to the port's pure-Python codec (``codec/ppm.py``)
 where the library cannot be built, for example on a machine without g++: it
 is a host codec, and both give the same bytes.
@@ -23,10 +24,9 @@ from pathlib import Path
 import numpy as np
 
 from imageprocessingtools_tpu_torch.codec import ppm as _py
+from imageprocessingtools_tpu_torch.utils import cache
 
-_ROOT = Path(__file__).resolve().parent.parent.parent
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ppmcodec.cpp"
-BUILD_DIR = _ROOT / "build" / "imageprocessingtools_tpu_torch"
 
 _ERROR_MESSAGES = {
     -1: "error in getting next token. wrong format.\n",
@@ -46,24 +46,30 @@ _build_failed = False
 
 
 def _build_so() -> str | None:
-    """Compile ``SOURCE`` unless the library for its content exists; None
-    where it cannot be built (no source, no g++, or a compile error)."""
+    """Compile ``SOURCE`` unless the library for its content exists, in the
+    first cache directory where that works; None where it cannot be built
+    (no source, no g++, a compile error, or no writable directory)."""
     try:
         tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        so_path = BUILD_DIR / f"libppmcodec-{tag}.so"
-        if not so_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so_path.with_suffix(f".tmp{os.getpid()}")
-            subprocess.run(
-                ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(tmp),
-                 str(SOURCE), "-pthread"],
-                check=True,
-                capture_output=True,
-            )
-            os.replace(tmp, so_path)  # atomic against concurrent builds
-        return str(so_path)
-    except (OSError, subprocess.CalledProcessError):
+    except OSError:
         return None
+    for build_dir in cache.cache_dirs():
+        so_path = build_dir / f"libppmcodec-{tag}.so"
+        try:
+            if not so_path.exists():
+                build_dir.mkdir(parents=True, exist_ok=True)
+                tmp = so_path.with_suffix(f".tmp{os.getpid()}")
+                subprocess.run(
+                    ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(tmp),
+                     str(SOURCE), "-pthread"],
+                    check=True,
+                    capture_output=True,
+                )
+                os.replace(tmp, so_path)  # atomic against concurrent builds
+            return str(so_path)
+        except (OSError, subprocess.CalledProcessError):
+            continue
+    return None
 
 
 def _load() -> ctypes.CDLL | None:

@@ -31,6 +31,7 @@ import torch
 
 from imageprocessingtools_tpu_torch import profile_device
 from imageprocessingtools_tpu_torch.kernels import _build
+from imageprocessingtools_tpu_torch.utils import cache
 
 SOURCE = _build.CSRC / "variants" / "histogram_variants.cu"
 H4K, W4K = profile_device.H4K, profile_device.W4K
@@ -106,8 +107,7 @@ VARIANTS = {
 
 
 def build() -> ctypes.CDLL:
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / "libipt_histogram_variants.so"
+    out = cache.build_dir() / "libipt_histogram_variants.so"
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out), str(SOURCE)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:

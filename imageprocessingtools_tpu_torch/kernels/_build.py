@@ -5,9 +5,15 @@ Counterpart of the g++ + ctypes loader in
 compiled for Hopper (``sm_90a``) by its own nvcc process, all started
 together, and the objects are linked into one shared library with a plain C
 interface, named by the sha256 of the sources and the headers they include
-(``csrc/*.cuh``), under ``build/imageprocessingtools_tpu_torch/`` at the
-root of the checkout. The library is loaded with ``ctypes``; no PyTorch
-header is compiled, which keeps the build to seconds.
+(``csrc/*.cuh``), in the port's cache directory (``utils/cache.py``:
+``$IPT_CACHE_DIR``, the checkout's ``.cache/``, or the user's cache, never
+the package's own directory). The library is loaded with ``ctypes``; no
+PyTorch header is compiled, which keeps the build to seconds.
+
+The C entry points take the image's dimensions as C ints and compute every
+offset into an image in 64 bits, so an image of 2^31 bytes or more is one
+launch. ``int_limit`` and the wrappers' own limit functions say where a
+launch stops; a wrapper refuses a larger tensor with ``TooLarge``.
 """
 
 from __future__ import annotations
@@ -21,14 +27,36 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "imageprocessingtools_tpu_torch"
+from imageprocessingtools_tpu_torch.utils import cache
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
+
+INT_MAX = 2**31 - 1
+# Bytes past a row's end that a kernel's int column arithmetic reaches: a
+# tile's width and its halo, with room to spare.
+ROW_SLACK = 1024
+
+
+class TooLarge(RuntimeError, MemoryError):
+    """A kernel's launch cannot take a tensor this large. A ``RuntimeError``
+    for callers that expect one, and a ``MemoryError``, so that the CLI's and
+    ``serve``'s backstops answer it as the C answers a failed allocation."""
+
+
+def int_limit(rows: int, row_bytes: int) -> str | None:
+    """Why a kernel that indexes rows and a row's bytes with C ints cannot
+    take ``rows`` rows of ``row_bytes`` bytes, or None when it can."""
+    if rows > INT_MAX:
+        return f"{rows} rows do not fit a C int"
+    if row_bytes + ROW_SLACK > INT_MAX:
+        return f"a row of {row_bytes} bytes does not fit a C int"
+    return None
+
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C entry points: each returns the launch's cudaGetLastError() as an int.
@@ -71,7 +99,7 @@ def library_path() -> Path:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libipt_kernels-{digest.hexdigest()[:16]}.so"
+    return cache.build_dir() / f"libipt_kernels-{digest.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:

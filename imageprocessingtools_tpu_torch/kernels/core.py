@@ -27,7 +27,11 @@ Counterpart of ``imageprocessingtools_tpu/kernels/pallas_core.py``:
   empty chain it is ``ops.color.grayscale`` on a CUDA tensor.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
-kernel for a CUDA tensor. The plain versions (``*_plain``) are built from
+kernel for a CUDA tensor. Offsets into an image are 64-bit in every kernel,
+so an image of 2^31 bytes or more is one launch; what a launch cannot take
+is in one pure function per kernel (``gray_gauss_limit``,
+``gaussian_blur_limit``, ``stencil3_limit``), and the wrapper refuses it
+with ``kernels.TooLarge``. The plain versions (``*_plain``) are built from
 torch ops and each other only, never from a wrapper, so on a CUDA tensor
 they launch none of these kernels and stay an independent reference. The
 public ops (``ops/color.py``, ``ops/stencil.py``, ``ops/histogram.py``) call
@@ -46,6 +50,7 @@ import torch
 from imageprocessingtools_tpu_torch.kernels import _build
 
 _MAX_GRID_Y = 65535 * 32  # image rows per K7 launch: grid.y tiles of 32 rows
+_TILE_W, _TILE_H = 256, 16  # K2, K5 and K6's output tiles
 
 _GAUSS_TAPS = (1, 4, 6, 4, 1)
 _BOX = ((1, 1, 1),) * 3
@@ -157,15 +162,15 @@ def sobel_plain(img: torch.Tensor) -> torch.Tensor:
     return _isqrt_round(gx * gx + gy * gy).clamp(0, 255).to(torch.uint8)
 
 
-def _check_count(img: torch.Tensor) -> None:
-    if img.numel() >= 2**31:
+def _check_count(n: int) -> None:
+    if n >= 2**31:
         # int32 bins (and the equalization CDF downstream) would wrap.
         raise ValueError("histogram requires < 2^31 total elements")
 
 
 def histogram_plain(img: torch.Tensor) -> torch.Tensor:
     """Plain torch form of K4: uint8[...] -> int32[256] bin counts."""
-    _check_count(img)
+    _check_count(img.numel())
     return torch.bincount(img.reshape(-1), minlength=256).to(torch.int32)
 
 
@@ -199,14 +204,44 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_gray(name: str, img: torch.Tensor, max_rows: int | None) -> None:
+def _tiles_limit(h: int, w: int) -> str | None:
+    tiles = -(-w // _TILE_W) * -(-h // _TILE_H)
+    return f"{tiles} tiles do not fit a C int" if tiles > _build.INT_MAX else None
+
+
+def gray_gauss_limit(h: int, w: int) -> str | None:
+    """Why K2 or K6 cannot take uint8[h, w, 3] in one launch, or None: their
+    C entries take H and W as ints (3 W bytes a row) and count tiles in an
+    int. Offsets into the image are 64-bit, so its size is no limit."""
+    return _build.int_limit(h, 3 * w) or _tiles_limit(h, w)
+
+
+def gaussian_blur_limit(h: int, w: int) -> str | None:
+    """Why K5 cannot take uint8[h, w] in one launch, or None (as K2's)."""
+    return _build.int_limit(h, w) or _tiles_limit(h, w)
+
+
+def stencil3_limit(h: int, w: int) -> str | None:
+    """Why K7 cannot take uint8[h, w] in one launch, or None: a 2-D grid
+    of 32-row tiles takes at most ``_MAX_GRID_Y`` rows."""
+    if h > _MAX_GRID_Y:
+        return f"{h} rows exceed the grid's {_MAX_GRID_Y}"
+    return _build.int_limit(h, w)
+
+
+def _refuse(name: str, img: torch.Tensor, limit) -> None:
+    reason = limit(img.shape[0], img.shape[1])
+    if reason:
+        raise _build.TooLarge(f"{name}: {img.shape[0]}x{img.shape[1]} is too large: {reason}")
+
+
+def _check_gray(name: str, img: torch.Tensor, limit) -> None:
     _require_cuda(name, img)
     if img.dtype != torch.uint8 or img.ndim != 2 or not img.is_contiguous():
         raise TypeError(
             f"{name}: need a contiguous uint8[H, W] tensor, got "
             f"{img.dtype} {tuple(img.shape)} contiguous={img.is_contiguous()}")
-    if (max_rows is not None and img.shape[0] > max_rows) or img.numel() >= 2**31:
-        raise RuntimeError(f"{name}: {img.shape[0]}x{img.shape[1]} is too large")
+    _refuse(name, img, limit)
 
 
 def _check_rgb(name: str, img: torch.Tensor) -> None:
@@ -216,8 +251,7 @@ def _check_rgb(name: str, img: torch.Tensor) -> None:
         raise TypeError(
             f"{name}: need a contiguous uint8[H, W, 3] tensor, got "
             f"{img.dtype} {tuple(img.shape)} contiguous={img.is_contiguous()}")
-    if img.numel() >= 2**31:
-        raise RuntimeError(f"{name}: {img.shape[0]}x{img.shape[1]} is too large")
+    _refuse(name, img, gray_gauss_limit)
 
 
 def gray_gauss_hist(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -226,6 +260,7 @@ def gray_gauss_hist(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return gray_gauss_hist_plain(img)
     _check_rgb("gray_gauss_hist", img)
     h, w = img.shape[0], img.shape[1]
+    _check_count(h * w)  # the int32 histogram, as the plain version's
     out = torch.empty((h, w), dtype=torch.uint8, device=img.device)
     hist = torch.zeros(256, dtype=torch.int32, device=img.device)
     if out.numel():
@@ -319,7 +354,7 @@ def histogram(values: torch.Tensor) -> torch.Tensor:
         raise TypeError(
             f"histogram: need contiguous uint8 values, got {values.dtype} "
             f"contiguous={values.is_contiguous()}")
-    _check_count(values)
+    _check_count(values.numel())
     if not values.numel():
         return torch.zeros(256, dtype=torch.int32, device=values.device)
     hist = torch.empty(256, dtype=torch.int32, device=values.device)  # K4 stores every bin
@@ -332,13 +367,13 @@ def histogram(values: torch.Tensor) -> torch.Tensor:
 
 
 def _stencil(wrapper, entry: str, plain, img: torch.Tensor,
-             max_rows: int | None = _MAX_GRID_Y) -> torch.Tensor:
+             limit=stencil3_limit) -> torch.Tensor:
     """The body of one stencil wrapper: ``plain`` on a CPU tensor, the C
     entry point ``entry`` on a CUDA tensor (counted on ``wrapper``).
-    ``max_rows``: the rows a 2-D grid of 32-row tiles can take (K7)."""
+    ``limit``: the launch's limit function (K7's by default)."""
     if img.device.type == "cpu":
         return plain(img)
-    _check_gray(wrapper.__name__, img, max_rows)
+    _check_gray(wrapper.__name__, img, limit)
     out = torch.empty_like(img)
     if out.numel():
         status = getattr(_build.library(), entry)(
@@ -352,7 +387,7 @@ def _stencil(wrapper, entry: str, plain, img: torch.Tensor,
 def gaussian_blur(img: torch.Tensor) -> torch.Tensor:
     """5x5 binomial, uint8[H, W] -> uint8[H, W]: K5 on CUDA, plain on CPU."""
     return _stencil(gaussian_blur, "ipt_gaussian_blur", gaussian_blur_plain, img,
-                    max_rows=None)  # a 1-D grid of resident blocks
+                    limit=gaussian_blur_limit)  # a 1-D grid of resident blocks
 
 
 def box_blur(img: torch.Tensor) -> torch.Tensor:

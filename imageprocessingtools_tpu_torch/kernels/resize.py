@@ -55,6 +55,22 @@ def pass_vec(img: torch.Tensor, out_size: int, dim: int) -> int:
                     _sm_count(img.device))
 
 
+def launch_limit(rows: int, cols: int, c: int, out_size: int, taps: int, dim: int,
+                 vec: int) -> str | None:
+    """Why one launch of K9 along ``dim`` cannot take uint8[rows, cols, c]
+    to ``out_size`` with ``taps`` taps (``vec`` bytes a thread along dim 0),
+    or None: its grid is one-dimensional and its tap count an int."""
+    if dim == 0:
+        blocks = out_size * -(-cols * c // (_THREADS * vec))
+    else:
+        blocks = -(-out_size // _THREADS) * -(-rows // _ROWS)
+    if blocks > _MAX_BLOCKS:
+        return f"{blocks} blocks exceed a one-dimensional grid"
+    if taps > _build.INT_MAX:
+        return f"{taps} taps do not fit a C int"
+    return None
+
+
 def hw_passes(height: int, width: int, new_height: int, new_width: int):
     """Both contribution passes for an explicit (H, W) target, smaller scale
     first (the reference's ``-wN`` ordering rule, applied generally)."""
@@ -150,14 +166,11 @@ def resize_pass(img: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, dim: int)
         if taps < 1 or img.numel() == 0:
             raise ValueError(f"resize_pass: no taps or no source for a {out_shape} output")
         vec = pass_vec(img, out_size, dim)
-        if dim == 0:
-            blocks = out_size * -(-cols * c // (_THREADS * vec))
-        else:
-            blocks = -(-out_size // _THREADS) * -(-rows // _ROWS)
-        if blocks > _MAX_BLOCKS or taps >= 2**31:
-            raise RuntimeError(
+        reason = launch_limit(rows, cols, c, out_size, taps, dim, vec)
+        if reason:
+            raise _build.TooLarge(
                 f"resize_pass: {rows}x{cols}x{c} -> {out_shape} with {taps} taps is too "
-                f"large for one launch")
+                f"large for one launch: {reason}")
         status = _build.library().ipt_resize_pass(*launch_args(img, out, idx, w, dim, vec))
         _build.check(status, "ipt_resize_pass")
         resize_pass.launches += 1

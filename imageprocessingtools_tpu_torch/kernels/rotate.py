@@ -219,6 +219,22 @@ def rotate_plain(img: torch.Tensor, angle_deg: float, height: int | None = None,
     return out[:, :, 0] if squeeze else out
 
 
+def launch_limit(height: int, width: int, c: int, new_h: int, new_w: int,
+                 rows: int) -> str | None:
+    """Why K1 cannot rotate an image of ``height`` x ``width`` x ``c`` into
+    ``rows`` output rows of ``new_h`` x ``new_w`` in one launch, or None: a
+    2-D grid of TILE-row tiles takes at most ``_MAX_GRID_Y`` rows, the C
+    entry takes dimensions as ints, and a tile's plan row is an int.
+    Offsets into the images are 64-bit, so their size is no limit."""
+    if rows > _MAX_GRID_Y:
+        return f"{rows} output rows exceed the grid's {_MAX_GRID_Y}"
+    reason = _build.int_limit(max(height, new_h), max(width, new_w) * c)
+    tiles = -(-rows // TILE) * -(-new_w // TILE)
+    if reason is None and tiles > _build.INT_MAX:
+        reason = f"{tiles} tiles do not fit a C int"
+    return reason
+
+
 def rotate_bicubic(img: torch.Tensor, angle_deg: float, height: int | None = None,
                    src_row0: int = 0, out_rows=None) -> torch.Tensor:
     """Rotate clockwise by ``angle_deg``: K1 on a CUDA tensor, the plain
@@ -241,8 +257,10 @@ def rotate_bicubic(img: torch.Tensor, angle_deg: float, height: int | None = Non
     if c not in (1, 3):
         raise TypeError(f"rotate_bicubic: the kernel takes 1 or 3 channels, got {c}")
     new_h, new_w, cos_t, sin_t, xc, yc, xoff, yoff = _geometry(h, w, angle)
-    if oy1 - oy0 > _MAX_GRID_Y or max(h * w * c, new_h * new_w * c) >= 2**31:
-        raise RuntimeError(f"rotate_bicubic: {h}x{w}x{c} -> {new_h}x{new_w} is too large")
+    reason = launch_limit(h, w, c, new_h, new_w, oy1 - oy0)
+    if reason:
+        raise _build.TooLarge(
+            f"rotate_bicubic: {h}x{w}x{c} -> {new_h}x{new_w} is too large: {reason}")
     out = torch.empty((oy1 - oy0, new_w, c), dtype=torch.uint8, device=img.device)
     if out.numel():
         plan, box_w, box_h = _device_plan(h, w, angle, img.device)

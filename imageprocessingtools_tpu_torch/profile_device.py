@@ -60,6 +60,8 @@ import time
 import numpy as np
 import torch
 
+from imageprocessingtools_tpu_torch.utils.profiling import trace_to
+
 REPS = 20
 H4K, W4K = 2160, 3840
 PRESETS = ("edge_detect", "enhance", "print_ready", "thumbnail")
@@ -69,10 +71,13 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 def device_events(prof) -> list[dict]:
     """The device events (kernels, copies, memsets) of a finished profile,
-    read from its Chrome trace."""
+    read from its Chrome trace: the file that ``utils.profiling.trace_to``
+    wrote (``prof.chrome_trace``), else one exported here."""
+    path = getattr(prof, "chrome_trace", None)
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
+        if path is None:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
@@ -106,21 +111,21 @@ ATTEMPTS = 5
 
 
 def _profiled(fn, attempts: int = ATTEMPTS):
-    """The device events of one profiled call of ``fn``. After many
-    profiles in one process the tracer has returned a trace without device
-    events, also several times in a row; such a profile is taken again after
-    a pause, up to ``attempts`` times."""
+    """The device events of one profiled call of ``fn`` (``trace_to``, which
+    waits for the card before it stops). After many profiles in one process
+    the tracer has returned a trace without device events, also several
+    times in a row; such a profile is taken again after a pause, up to
+    ``attempts`` times."""
     for attempt in range(attempts):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        try:
-            return device_events(prof)
-        except RuntimeError:
-            if attempt == attempts - 1:
-                raise
-            time.sleep(0.5)
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace_to(tmp) as prof:
+                fn()
+            try:
+                return device_events(prof)
+            except RuntimeError:
+                if attempt == attempts - 1:
+                    raise
+        time.sleep(0.5)
 
 
 def _image(shape, seed: int) -> np.ndarray:

@@ -7,8 +7,8 @@ Run from the root of the repository, with one CUDA card:
 No profiler with stall reasons works on the card machine, so this is how
 K9's time is taken apart: each cut is a textual change to a copy of
 ``csrc/resize.cu`` (``CUTS``: the lines taken out or replaced), built with
-nvcc (the kernel library's flags) into its own shared library under
-``build/``. A cut kernel gives wrong bytes; only its time is read. For each
+nvcc (the kernel library's flags) into its own shared library in the port's
+cache directory (``utils/cache.py``). A cut kernel gives wrong bytes; only its time is read. For each
 cut, or comma-joined set of cuts, given on the command line (default: every
 single cut and a few sets) it prints one JSON object: the ms per launch of
 each pass (CUDA events around 30 back-to-back launches, median of 5) at
@@ -47,6 +47,7 @@ import torch
 
 from imageprocessingtools_tpu_torch import profile_device
 from imageprocessingtools_tpu_torch.kernels import _build
+from imageprocessingtools_tpu_torch.utils import cache
 from imageprocessingtools_tpu_torch.kernels import resize as k9
 
 SOURCE = _build.CSRC / "resize.cu"
@@ -163,7 +164,7 @@ def cut_source(text: str, cuts: list[str]) -> str:
 
 
 def build(cuts: list[str]) -> ctypes.CDLL:
-    out_dir = _build.BUILD_DIR / "resize_cuts"
+    out_dir = cache.build_dir() / "resize_cuts"
     out_dir.mkdir(parents=True, exist_ok=True)
     stem = "_".join(cuts)
     source = out_dir / f"resize_{stem}.cu"

@@ -54,6 +54,8 @@ import os
 import sys
 import time
 
+import torch
+
 from imageprocessingtools_tpu_torch import serving
 from imageprocessingtools_tpu_torch.cli import _CliError, _parse_args
 from imageprocessingtools_tpu_torch.codec import native
@@ -233,14 +235,17 @@ def main(argv: list[str] | None = None) -> int:
                 on_error="skip" if serve_opts["skip_bad"] else "raise",
                 failures=failures,
             )
-    except (PPMError, ValueError, OSError, MemoryError) as e:
+    except (PPMError, ValueError, OSError, MemoryError, torch.OutOfMemoryError) as e:
         if isinstance(e, PPMError):
             message = e.message
         elif isinstance(e, OSError):
             # Match the single-image CLI's open-failure message (quirk B3).
             message = "error. can not open file\n"
-        elif isinstance(e, MemoryError):
-            # Allocation-failure backstop, same surface as cli.main (B9).
+        elif isinstance(e, (MemoryError, torch.OutOfMemoryError)):
+            # Allocation-failure backstop, same surface as cli.main (B9): the
+            # host's or the card's, or a kernel's refusal of a tensor too
+            # large for its launch (kernels.TooLarge). A failed launch is
+            # none of these and stays a traceback.
             message = _exact.B9_MESSAGE
         else:
             message = str(e)

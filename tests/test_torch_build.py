@@ -30,7 +30,7 @@ with open(out, "w") as f:
 
 @pytest.fixture
 def fake_tree(tmp_path, monkeypatch):
-    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc, build = tmp_path / "csrc", tmp_path / "cache" / "imageprocessingtools_tpu_torch"
     csrc.mkdir()
     (csrc / "a.cu").write_text("// a\n")
     (csrc / "b.cu").write_text("// b\n")
@@ -39,7 +39,7 @@ def fake_tree(tmp_path, monkeypatch):
     nvcc.write_text(_FAKE_NVCC)
     nvcc.chmod(nvcc.stat().st_mode | stat.S_IXUSR)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    monkeypatch.setenv("IPT_CACHE_DIR", str(tmp_path / "cache"))
     monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
     return csrc, build
 

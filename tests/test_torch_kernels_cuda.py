@@ -677,3 +677,105 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
             wrapper(img)  # HWC: the kernels take one gray plane
         with pytest.raises(TypeError):
             wrapper(img[:, :, 0])  # not contiguous
+
+
+# ---------------------------------------------------------------------------
+# Images of 2^31 bytes and more: one launch each, offsets past 2^31 checked.
+# ---------------------------------------------------------------------------
+
+_BIG_RGB, _BIG_GRAY, _BOTTOM = (27000, 27000, 3), (46341, 46341), 64
+
+
+def _card_noise(shape, seed):
+    """uint8 noise made on the card (a 2 GB image is not made on the host)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
+
+
+@pytest.fixture(scope="module")
+def big_rgb():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+    img = _card_noise(_BIG_RGB, 31)
+    yield img
+    del img
+    torch.cuda.empty_cache()
+
+
+def test_rotate_takes_2_31_bytes(big_rgb):
+    h, w, _ = _BIG_RGB
+    out = rotate.rotate_bicubic(big_rgb, 30.0)
+    new_h, new_w = out.shape[0], out.shape[1]
+    for row0 in (new_h * 3 // 4 // rotate.TILE * rotate.TILE,
+                 (new_h - _BOTTOM) // rotate.TILE * rotate.TILE):
+        row1 = min(row0 + _BOTTOM, new_h)
+        assert row0 * new_w * 3 >= 2**31
+        lo, hi = rotate.band_window(h, w, 30.0, row0, row1)
+        exp = rotate.rotate_plain(big_rgb[lo:hi], 30.0, height=h, src_row0=lo,
+                                  out_rows=(row0, row1))
+        assert torch.equal(out[row0:row1], exp)
+
+
+@pytest.mark.parametrize("wrapper", [core.gray_gauss_hist, core.gray_gauss])
+def test_gray_gauss_takes_2_31_bytes(big_rgb, wrapper):
+    h = _BIG_RGB[0]
+    assert (h - _BOTTOM - 2) * _BIG_RGB[1] * 3 >= 2**31
+    out = wrapper(big_rgb)
+    gray = out[0] if isinstance(out, tuple) else out
+    exp = core.gray_gauss_plain(big_rgb[h - _BOTTOM - 2:])[2:]
+    assert torch.equal(gray[h - _BOTTOM:], exp)
+    if isinstance(out, tuple):
+        assert torch.equal(out[1], torch.bincount(gray.reshape(-1), minlength=256).to(torch.int32))
+
+
+@pytest.mark.parametrize("wrapper, plain, halo", [
+    (core.gaussian_blur, core.gaussian_blur_plain, 2), (core.sobel, core.sobel_plain, 1),
+    (core.box_blur, core.box_blur_plain, 1), (core.sharpen, core.sharpen_plain, 1)])
+def test_gray_stencils_take_2_31_bytes(cuda, wrapper, plain, halo):
+    h = _BIG_GRAY[0]
+    img = _card_noise(_BIG_GRAY, 46341)
+    assert img.numel() >= 2**31
+    out = wrapper(img)
+    assert torch.equal(out[h - _BOTTOM:], plain(img[h - _BOTTOM - halo:])[halo:])
+    del img, out
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# utils/timing.py and utils/profiling.py on the card.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("body", ["mega", "histogram", "resize"])
+def test_device_loop_rate_on_the_card(cuda, body):
+    from imageprocessingtools_tpu_torch.utils import device_loop_rate, dispatch_time
+
+    img = _image((270, 480, 3), seed=7).to(cuda)
+    fn = {"mega": fused.fused_pipeline_mega,
+          "histogram": lambda x: core.histogram(x[:, :, 0].contiguous()).to(torch.uint8)[:240],
+          "resize": lambda x: resize_ops.resize_width(x, 200)}[body]
+    seen = []
+
+    def watched(x):
+        seen.append(x.device.type)
+        return fn(x)
+
+    sec = device_loop_rate(watched, img, iters=5, repeats=2)
+    assert np.isfinite(sec) and sec > 0 and set(seen) == {"cuda"}
+    assert np.isfinite(dispatch_time(fn, img, repeats=2))
+
+
+def test_trace_to_holds_the_card_events(cuda, tmp_path):
+    from imageprocessingtools_tpu_torch.profile_device import busy_us, device_events
+    from imageprocessingtools_tpu_torch.utils.profiling import annotate, trace_to
+
+    gray = _image((256, 512), seed=9).to(cuda)
+    with trace_to(str(tmp_path)) as prof:
+        with annotate("ipt-card-test"):
+            core.sobel(gray)
+    events = device_events(prof)
+    assert any(e["cat"] == "kernel" and "stencil3" in e["name"] for e in events)
+    assert busy_us(events) > 0
+    with open(prof.chrome_trace) as f:
+        assert '"ipt-card-test"' in f.read()

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import os
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,6 +30,7 @@ from imageprocessingtools_tpu_torch import serve, serving
 from imageprocessingtools_tpu_torch.codec import native, ppm
 from imageprocessingtools_tpu_torch.ops.packing import pack_bits_device
 from imageprocessingtools_tpu_torch.pipeline import PipelineConfig
+from imageprocessingtools_tpu_torch.utils import cache
 from tests.conftest import make_gradient, make_image
 
 TWO_BUCKETS = [(16, 24), (24, 32), (16, 24)]
@@ -399,4 +401,6 @@ def test_native_codec_builds_the_jax_source_by_path():
     assert str(native.SOURCE) == os.path.join(port_codec, "csrc", "ppmcodec.cpp")
     with open(os.path.join(jax_codec, "csrc", "ppmcodec.cpp"), "rb") as f:
         assert native.SOURCE.read_bytes() == f.read()
-    assert native.BUILD_DIR.parts[-2:] == ("build", "imageprocessingtools_tpu_torch")
+    so = native._build_so()  # in the port's cache directory, not the package's
+    assert so is not None and Path(so).parent in cache.cache_dirs()
+    assert Path(port_codec).parent not in Path(so).parents
