@@ -26,11 +26,18 @@ in order, printing one line per phase:
    with a byte-for-byte cross-check of a smaller file against the same CLI
    run on the CPU in a subprocess (``IPT_DEVICE=cpu``);
 5. the flagship fused pipeline at 4K through K2 and K3, and its staged form
-   through K8, K5, K4 and K3, each byte-equal to the plain torch pipeline;
-   mega's ``utils.timing.device_loop_rate`` and ``dispatch_time`` beside its
-   ms per call and its device us (taken in phase 7, printed after it); then
-   a batch of four 4K images through ``parallel.batched_fused_pipeline``
-   (K2 and K3 once per image), byte-equal to the plain pipeline per image;
+   through K8, K5, K4 and K3, eager and compiled (the CUDA graphs
+   ``kernels.fused_gray_gauss_histeq_pallas_mega`` and ``..._pallas``, the
+   JAX package's ``jax.jit`` forms), each byte-equal to the plain torch
+   pipeline: the compiled forms also to the eager ones at 4K and 1081x1927
+   on two inputs in turn, the first output unchanged by the second call and
+   never the graph's own buffer; ms per call of the four, and the graphs'
+   copy-in and clone; mega's ``utils.timing.device_loop_rate`` (its loop one
+   CUDA graph) and ``dispatch_time`` (one replay) beside its device us, eager
+   and graphed (traced in phase 7, printed after it), the loop rate held to
+   [0.8, 2.5] times the eager device time; then a batch of four 4K images
+   through ``parallel.batched_fused_pipeline`` (K2 and K3 once per image),
+   byte-equal to the plain pipeline per image;
 6. preset serving (``imageprocessingtools_tpu_torch.serve.main``): the four
    presets fanned out over eight 4K and two 1080p P6 files and one truncated
    file (``--skip-bad``), every output byte-equal to the presets' plain
@@ -62,7 +69,13 @@ in order, printing one line per phase:
 Every kernel's launch count is set to 0 just before each of phases 4, 5 (the
 flagship, then the batch), 6 and 7 (the band paths, then the moved serving)
 and read just after it; a kernel that a phase's path uses and that was not
-launched there is a failure. The line before the last is a JSON object with
+launched there is a failure. A wrapper counts where it launches its kernel;
+a CUDA graph's replay launches without calling the wrappers, so a capture
+records the counts that its wrappers added (and takes them back: a capture
+launches nothing), and each replay adds them again (``utils/graphs.py``).
+Phase 5's flagship path replays graphs captured before its counts are set
+to 0, and needs each kernel twice: once eager, once from the replay. The
+line before the last is a JSON object with
 each kernel's launches (summed over the four paths), error, times, least
 time and the PyTorch call's time (and, for the kernels of phase 8, what it
 checked and timed there); the last line is
@@ -252,10 +265,11 @@ SPATIAL_CONFIGS = {"-w1920 -r30 -mono -fv": dict(new_width=1920, angle=30.0, mon
 
 
 def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files, bad,
-            fanout_flags, n_good, plain_presets, trace_dir) -> tuple[list[str], tuple]:
+            fanout_flags, n_good, plain_presets, trace_dir) -> tuple[list[str], tuple, tuple]:
     """Spatial and mesh: the band paths on a mesh that names the card four
     times, then ``serve --mesh`` and ``serve --spatial`` over phase 6's
-    files. Returns the lines to print."""
+    files. Returns the lines to print, and the traces (device us per call,
+    events) of the flagship mega, eager and compiled."""
     from imageprocessingtools_tpu_torch import parallel
     from imageprocessingtools_tpu_torch.kernels import core, fused
     from imageprocessingtools_tpu_torch.models import PRESETS as PRESET_FNS
@@ -328,6 +342,9 @@ def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files,
         band_us = device_us_per_call(f"spatial {label}", band_fn)
         if label == "fused":
             mega_trace = traced_us(torch, "chip_smoke: flagship mega", one_fn, REPS, trace_dir)
+            graph_trace = traced_us(torch, "chip_smoke: flagship mega compiled",
+                                    lambda: fused.fused_gray_gauss_histeq_pallas_mega(src),
+                                    REPS, trace_dir)
             us = (band_us, mega_trace[0])
         else:
             us = (band_us, device_us_per_call(label, one_fn))
@@ -386,7 +403,7 @@ def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files,
     else:
         lines.append("phase 7 cards: torch sees one card; copies between cards were not "
                      "exercised")
-    return lines, mega_trace
+    return lines, mega_trace, graph_trace
 
 
 def traced_us(torch, label: str, fn, reps: int, trace_dir: str) -> tuple[float, int]:
@@ -543,7 +560,7 @@ def main() -> int:
     from imageprocessingtools_tpu_torch.ops.dither import mono_dither
     from imageprocessingtools_tpu_torch.ops.histogram import _equalize_lut
     from imageprocessingtools_tpu_torch.ops.resize import resize, resize_width, resize_width_dense
-    from imageprocessingtools_tpu_torch.utils import device_loop_rate, dispatch_time
+    from imageprocessingtools_tpu_torch.utils import device_loop_rate, dispatch_time, graphs
 
     dev = device.get_device()
     if dev.type != "cuda":
@@ -898,18 +915,40 @@ def main() -> int:
             print(f"phase 4 cli split of {' '.join(flags)} ({wall:.4f} s): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
 
-        # Phase 5: the flagship at 4K, through K2 and K3, and staged through K8, K5, K4, K3.
+        # Phase 5: the flagship at 4K, through K2 and K3, and staged through K8, K5, K4, K3;
+        # eager, and compiled: the CUDA graphs that stand for the JAX package's jax.jit forms.
         flagship = torch.from_numpy(image((H4K, W4K, 3), seed=30)).to(dev)
+        forms = {"mega": fused.fused_pipeline_mega, "staged": fused.fused_pipeline_staged}
+        compiled = {"mega": fused.fused_gray_gauss_histeq_pallas_mega,
+                    "staged": fused.fused_gray_gauss_histeq_pallas}
+        # Two inputs in turn at 4K (the first is the flagship's) and at an odd
+        # shape; all four outputs are checked after both calls.
+        for shape, seeds in (((H4K, W4K, 3), (30, 32)), ((1081, 1927, 3), (33, 34))):
+            xs = [torch.from_numpy(image(shape, seed=s)).to(dev) for s in seeds]
+            want = [fused.fused_pipeline(x) for x in xs]
+            for form, graph_fn in compiled.items():
+                outs = [graph_fn(x) for x in xs]
+                static = graph_fn._graphs[graphs.graph_key(xs[0])].captured.out
+                for x, out, exp in zip(xs, outs, want):
+                    if out.data_ptr() == static.data_ptr():
+                        fail(f"compiled {form} returned the graph's own output buffer")
+                    if not torch.equal(out, exp):
+                        fail(f"compiled {form} {shape} differs from plain by "
+                             f"{max_abs_err(torch, out, exp)} (the first of two inputs: "
+                             f"{out is outs[0]})")
+                    if not torch.equal(out, forms[form](x)):
+                        fail(f"compiled {form} {shape} differs from the eager form")
         results = {}
 
         def flagships():
-            results["mega"] = fused.fused_pipeline_mega(flagship)
-            results["staged"] = fused.fused_pipeline_staged(flagship)
+            for form in forms:
+                results[form] = forms[form](flagship)
+                results[f"compiled {form}"] = compiled[form](flagship)  # a replay
 
         path_counts["flagship"] = drive(
             "phase 5 flagship",
-            {"gray_gauss_hist": 1, "lut_apply": 2, "fused_elementwise": 1, "gaussian_blur": 1,
-             "histogram": 1},
+            {"gray_gauss_hist": 2, "lut_apply": 4, "fused_elementwise": 2, "gaussian_blur": 2,
+             "histogram": 2},
             flagships)
         plain = fused.fused_pipeline(flagship)
         for form, out in results.items():
@@ -917,20 +956,25 @@ def main() -> int:
                 fail(f"flagship {form} gave {out.dtype} {tuple(out.shape)}")
             if not torch.equal(out, plain):
                 fail(f"flagship {form} differs from plain by {max_abs_err(torch, out, plain)}")
-        mega_ms = median_ms(torch, lambda: fused.fused_pipeline_mega(flagship))
-        staged_ms = median_ms(torch, lambda: fused.fused_pipeline_staged(flagship))
+        flagship_ms = {form: median_ms(torch, lambda: fn(flagship)) for form, fn in
+                       (*forms.items(), *((f"compiled {k}", v) for k, v in compiled.items()))}
+        mega_entry = compiled["mega"]._graphs[graphs.graph_key(flagship)]
+        copy_ms = median_ms(torch, lambda: (mega_entry.static_in.copy_(flagship),
+                                            mega_entry.captured.out.clone()))
         plain_ms = median_ms(torch, lambda: fused.fused_pipeline(flagship))
-        print(f"phase 5 flagship 2160x3840 mega and staged byte-equal to plain; ms per call "
-              f"mega {mega_ms:.3f} ({H4K * W4K / mega_ms / 1e3:.1f} MPix/s), staged "
-              f"{staged_ms:.3f}, plain {plain_ms:.3f} on {card}")
-        # The flagship's device time beside its host rates (utils/timing.py);
-        # its traced device us come from phase 7's window of traces.
+        print(f"phase 5 flagship 2160x3840 mega and staged, eager and compiled (CUDA graphs), "
+              f"byte-equal to plain, the compiled also to the eager at 2160x3840 and 1081x1927 "
+              f"on two inputs in turn; ms per call "
+              + ", ".join(f"{k} {v:.4f}" for k, v in flagship_ms.items())
+              + f", plain {plain_ms:.3f}; mega {H4K * W4K / flagship_ms['mega'] / 1e3:.1f} "
+              f"MPix/s, compiled {H4K * W4K / flagship_ms['compiled mega'] / 1e3:.1f}; a graph's "
+              f"copy-in (24.9 MB) and clone (8.3 MB) {copy_ms:.4f} ms, on {card}")
+        # The flagship's device time from utils/timing.py (a CUDA graph of the
+        # loop; one replay); its traced device us come from phase 7's window
+        # of traces.
         loop_ms = device_loop_rate(fused.fused_pipeline_mega, flagship, iters=REPS, repeats=5,
                                    stat="median") * 1e3
         dispatch_ms = dispatch_time(fused.fused_pipeline_mega, flagship) * 1e3
-        mega_timing = (f"device_loop_rate {loop_ms:.4f} ms per iteration (its feedback "
-                       f"included, median of 5), ms per call {mega_ms:.4f}, dispatch_time "
-                       f"{dispatch_ms:.4f} ms")
 
         # The batch module: four 4K images through the mega form, K2 and K3
         # once per image, each output byte-equal to the plain pipeline's.
@@ -1057,7 +1101,7 @@ def main() -> int:
                 fail(f"serve {tag}: cuda and cpu outputs differ by {cross_worst[tag]}")
 
         # Phase 7: spatial and mesh.
-        phase7, (mega_us, mega_events) = phase_7(
+        phase7, (mega_us, mega_events), (graph_us, graph_events) = phase_7(
             torch, dev, card, drive, path_counts, serve_run, serve_walls, files, bad,
             fanout_flags, n_good, plain_presets, trace_dir)
 
@@ -1065,9 +1109,18 @@ def main() -> int:
         phase8, large = phase_8(torch, dev, card)
     finally:
         shutil.rmtree(tmp)
-    print(f"phase 5 flagship mega timing on {card}: {mega_timing}; device us per call "
-          f"{mega_us:.2f} (phase 7: trace_to, {REPS} calls on its 4K image in an annotate region, "
-          f"{mega_events} device events)")
+    loop_ratio = loop_ms * 1e3 / mega_us
+    print(f"phase 5 flagship mega timing on {card}: device_loop_rate {loop_ms:.4f} ms per "
+          f"iteration ({REPS} iterations and their feedback in one CUDA graph, median of 5), "
+          f"{loop_ratio:.3f} x the device us; dispatch_time {dispatch_ms:.4f} ms (one replay "
+          f"and a one-element fetch); ms per call eager {flagship_ms['mega']:.4f}, compiled "
+          f"{flagship_ms['compiled mega']:.4f}; device us per call eager {mega_us:.2f} "
+          f"({mega_events} device events), compiled {graph_us:.2f} ({graph_events} events, "
+          f"copy-in and clone included) (phase 7: trace_to, {REPS} calls on its 4K image in an "
+          f"annotate region)")
+    if not 0.8 <= loop_ratio <= 2.5:
+        fail(f"device_loop_rate of mega is {loop_ratio:.3f} x its traced device time, "
+             f"outside [0.8, 2.5]")
     for label, n_files in (("presets", len(files)), ("fanout", 8)):
         wall = serve_walls[label][0]
         print(f"phase 6 serving {label}: {n_files} files in {wall:.3f} s "

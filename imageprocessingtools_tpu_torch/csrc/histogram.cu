@@ -41,7 +41,10 @@
 //   groups' words, and each group's last arrival hands the group's total in
 //   on the top words, whose last arrival stores the bin to the output. The
 //   scratch words belong to one (device, stream): calls on one stream run
-//   in turn, calls on different streams use different words.
+//   in turn, calls on different streams use different words. A launch
+//   captured into a CUDA graph is given words of its own by the caller
+//   (zeroed in the graph before it), so no two graphs, and no graph and an
+//   eager call, share words, whichever streams they run on.
 //
 // Integer sums are order-free, so the result is exact for any count below
 // 2^31 (the wrapper checks).
@@ -159,21 +162,28 @@ unsigned long long* arrival_words(int device, cudaStream_t stream, cudaError_t* 
 
 }  // namespace
 
+// The number of 64-bit arrival words a launch uses.
+extern "C" int ipt_histogram_arrival_words() { return ARRIVAL_WORDS; }
+
 // values uint8[n] -> hist int32[256] (any contents before: every word is
-// stored).
+// stored). `arrivals`: ARRIVAL_WORDS zeroed 64-bit words that this launch
+// may use (a launch leaves them zero), or null for the (device, stream)'s
+// own, made at its first call; a launch captured into a CUDA graph must be
+// given its own, since a capture may not allocate.
 extern "C" int ipt_histogram(const void* values, void* hist, long long n, int device,
-                             void* stream) {
+                             void* stream, void* arrivals) {
     cudaError_t err = cudaSetDevice(device);
     int sms = 0;
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return static_cast<int>(err);
     const auto s = static_cast<cudaStream_t>(stream);
-    unsigned long long* arrivals = arrival_words(device, s, &err);
-    if (arrivals == nullptr) return static_cast<int>(err);
+    auto* words = static_cast<unsigned long long*>(arrivals);
+    if (words == nullptr) words = arrival_words(device, s, &err);
+    if (words == nullptr) return static_cast<int>(err);
     long long blocks = (n / 16 + THREADS - 1) / THREADS;
     if (blocks < 1) blocks = 1;
     if (blocks > sms) blocks = sms;
     histogram_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(
-        static_cast<const uint8_t*>(values), static_cast<int*>(hist), arrivals, n);
+        static_cast<const uint8_t*>(values), static_cast<int*>(hist), words, n);
     return static_cast<int>(cudaGetLastError());
 }

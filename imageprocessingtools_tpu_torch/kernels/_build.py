@@ -73,8 +73,10 @@ _SIGNATURES = {
     "ipt_fused_elementwise": [_P, _P, _P, ctypes.c_longlong, _I, _P],
     # values, out, lut, n, device, stream
     "ipt_lut_apply": [_P, _P, _P, ctypes.c_longlong, _I, _P],
-    # values, hist, n, device, stream
-    "ipt_histogram": [_P, _P, ctypes.c_longlong, _I, _P],
+    # values, hist, n, device, stream, arrival words (or None for the stream's own)
+    "ipt_histogram": [_P, _P, ctypes.c_longlong, _I, _P, _P],
+    # (): the number of 64-bit arrival words a K4 launch uses
+    "ipt_histogram_arrival_words": [],
     # src, out, H, W, device, stream
     "ipt_gaussian_blur": [_P, _P, _I, _I, _I, _P],
     "ipt_box_blur": [_P, _P, _I, _I, _I, _P],

@@ -13,7 +13,7 @@ Counterpart of ``imageprocessingtools_tpu/kernels/pallas_core.py``:
   uint8 values through a uint8[256] LUT;
 - K4 ``histogram`` (``csrc/histogram.cu``) replaces ``histogram_pallas``:
   uint8 values -> int32[256], every bin stored by the launch (no zeroed
-  output);
+  output); under CUDA graph capture it gets arrival words of its own;
 - K5 ``gaussian_blur`` (``csrc/stencil.cu``, K2/K6's tile without the gray
   step; the packed arithmetic they share is ``csrc/gauss_tile.cuh``, the row
   staging ``csrc/bulk_copy.cuh``) replaces ``gaussian_blur_pallas``: the 5x5
@@ -358,9 +358,18 @@ def histogram(values: torch.Tensor) -> torch.Tensor:
     if not values.numel():
         return torch.zeros(256, dtype=torch.int32, device=values.device)
     hist = torch.empty(256, dtype=torch.int32, device=values.device)  # K4 stores every bin
+    words = None  # eager: the stream's own arrival words, made by the C at first use
+    if torch.cuda.is_current_stream_capturing():
+        # A capture may not allocate in the C, and a graph may run beside any
+        # stream or other graph: it gets words of its own from its pool,
+        # zeroed by a node of the graph just before K4's. The node runs at
+        # every replay, because the block goes back to the graph's pool when
+        # this call returns and later nodes of the graph may reuse it.
+        words = torch.zeros(_build.library().ipt_histogram_arrival_words(),
+                            dtype=torch.int64, device=values.device)
     status = _build.library().ipt_histogram(
         values.data_ptr(), hist.data_ptr(), values.numel(),
-        values.device.index, _stream(values))
+        values.device.index, _stream(values), None if words is None else words.data_ptr())
     _build.check(status, "ipt_histogram")
     histogram.launches += 1
     return hist

@@ -11,6 +11,18 @@ forms map uint8[H, W, 3] to uint8[H, W] and give the same bytes:
 - ``fused_pipeline_mega``: K2 (gray + Gaussian + histogram in one pass),
   the equalization LUT, then K3 (the JAX package's
   ``fused_pipeline_pallas_mega``).
+
+The JAX package exports them as ``jax.jit`` programs, one dispatch of one
+executable per call. Their counterparts here are CUDA graphs
+(``utils/graphs.py::graphed``): on a CUDA tensor one replay of a captured
+graph (the input copied in, the output cloned out), on a CPU tensor the
+eager form:
+
+- ``fused_gray_gauss_histeq_pallas_mega``: the graphed mega form;
+- ``fused_gray_gauss_histeq_pallas``: the graphed staged form;
+- ``fused_gray_gauss_histeq`` (the JAX package's jitted XLA form): the
+  port has no XLA form, so this is the graphed mega form, which gives the
+  same bytes.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ import torch
 from imageprocessingtools_tpu_torch.kernels import core
 from imageprocessingtools_tpu_torch.ops.color import grayscale
 from imageprocessingtools_tpu_torch.ops.histogram import _equalize_lut
+from imageprocessingtools_tpu_torch.utils.graphs import graphed
 
 
 def fused_pipeline(img: torch.Tensor) -> torch.Tensor:
@@ -43,3 +56,8 @@ def fused_pipeline_mega(img: torch.Tensor) -> torch.Tensor:
     blurred, hist = core.gray_gauss_hist(img)
     lut = _equalize_lut(hist, math.prod(blurred.shape))
     return core.lut_apply(blurred, lut)
+
+
+fused_gray_gauss_histeq_pallas_mega = graphed(fused_pipeline_mega)
+fused_gray_gauss_histeq_pallas = graphed(fused_pipeline_staged)
+fused_gray_gauss_histeq = fused_gray_gauss_histeq_pallas_mega

@@ -9,7 +9,7 @@ With words, only the kernel cases whose label holds one of them are profiled
 It prints the card's name and power limit, then one JSON object per line:
 
 - ``{"kernel": label, ...}``: each kernel wrapper (and the two kernel forms
-  of the flagship, and edge_detect's K6 + Sobel) called 20 times back to
+  of the flagship, eager and as CUDA graphs, and edge_detect's K6 + Sobel) called 20 times back to
   back on 2160x3840 inputs on the card under ``torch.profiler``; the device
   time per call is the sum of the trace's device events (kernels, memcpys,
   memsets) over the 20 calls, divided by 20, also split by event name. The inputs are those of
@@ -21,7 +21,9 @@ It prints the card's name and power limit, then one JSON object per line:
   K1 is also profiled at 45 and 135 degrees, and K9 (two launches per resize,
   listed by kernel name) through ``resize_width`` at 4K -> 1920, 4K -> 256
   (the ``thumbnail`` preset), 1080p -> 3840 and 4K gray -> 1920, beside the
-  dense float32 form ``resize_width_dense`` at 4K -> 1920; the fused
+  dense float32 form ``resize_width_dense`` at 4K -> 1920;
+  ``utils/timing.py``'s feedback of a gray 4K output into an RGB input,
+  beside the ``torch.stack`` and ``torch.roll`` form it replaces; the fused
   pipeline, edge_detect, K1 at 30 degrees and K9 at 4K -> 1920 in four row
   bands on the card (``parallel/spatial.py``, input on the card, cases
   "spatial ..."). Back-to-back calls on one 4K
@@ -137,6 +139,7 @@ def profile_kernels(dev, words=()) -> None:
     from imageprocessingtools_tpu_torch.ops.histogram import _equalize_lut
     from imageprocessingtools_tpu_torch.ops.resize import resize_width, resize_width_dense
     from imageprocessingtools_tpu_torch.parallel import spatial
+    from imageprocessingtools_tpu_torch.utils import timing
 
     mesh4 = (dev,) * 4  # four row bands on the one card
 
@@ -182,7 +185,16 @@ def profile_kernels(dev, words=()) -> None:
         "K7 sobel, 4 inputs in turn": lambda: core.sobel(next(grays_in_turn)),
         "flagship mega": lambda: fused.fused_pipeline_mega(img),
         "flagship staged": lambda: fused.fused_pipeline_staged(img),
+        # One replay of a CUDA graph each, the input's copy-in and the
+        # output's clone included.
+        "flagship mega, graphed": lambda: fused.fused_gray_gauss_histeq_pallas_mega(img),
+        "flagship staged, graphed": lambda: fused.fused_gray_gauss_histeq_pallas(img),
         "edge_detect": lambda: core.sobel(core.gray_gauss(img)),
+        # utils/timing.py's feedback of a [H, W] output into a [H, W, 3]
+        # input, beside the stack and rolls that it writes as slice copies.
+        "feedback 4K gray -> RGB": lambda: timing.feedback(gray, img, tuple(img.shape)),
+        "feedback 4K gray -> RGB, torch.stack and torch.roll":
+            lambda: torch.stack([gray, torch.roll(gray, 1, 0), torch.roll(gray, 7, 1)], -1),
         "K9 resize_width 4K -> 1920, RGB": lambda: resize_width(img, 1920),
         "K9 resize_width 4K -> 1920, RGB, 4 inputs in turn":
             lambda: resize_width(next(in_turn), 1920),

@@ -747,14 +747,15 @@ def test_gray_stencils_take_2_31_bytes(cuda, wrapper, plain, halo):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("body", ["mega", "histogram", "resize"])
+@pytest.mark.parametrize("body", ["mega", "staged", "histogram", "resize", "rotate"])
 def test_device_loop_rate_on_the_card(cuda, body):
     from imageprocessingtools_tpu_torch.utils import device_loop_rate, dispatch_time
 
     img = _image((270, 480, 3), seed=7).to(cuda)
-    fn = {"mega": fused.fused_pipeline_mega,
+    fn = {"mega": fused.fused_pipeline_mega, "staged": fused.fused_pipeline_staged,
           "histogram": lambda x: core.histogram(x[:, :, 0].contiguous()).to(torch.uint8)[:240],
-          "resize": lambda x: resize_ops.resize_width(x, 200)}[body]
+          "resize": lambda x: resize_ops.resize_width(x, 200),
+          "rotate": lambda x: rotate.rotate_bicubic(x, 30.0)}[body]
     seen = []
 
     def watched(x):
@@ -779,3 +780,134 @@ def test_trace_to_holds_the_card_events(cuda, tmp_path):
     assert busy_us(events) > 0
     with open(prof.chrome_trace) as f:
         assert '"ipt-card-test"' in f.read()
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs (utils/graphs.py): the flagship's compiled forms, the timing
+# loop, K4 under capture.
+# ---------------------------------------------------------------------------
+
+_GRAPHED = {"mega": (fused.fused_gray_gauss_histeq_pallas_mega, fused.fused_pipeline_mega),
+            "staged": (fused.fused_gray_gauss_histeq_pallas, fused.fused_pipeline_staged)}
+
+
+@pytest.mark.parametrize("shape", [(2160, 3840, 3), (1081, 1927, 3)])
+@pytest.mark.parametrize("form", list(_GRAPHED))
+def test_graphed_flagship_equals_eager_and_plain(cuda, form, shape):
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    compiled, eager = _GRAPHED[form]
+    g = graphs.graphed(eager)  # a fresh cache: the first call captures
+    inputs = [_image(shape, seed=s).to(cuda) for s in (40, 41)]
+    outs = []
+    for x in inputs + inputs:
+        out = g(x)
+        assert torch.equal(out, eager(x)) and torch.equal(out, fused.fused_pipeline(x))
+        outs.append(out)
+    assert len(g._graphs) == 1
+    static = g._graphs[graphs.graph_key(inputs[0])].captured.out
+    assert all(o.data_ptr() != static.data_ptr() for o in outs)  # never the graph's buffer
+    assert torch.equal(outs[0], outs[2]) and torch.equal(outs[1], outs[3])
+    assert not torch.equal(outs[0], outs[1])  # the first output survived the second call
+    assert torch.equal(compiled(inputs[1]), outs[1])
+
+
+def test_graphed_replays_credit_the_captured_launches(cuda):
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    x = _image((70, 150, 3), seed=5).to(cuda)
+    g = graphs.graphed(fused.fused_pipeline_staged)
+    g(x)  # capture: one warm-up call, then a replay
+    wrappers = (core.fused_elementwise, core.gaussian_blur, core.histogram, core.lut_apply,
+                core.gray_gauss_hist)
+    before = [w.launches for w in wrappers]
+    for _ in range(3):
+        g(x)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [n + 3 for n in before[:4]] + before[4:]
+
+
+def test_graphed_staged_forms_on_two_streams_at_once(cuda):
+    """Two graphs of the staged form, two graphs of K4 alone and eager K4,
+    interleaved on two streams: each captured K4 has arrival words of its
+    own, so every histogram, and so every output, stays right."""
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    inputs = [_image((1080, 1920, 3), seed=s).to(cuda) for s in (50, 51)]
+    grays = [core.grayscale_plain(x) for x in inputs]
+    want = [fused.fused_pipeline(x) for x in inputs]
+    want_hist = [core.histogram_plain(g) for g in grays]
+    staged = [graphs.graphed(fused.fused_pipeline_staged) for _ in range(2)]
+    hists = [graphs.graphed(core.histogram) for _ in range(2)]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    for k in range(2):  # captured before the race
+        staged[k](inputs[k])
+        hists[k](grays[k])
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(10):
+        for k, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                got[k].append((staged[k](inputs[k]), hists[k](grays[k]),
+                               core.histogram(grays[k])))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for out, hist, eager_hist in got[k]:
+            assert torch.equal(out, want[k])
+            assert torch.equal(hist, want_hist[k]) and torch.equal(eager_hist, want_hist[k])
+
+
+def test_capture_refuses_an_upload_from_the_host(cuda):
+    import functools
+
+    from imageprocessingtools_tpu_torch.ops.color import contrast
+    from imageprocessingtools_tpu_torch.utils import device_loop_rate, graphs
+
+    from imageprocessingtools_tpu_torch.ops.packing import pack_bits_device
+
+    gray = _image((64, 96), seed=3).to(cuda)
+    with pytest.raises(graphs.CaptureError, match="contrast"):
+        graphs.graphed(functools.partial(contrast, factor=1.5))(gray)
+    with pytest.raises(graphs.CaptureError, match="pack_bits_device"):
+        graphs.graphed(pack_bits_device)(gray & 1)  # its weights: torch.tensor(..., device=)
+    with pytest.raises(graphs.CaptureError, match="device_loop_rate"):
+        device_loop_rate(lambda x: contrast(x, 1.5), gray, iters=2, repeats=1)
+    # The card is still usable, and a capturable body still captures.
+    assert torch.equal(graphs.graphed(core.sobel)(gray), core.sobel_plain(gray))
+
+
+def test_device_loop_rate_times_the_card_for_mega(cuda):
+    """At 4K the loop's time per iteration (mega and its feedback) lies
+    within [0.8x, 2.5x] of mega's traced device time: the card's time, not
+    the host's launch rate (host-launched, it read 10x)."""
+    from imageprocessingtools_tpu_torch.profile_device import device_us_per_call
+    from imageprocessingtools_tpu_torch.utils import device_loop_rate
+
+    img = _image((2160, 3840, 3), seed=30).to(cuda)
+    loop_us = device_loop_rate(fused.fused_pipeline_mega, img, iters=20, repeats=5,
+                               stat="median") * 1e6
+    traced_us = device_us_per_call("flagship mega", lambda: fused.fused_pipeline_mega(img))
+    assert 0.8 * traced_us <= loop_us <= 2.5 * traced_us, (loop_us, traced_us)
+
+
+def test_graph_cache_frees_its_graphs(cuda):
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    g = graphs.graphed(fused.fused_pipeline_mega)
+    size = graphs.GRAPH_CACHE_SIZE
+    shapes = [(384 * (k + 1), 393216 // (384 * (k + 1)), 3) for k in range(size + 2)]
+    held = []
+    for i, shape in enumerate(shapes):
+        out = g(_image(shape, seed=i).to(cuda))
+        del out
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated(cuda) - base)
+        assert len(g._graphs) == min(i + 1, size)
+    # Equal pixel counts: past the LRU's size the graphs hold as much as
+    # ``size`` of them, not one more.
+    assert all(h <= held[size - 1] * 1.05 for h in held[size:]), held
+    del g
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) - base <= held[size - 1] * 0.05

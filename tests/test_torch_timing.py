@@ -65,6 +65,9 @@ CASES = {
         lambda x: torch.bincount(x.reshape(-1).long(), minlength=256).to(torch.uint8)[:24]),
     "shape_changing_scalar_reduction": (IMG, lambda x: x[::2, ::2, :], lambda x: x[::2, ::2, :]),
     "batched_stack_roll": (IMGS, _gray_jax, _gray_torch),
+    # Rolls longer than the axis (1 row of 1, 7 columns of 4) wrap around.
+    "stack_roll_short_axes": (IMG[:1, :4], _gray_jax, _gray_torch),
+    "batched_stack_roll_short_axes": (IMGS[:, :3, :5], _gray_jax, _gray_torch),
     # No branch of its own: a shape-changing output of another rank is
     # ravelled and tiled.
     "ravel_and_tile": (IMG, lambda x: x[:5, :7, 0], lambda x: x[:5, :7, 0]),
