@@ -37,13 +37,22 @@ in order, printing one line per phase:
    and graphed (traced in phase 7, printed after it), the loop rate held to
    [0.8, 2.5] times the eager device time; then a batch of four 4K images
    through ``parallel.batched_fused_pipeline`` (K2 and K3 once per image),
-   byte-equal to the plain pipeline per image;
-6. preset serving (``imageprocessingtools_tpu_torch.serve.main``): the four
-   presets fanned out over eight 4K and two 1080p P6 files and one truncated
-   file (``--skip-bad``), every output byte-equal to the presets' plain
-   bodies on the same decoded image on the card; a reference-flag fan-out
-   over the 4K files; and a byte-for-byte cross-check of a smaller file
-   against the same ``serve`` run on the CPU in a subprocess;
+   one replay of a captured graph of the four (``utils.graphs.batched``, the
+   JAX package's ``jax.jit(jax.vmap(fn))``), byte-equal to the eager loop
+   (``graphs.eager_batch``) and to the plain pipeline per image;
+6. preset serving (``imageprocessingtools_tpu_torch.serve.main``), each
+   chunk one replay per group of G images: the four presets fanned out over
+   eight 4K and two 1080p P6 files and one truncated file (``--skip-bad``),
+   every output byte-equal to the presets' plain bodies and to the eager
+   loop on the same decoded images on the card; a reference-flag fan-out
+   over the 4K files; a byte-for-byte cross-check of a smaller file against
+   the same ``serve`` run on the CPU in a subprocess; G, the graphs kept,
+   their bytes against ``graphs.GRAPH_BYTES_BOUND`` and their capture
+   seconds; per preset and for the fan-out, ms per chunk of eight 4K images
+   on the card, eager loop against graphed (CUDA events); and ``serve
+   --sequential``'s split (decode, upload and device, download, encode) and
+   the overlapped serves' walls in three turns (``serving_turns.py`` times
+   them beside another checkout's);
 7. spatial and mesh (``parallel/spatial.py``): on a 4K noise image, with a
    mesh that names the card four times (four row bands), the fused pipeline,
    the four presets, ``-w1920 -r30 -mono -fv`` and ``-r90``, each byte-equal
@@ -55,7 +64,8 @@ in order, printing one line per phase:
    in an ``annotate`` region, read with ``profile_device.device_events``, and
    the trace must hold the region and 20 times one call's device events, or
    the run fails); then ``serve --mesh`` and ``serve
-   --spatial`` over phase 6's files, byte-equal to phase 6's outputs. Where
+   --spatial`` over phase 6's files (``--mesh`` replaying the card's graphs),
+   byte-equal to phase 6's outputs. Where
    torch sees more than one card, the spatial paths and a batch also run
    over a mesh of every card (copies between cards); otherwise the line
    says that they were not exercised;
@@ -551,7 +561,7 @@ def main() -> int:
     print(card)
 
     sys.path.insert(0, REPO)
-    from imageprocessingtools_tpu_torch import cli, device, parallel, serve
+    from imageprocessingtools_tpu_torch import cli, device, parallel, serve, serving
     from imageprocessingtools_tpu_torch.codec import native, ppm
     from imageprocessingtools_tpu_torch.kernels import _build, core, fused, rotate
     from imageprocessingtools_tpu_torch.kernels import resize as k9
@@ -560,11 +570,13 @@ def main() -> int:
     from imageprocessingtools_tpu_torch.ops.dither import mono_dither
     from imageprocessingtools_tpu_torch.ops.histogram import _equalize_lut
     from imageprocessingtools_tpu_torch.ops.resize import resize, resize_width, resize_width_dense
+    from imageprocessingtools_tpu_torch.pipeline import PipelineConfig
     from imageprocessingtools_tpu_torch.utils import device_loop_rate, dispatch_time, graphs
 
     dev = device.get_device()
     if dev.type != "cuda":
         fail(f"the configured device is {dev}, not cuda (is IPT_DEVICE set?)")
+    dev_index = parallel.default_mesh((dev,))[0]  # the card, named with its index
 
     wrappers = {
         "rotate": rotate.rotate_bicubic, "gray_gauss_hist": core.gray_gauss_hist,
@@ -977,8 +989,11 @@ def main() -> int:
         dispatch_ms = dispatch_time(fused.fused_pipeline_mega, flagship) * 1e3
 
         # The batch module: four 4K images through the mega form, K2 and K3
-        # once per image, each output byte-equal to the plain pipeline's.
+        # once per image, in one replay of a graph of the four (G is 10 at
+        # 4K), each output byte-equal to the plain pipeline's and to the eager
+        # loop's.
         batch_in = torch.from_numpy(image((4, H4K, W4K, 3), seed=31))
+        captures = graphs.captures_made
         path_counts["batch"] = drive(
             "phase 5 batch", {"gray_gauss_hist": 4, "lut_apply": 4},
             lambda: results.update(batch=parallel.batched_fused_pipeline(batch_in)))
@@ -987,11 +1002,20 @@ def main() -> int:
             fail(f"batched_fused_pipeline gave {batch_out.dtype} {tuple(batch_out.shape)}")
         if batch_out.device.type != "cuda":
             fail(f"batched_fused_pipeline ran on {batch_out.device}")
+        batch_graph = graphs._batch_graphs.get(
+            (fused.fused_pipeline_mega, dev_index, (H4K, W4K, 3), torch.uint8, 4))
+        if batch_graph is None or graphs.captures_made != captures + 1:
+            fail("batched_fused_pipeline did not run as one captured graph of four images")
+        eager_batch_out = graphs.eager_batch(fused.fused_pipeline_mega, batch_in.to(dev))
+        if not torch.equal(batch_out, eager_batch_out):
+            fail("batched_fused_pipeline differs from the eager loop")
         for i in range(4):
             if not torch.equal(batch_out[i], fused.fused_pipeline(batch_in[i].to(dev))):
                 fail(f"batched_fused_pipeline image {i} differs from the plain pipeline")
-        print("phase 5 batch: batched_fused_pipeline on uint8[4, 2160, 3840, 3] byte-equal to "
-              "four plain pipelines")
+        print(f"phase 5 batch: batched_fused_pipeline on uint8[4, 2160, 3840, 3] (one replay of a "
+              f"captured 4-image graph, {batch_graph.nbytes} bytes, captured in "
+              f"{batch_graph.seconds:.3f} s) byte-equal to the eager loop and to four plain "
+              f"pipelines")
 
         # Phase 6: preset serving.
         if not native.available():
@@ -1030,6 +1054,7 @@ def main() -> int:
         # thumbnail two K9; the fan-out one K8 (-gray), two K9 (-w1920) and one
         # K1 per 4K file.
         n_good = len(files)
+        captures = graphs.captures_made
         path_counts["serving"] = drive(
             "phase 6 serving",
             {"gray_gauss": n_good, "sobel": n_good, "sharpen": n_good,
@@ -1038,6 +1063,7 @@ def main() -> int:
             serving_runs)
         if f"skipped {bad}: Error: unexpected end of file." not in serve_walls["presets"][1]:
             fail(f"serve did not report the truncated file: {serve_walls['presets'][1]}")
+        serving_captures = graphs.captures_made - captures
 
         def equalize_plain(g):
             return core.lut_apply_plain(g, _equalize_lut(core.histogram_plain(g), g.numel()))
@@ -1055,10 +1081,29 @@ def main() -> int:
         want_types = {"edge_detect": ppm.FILETYPE_PGM, "enhance": ppm.FILETYPE_PGM,
                       "print_ready": ppm.FILETYPE_PBM, "thumbnail": ppm.FILETYPE_PPM,
                       "gray": ppm.FILETYPE_PGM, "w1920-r30": ppm.FILETYPE_PPM}
+        # The same decoded images through the eager loop (graphs.eager_batch),
+        # the plain form of the graphs that serve replayed: per preset, and
+        # the fan-out on the 4K files.
+        decoded = [ppm.decode_ppm(open(path, "rb").read())[0] for path in files]
+        fanout_task = tuple(PipelineConfig(**kw) for kw in (dict(gray=True),
+                                                            dict(new_width=1920, angle=30.0)))
+        tasks = {**{name: name for name in PRESETS.split(",")}, "fanout": fanout_task}
+        eager_outs = {}  # (tag, file index) -> the eager loop's output, unpacked
+        for label, task in tasks.items():
+            one, file_type = serving._task_fn(task)
+            for idx in (range(8), range(8, n_good)) if label != "fanout" else (range(8),):
+                out = graphs.eager_batch(one, torch.from_numpy(
+                    np.stack([decoded[i] for i in idx])).to(dev))
+                for tag, o in zip((label,) if label != "fanout" else ("gray", "w1920-r30"),
+                                  out if isinstance(out, tuple) else (out,)):
+                    o = o.cpu().numpy()
+                    if file_type == ppm.FILETYPE_PBM:
+                        o = np.unpackbits(o, axis=-1)[..., :decoded[idx[0]].shape[1]]
+                    for j, i in enumerate(idx):
+                        eager_outs[tag, i] = o[j]
         n_checked = 0
         for i, path in enumerate(files):
-            with open(path, "rb") as f:
-                src = torch.from_numpy(ppm.decode_ppm(f.read())[0]).to(dev)
+            src = torch.from_numpy(decoded[i]).to(dev)
             tags = PRESETS.split(",") + (["gray", "w1920-r30"] if i < 8 else [])
             for tag in tags:
                 with open(f"{path}.{tag}.out", "rb") as f:
@@ -1069,9 +1114,85 @@ def main() -> int:
                          f"type {want_types[tag]} shape {exp.shape}")
                 if not np.array_equal(got, exp):
                     fail(f"serve {path}.{tag} differs from the plain body")
+                if not np.array_equal(got, eager_outs[tag, i]):
+                    fail(f"serve {path}.{tag} differs from the eager loop")
                 n_checked += 1
         if os.path.exists(bad + ".edge_detect.out"):
             fail("serve wrote an output for the truncated file")
+        del eager_outs
+
+        # A chunk of eight 4K images per task, input on the card: the eager
+        # loop against the graphs that serve captured (one replay, the input
+        # copied into the graph and the outputs out of it), byte-equal; and
+        # the replay alone (its input already in the graph).
+        chunk = torch.from_numpy(np.stack(decoded[:8])).to(dev)
+        chunk_ms = {}
+        for label, task in tasks.items():
+            one, _ = serving._task_fn(task)
+            run = graphs.batched(one)
+            eager, graphed = (x if isinstance(x, tuple) else (x,)
+                              for x in (graphs.eager_batch(one, chunk), run(chunk, dev)))
+            for e, g in zip(eager, graphed):
+                if not torch.equal(e, g):
+                    fail(f"the graphed {label} chunk differs from the eager loop")
+            del eager, graphed
+            entry = graphs._batch_graphs[(one, dev_index, (H4K, W4K, 3), torch.uint8, 8)]
+            chunk_ms[label] = (median_ms(torch, lambda: graphs.eager_batch(one, chunk), repeats=3),
+                               median_ms(torch, lambda: run(chunk, dev), repeats=3),
+                               median_ms(torch, entry.captured.replay, repeats=3))
+        del chunk
+        kept = graphs.held()
+        graph_line = (
+            f"phase 6 graphs: G {graphs.group_size(H4K * W4K * 3)} at 4K and "
+            f"{graphs.group_size(1080 * 1920 * 3)} at 1080p; the serving drive captured "
+            f"{serving_captures}; {len(kept)} kept, {sum(k['bytes'] for k in kept)} bytes of the "
+            f"bound's {graphs.GRAPH_BYTES_BOUND}: " + ", ".join(
+                f"{k['fn']} {'x'.join(map(str, k['input']))} {k['bytes']} B captured in "
+                f"{k['capture_s']:.3f} s" for k in kept))
+        chunk_line = (f"phase 6 ms per chunk of eight 4K images, input on the card (eager loop / "
+                      f"graphed / the replay alone, CUDA events around {REPS} calls, median of 3) "
+                      f"on {card}: " + ", ".join(f"{k} {a:.4f} / {b:.4f} / {c:.4f}"
+                                                 for k, (a, b, c) in chunk_ms.items()))
+
+        # serve's sequential split (no reader or writer thread), host seconds
+        # per stage, each synchronised, in three turns; then the overlapped
+        # serves' walls (reader and writer threads, no stage timed) in the
+        # same turns. Every graph is captured already. The parent's eager
+        # device stage is timed beside this one by ``serving_turns.py``.
+        splits = []
+        stages = {"_read_and_decode": "decode", "process_batch": "upload_and_device",
+                  "_to_host": "download", "_encode_chunk": "encode"}
+        saved = {name: getattr(serving, name) for name in stages}
+
+        def timed(name, split):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = saved[name](*args, **kwargs)
+                torch.cuda.synchronize()
+                split[stages[name]] += time.perf_counter() - t0
+                return out
+            return wrapper
+
+        for i in range(3):
+            split = collections.Counter()
+            splits.append(split)
+            for name in stages:
+                setattr(serving, name, timed(name, split))
+            try:
+                serve_run(f"sequential {i}", ["--sequential", "--preset", PRESETS,
+                                              "--suffix", ".seq", *files])
+            finally:
+                for name, fn in saved.items():
+                    setattr(serving, name, fn)
+            split["sequential wall"] = serve_walls[f"sequential {i}"][0]
+            for label, argv in (("presets", ["--preset", PRESETS]),
+                                ("fanout", ["--fanout", fanout_flags])):
+                serve_run(f"overlapped {label} {i}", [*argv, "--suffix", ".seq", *files])
+                split[f"overlapped {label} wall"] = serve_walls[f"overlapped {label} {i}"][0]
+        split_line = (f"phase 6 serve over {n_good} files on {card}, s, --sequential presets split "
+                      f"and overlapped walls, three turns: " + "; ".join(
+                          f"{key} " + ", ".join(f"{split[key]:.4f}" for split in splits)
+                          for key in splits[0]))
 
         # Cross-check one smaller file against the same serve on the CPU.
         small_serve = image((768, 1024, 3), seed=60)
@@ -1126,8 +1247,11 @@ def main() -> int:
         print(f"phase 6 serving {label}: {n_files} files in {wall:.3f} s "
               f"({n_files / wall:.2f} files/s) on {card}; serve said: "
               f"{serve_walls[label][1].splitlines()[-1]}")
-    print(f"phase 6 serving: {n_checked} outputs byte-equal to the plain bodies on the card; "
-          f"768x1024 cuda and cpu outputs byte-equal {cross_worst}; native codec built")
+    print(f"phase 6 serving: {n_checked} outputs byte-equal to the plain bodies on the card and "
+          f"to the eager loop on the same decoded images; 768x1024 cuda and cpu outputs "
+          f"byte-equal {cross_worst}; native codec built")
+    for line in (graph_line, chunk_line, split_line):
+        print(line)
     for line in phase7 + phase8:
         print(line)
     print("launches per path (counts set to 0 before each): "

@@ -48,6 +48,7 @@ import functools
 import torch
 
 from imageprocessingtools_tpu_torch.kernels import _build
+from imageprocessingtools_tpu_torch.utils import graphs
 
 _MAX_GRID_Y = 65535 * 32  # image rows per K7 launch: grid.y tiles of 32 rows
 _TILE_W, _TILE_H = 256, 16  # K2, K5 and K6's output tiles
@@ -288,7 +289,7 @@ def gray_gauss(img: torch.Tensor) -> torch.Tensor:
     return out
 
 
-@functools.lru_cache(maxsize=64)
+@graphs.device_table(maxsize=64)
 def _chain_table(chain: tuple, device: torch.device) -> torch.Tensor:
     """K8's uint8[256] table on ``device``: the chain's plain arithmetic on
     every gray value, made once per (chain, device)."""

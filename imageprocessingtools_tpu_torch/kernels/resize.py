@@ -23,6 +23,7 @@ import torch
 from imageprocessingtools_tpu_torch.kernels import _build
 from imageprocessingtools_tpu_torch.ops import _exact
 from imageprocessingtools_tpu_torch.ops.common import quantize_u8
+from imageprocessingtools_tpu_torch.utils import graphs
 
 _THREADS, _ROWS = 128, 4     # the kernel's block shapes (csrc/resize.cu)
 _VECS = (8, 4, 2, 1)         # dim 0: the bytes per thread that the kernel takes, most first
@@ -83,7 +84,7 @@ def hw_passes(height: int, width: int, new_height: int, new_width: int):
     return ((1, contrib_w), (0, contrib_h))
 
 
-@functools.lru_cache(maxsize=32)
+@graphs.device_table(maxsize=32)
 def device_passes(height: int, width: int, target, device: torch.device):
     """((dim, idx int32[out, taps], w float64[out, taps]), ...) on ``device``,
     in pass order. ``target`` is a new width (``-wN``: the height follows,

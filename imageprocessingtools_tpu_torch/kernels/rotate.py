@@ -18,6 +18,7 @@ import torch
 
 from imageprocessingtools_tpu_torch.kernels import _build
 from imageprocessingtools_tpu_torch.ops import _exact
+from imageprocessingtools_tpu_torch.utils import graphs
 
 TILE = 32  # the kernel's output tile side (csrc/rotate.cu)
 _MAX_GRID_Y = 65535 * TILE  # output rows per launch: grid.y tiles of TILE rows
@@ -104,7 +105,7 @@ def _host_plan(height: int, width: int, angle: float):
     return tile_plan(height, width, angle)
 
 
-@functools.lru_cache(maxsize=32)
+@graphs.device_table(maxsize=32)
 def _device_plan(height: int, width: int, angle: float, device: torch.device):
     plan, box_w, box_h = _host_plan(height, width, angle)
     return plan.to(device), box_w, box_h

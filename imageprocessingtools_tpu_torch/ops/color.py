@@ -6,7 +6,9 @@ launches K8 (``kernels/core.py::fused_elementwise``) with the empty chain,
 which does in one pass what XLA's fusion does for the JAX package; on a CPU
 tensor it runs the plain version. The rest are the JAX package's extension
 ops, as int32 torch ops on any device, on gray or RGB input. ``contrast``
-goes through a float64 LUT made on the host, so it is exact for any factor.
+goes through a float64 LUT made on the host, so it is exact for any factor;
+the LUT is uploaded once per factor and device, so that a CUDA graph can
+capture it (``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from imageprocessingtools_tpu_torch.kernels import core as _core
+from imageprocessingtools_tpu_torch.utils import graphs
 
 
 def grayscale(img: torch.Tensor) -> torch.Tensor:
@@ -43,9 +46,15 @@ def _contrast_lut(factor: float) -> np.ndarray:
     return np.clip(np.floor(v + 0.5), 0, 255).astype(np.uint8)
 
 
+@graphs.device_table(maxsize=64)
+def _contrast_table(factor: float, device: torch.device) -> torch.Tensor:
+    """``_contrast_lut(factor)`` on ``device``, uploaded once per (factor, device)."""
+    return torch.from_numpy(_contrast_lut(factor)).to(device)
+
+
 def contrast(img: torch.Tensor, factor: float) -> torch.Tensor:
     """clamp(round_half_up((v - 128) * factor + 128)) through the host LUT."""
-    lut = torch.from_numpy(_contrast_lut(float(factor))).to(img.device)
+    lut = _contrast_table(float(factor), img.device)
     return lut[img.long()]
 
 

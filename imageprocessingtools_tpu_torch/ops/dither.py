@@ -3,21 +3,31 @@
 Counterpart of ``imageprocessingtools_tpu/ops/dither.py``. The threshold of
 pixel (y, x) is ``BAYER_THRESHOLD_INT[y % 4, x % 4]`` (integer thresholds
 that reproduce the reference's double comparison exactly, see
-``ops/_exact.py``), indexed on the device rather than tiled on the host.
+``ops/_exact.py``), indexed on the device rather than tiled on the host. The
+table is made once per device, so that a CUDA graph can capture the dither
+(``utils/graphs.py``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from imageprocessingtools_tpu_torch.ops import _exact
 
 
+@functools.cache
+def _thresholds(device: torch.device) -> torch.Tensor:
+    """int32[4, 4] ``BAYER_THRESHOLD_INT`` on ``device``, made once per device."""
+    return torch.as_tensor(_exact.BAYER_THRESHOLD_INT, device=device)
+
+
 def mono_dither(img: torch.Tensor) -> torch.Tensor:
     """uint8[H, W, 3] -> uint8[H, W] in {0, 1}, 1 = black. Bit-exact."""
     h, w = img.shape[0], img.shape[1]
     avg = img.to(torch.int32).sum(-1) // 3
-    table = torch.as_tensor(_exact.BAYER_THRESHOLD_INT, device=img.device)
+    table = _thresholds(img.device)
     ys = torch.arange(h, device=img.device) % 4
     xs = torch.arange(w, device=img.device) % 4
     return (avg < table[ys[:, None], xs[None, :]]).to(torch.uint8)

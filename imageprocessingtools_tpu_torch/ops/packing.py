@@ -4,14 +4,24 @@ Counterpart of ``imageprocessingtools_tpu/ops/packing.py``. The reference
 packs bits on the host one byte at a time (``ppmx-edward.c:268-284``); for
 batched serving the packing runs on the device: rows are zero-padded to a
 byte, grouped by 8 and weighted MSB-first [128, 64, ..., 1], which is
-integer math and equal to ``np.packbits(axis=-1)``.
+integer math and equal to ``np.packbits(axis=-1)``. The weights are a table
+made once per device, so that a CUDA graph can capture the packing
+(``utils/graphs.py``).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+@functools.cache
+def _weights(device: torch.device) -> torch.Tensor:
+    """int32[8] MSB-first bit weights on ``device``, made once per device."""
+    return torch.tensor(_WEIGHTS, dtype=torch.int32, device=device)
 
 
 def pack_bits_device(bits: torch.Tensor) -> torch.Tensor:
@@ -21,6 +31,6 @@ def pack_bits_device(bits: torch.Tensor) -> torch.Tensor:
     pad = row_bytes * 8 - w
     if pad:
         bits = torch.nn.functional.pad(bits, (0, pad))
-    weights = torch.tensor(_WEIGHTS, dtype=torch.int32, device=bits.device)
+    weights = _weights(bits.device)
     grouped = bits.reshape(bits.shape[:-1] + (row_bytes, 8)).to(torch.int32)
     return (grouped * weights).sum(-1).to(torch.uint8)

@@ -2,15 +2,17 @@
 device or split over a mesh of devices.
 
 Counterpart of ``imageprocessingtools_tpu/parallel/batch.py``. There a batch
-is ``vmap`` under ``jit``, sharded over a device mesh. Here it is a loop over
-the leading dimension on a device's current stream: the images are
-independent, every kernel keeps its single-image signature, and the launches
-of one image queue behind those of the one before. A mesh is a tuple of
-devices (``default_mesh``); ``batch_apply`` gives each device an equal shard
-of the batch, uploaded once, and returns the shards' outputs, which the
-caller joins where it needs them (``gather``). A mesh may name a device more
-than once. The JAX module's size gate on the mega kernel has no counterpart:
-K2 has no size limit.
+is ``vmap`` under ``jit`` (``_jitted_vmap``, ``_shard_mapped_vmap``),
+sharded over a device mesh. Here it is ``utils.graphs.batched``: on a CUDA
+device, replays of CUDA graphs over groups of images, each graph holding
+its group's per-image launches (the images are independent and every kernel
+keeps its single-image signature); on a CPU device the eager loop. A mesh is
+a tuple of devices (``default_mesh``); ``batch_apply`` gives each device an
+equal shard of the batch, runs it there on graphs of that device's own (no
+graph spans two cards), and returns the shards' outputs, which the caller
+joins where it needs them (``gather``). A mesh may name a device more than
+once. The JAX module's size gate on the mega kernel has no counterpart: K2
+has no size limit.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from imageprocessingtools_tpu_torch.device import get_device
 from imageprocessingtools_tpu_torch.kernels.fused import fused_pipeline_mega
+from imageprocessingtools_tpu_torch.utils import graphs
 
 
 def _indexed(device) -> torch.device:
@@ -50,30 +53,27 @@ def on_device(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
-def _stack(outs: list):
-    if isinstance(outs[0], tuple):
-        return tuple(torch.stack([o[k] for o in outs]) for k in range(len(outs[0])))
-    return torch.stack(outs)
-
-
 def batch_apply(fn, images, mesh: tuple | None = None):
     """Apply a single-image op or pipeline to a batch.
 
     ``fn``: uint8[H, W, C] tensor -> tensor, or a tuple of tensors.
     ``images``: uint8[N, H, W, C] (numpy or torch). Without ``mesh`` the
-    batch moves once to the configured device (``device.get_device``) and
-    the result is the outputs stacked along a new leading dimension (a
-    tuple of stacks for a tuple-returning ``fn``). With ``mesh`` (a tuple of
-    devices) N must divide into ``len(mesh)`` equal shards; shard k moves
-    once to ``mesh[k]`` and runs there, and the result is the list of the
-    shards' stacks, in order (``gather`` joins them).
+    batch runs on the configured device (``device.get_device``) and the
+    result is the outputs stacked along a new leading dimension (a tuple of
+    stacks for a tuple-returning ``fn``). With ``mesh`` (a tuple of devices)
+    N must divide into ``len(mesh)`` equal shards; shard k runs on
+    ``mesh[k]``, and the result is the list of the shards' stacks, in order
+    (``gather`` joins them). On a CUDA device every group of images is one
+    replay of a captured graph (``graphs.batched``), the images copied from
+    where they lie into the graph's input; a ``fn`` that cannot be captured
+    raises ``graphs.CaptureError``. The outputs are fresh tensors.
     """
     batch = torch.as_tensor(images)
     if batch.shape[0] == 0:
         raise ValueError("batch_apply: empty batch")
+    run = graphs.batched(fn)
     if mesh is None:
-        batch = batch.to(get_device())
-        return _stack([fn(batch[i]) for i in range(batch.shape[0])])
+        return run(batch, _indexed(get_device()))
     mesh = default_mesh(mesh)
     n = len(mesh)
     if batch.shape[0] % n:
@@ -83,8 +83,7 @@ def batch_apply(fn, images, mesh: tuple | None = None):
     shards = []
     for k, dev in enumerate(mesh):
         with on_device(dev):
-            shard = batch[k * size:(k + 1) * size].to(dev)
-            shards.append(_stack([fn(shard[i]) for i in range(size)]))
+            shards.append(run(batch[k * size:(k + 1) * size], dev))
     return shards
 
 

@@ -4,14 +4,20 @@ Counterpart of ``imageprocessingtools_tpu/serving.py``. The reference is one
 image per process (decode, op chain, encode, ``ppmx-edward.c:1053-1172``).
 This module amortizes codec and device work over many files: files are
 bucketed by shape, each bucket is decoded in chunks of at most ``max_batch``
-images by the native C++ batch decoder, each chunk is uploaded once to the
-device that ``IPT_DEVICE`` names, or in equal shards to the devices of a
-mesh (``mesh=``, padded by repeating the last image), and run through the
-pipeline there by ``parallel.batch_apply`` (a loop over the images on a
-device's stream, where the JAX package has ``vmap``), P4 bits are packed on
-the device, and the outputs come back once per chunk (per shard) and are
-encoded by the native threaded encoder. A reader and a writer thread
-overlap decode and encode with the device.
+images by the native C++ batch decoder, each chunk runs on the device that
+``IPT_DEVICE`` names, or in equal shards on the devices of a mesh
+(``mesh=``, padded by repeating the last image), through
+``parallel.batch_apply``, P4 bits are packed on the device, and the outputs
+come back once per chunk (per shard) and are encoded by the native threaded
+encoder. A reader and a writer thread overlap decode and encode with the
+device.
+
+Where the JAX package runs a chunk as one ``jax.jit(jax.vmap(one))``
+program, ``batch_apply`` runs it on a card as one CUDA graph replay per
+group of G images (``utils.graphs.batched``), each group's host images
+copied straight into the graph's input. As in JAX, the task callables are
+cached (``_pipeline_fn``, ``_preset_pipeline_fn``, ``_fanout_pipeline_fn``),
+so one chunk's graphs are found again by the next chunk of that shape.
 
 ``process_file_spatial`` takes one giant image in row bands over a mesh
 (``parallel/spatial.py``), decoded once and uploaded once for every fan-out
@@ -24,6 +30,7 @@ and needs no audit.
 from __future__ import annotations
 
 import collections
+import functools
 import queue
 import threading
 
@@ -43,9 +50,11 @@ from imageprocessingtools_tpu_torch.parallel.batch import batch_apply, default_m
 from imageprocessingtools_tpu_torch.pipeline import PipelineConfig, run_pipeline
 
 
+@functools.lru_cache(maxsize=64)
 def _pipeline_fn(config: PipelineConfig):
     """Single-image fn for a reference config; mono output is packed to P4
-    rows on the device."""
+    rows on the device. One callable per config (a frozen dataclass), so
+    that the graphs captured for it are found again."""
 
     def one(img):
         out, _ = run_pipeline(img, config)
@@ -53,12 +62,15 @@ def _pipeline_fn(config: PipelineConfig):
             out = pack_bits_device(out)
         return out
 
+    one.__qualname__ = f"task {config_tag(config) if config.any_op else config}"
     return one
 
 
+@functools.lru_cache(maxsize=64)
 def _preset_pipeline_fn(name: str):
     """(single-image fn, file_type) for a models/ preset name. PBM presets
-    pack bits on the device like the reference mono path."""
+    pack bits on the device like the reference mono path. Cached, as
+    ``_pipeline_fn`` is."""
     fn = get_preset(name)  # raises ValueError for unknown names
     file_type = PRESET_FILE_TYPES[name]
 
@@ -68,6 +80,7 @@ def _preset_pipeline_fn(name: str):
             out = pack_bits_device(out)
         return out
 
+    one.__qualname__ = f"task {name}"
     return one, file_type
 
 
@@ -98,11 +111,12 @@ def config_tag(item) -> str:
     return "-".join(parts)
 
 
+@functools.lru_cache(maxsize=32)
 def _fanout_pipeline_fn(items: tuple):
     """(single-image fn returning one output PER element, file_types tuple)
     for a tuple of preset names and/or `PipelineConfig`s: FAN-OUT serving.
     Every element runs on the same uploaded image, so a chunk is decoded
-    and uploaded once for N outputs."""
+    and uploaded once for N outputs. Cached, as ``_pipeline_fn`` is."""
     if not items:
         raise ValueError("empty fan-out list")
     tags = [config_tag(it) for it in items]  # validates B2 per element
@@ -119,6 +133,7 @@ def _fanout_pipeline_fn(items: tuple):
     def one(img):
         return tuple(fn(img) for fn in fns)
 
+    one.__qualname__ = f"task {';'.join(tags)}"
     return one, file_types
 
 
@@ -161,13 +176,15 @@ def process_batch(images, config: PipelineConfig | str | tuple, mesh: tuple | No
     ``config`` is a PipelineConfig (reference ops), a preset name from
     `models.PRESETS` (P4 presets pack bits on the device), or a tuple of
     preset names and/or PipelineConfigs (fan-out: returns a tuple of
-    outputs and a tuple of file_types). The batch is uploaded once; every
-    image, and every fan-out element, runs on that copy.
+    outputs and a tuple of file_types). Each image is uploaded once;
+    every fan-out element runs on that copy.
     With a mesh (a tuple of devices), the batch is split into one shard per
-    device, each uploaded once, and the output is the list of the shards'
-    outputs (``parallel.batch.gather`` joins them); a batch that does not
-    divide the mesh is padded by repeating its last image, and the padding
-    is sliced off every fan-out element's output.
+    device, and the output is the list of the shards' outputs
+    (``parallel.batch.gather`` joins them); a batch that does not divide the
+    mesh is padded by repeating its last image, and the padding is sliced
+    off every fan-out element's output. On a card each group of images is
+    one graph replay (``parallel.batch_apply``); the outputs are fresh
+    tensors, copied out of the graph.
     """
     one, file_type = _task_fn(config)
     if mesh is None:

@@ -12,14 +12,45 @@ which one replay runs on the card with no host work between its launches.
   ``fn(*args)`` on that stream into a ``Captured``, bound to ``args`` by
   pointer. A function that cannot be captured (an upload from the host, a
   synchronisation, an allocation in the C) raises ``CaptureError``, which
-  names it and the CUDA error; nothing falls back to eager launches.
+  names it and the CUDA error; nothing falls back to eager launches. An
+  allocation failure inside the capture (``MemoryError``, which
+  ``kernels.TooLarge`` is, or ``torch.OutOfMemoryError``) is raised as it
+  is (``capture_failure``), so that the CLI and ``serve`` answer it with the
+  C's allocation message. A ``graphed`` callable called inside a capture
+  (its warm-up too) runs its body, which the outer graph captures, as a
+  jitted function inlines under ``jax.jit``.
+- ``device_table(maxsize)``: an ``lru_cache`` for tables on the device that
+  a captured launch reads by pointer (K1's plan, K9's tables, K8's chain
+  table, the contrast LUT): a capture underway keeps every table it was
+  given, so that the table lives as long as the graph whatever the cache
+  evicts.
 - ``graphed(fn)``: ``fn`` (one tensor -> a tensor or a tuple of tensors) as
   a compiled callable. On a CPU tensor it calls ``fn``. On a CUDA tensor it
-  keeps one graph per ``graph_key`` (device, shape, dtype, strides) in an
-  LRU of ``GRAPH_CACHE_SIZE`` graphs (each holds a memory pool of its own),
-  copies the argument into the graph's input buffer, replays it and returns
-  a clone of its output: a JAX executable returns a fresh array, and a
-  caller that keeps one output must not see the next call overwrite it.
+  keeps one graph per ``graph_key`` (device, shape, dtype, strides), copies
+  the argument into the graph's input buffer, replays it and returns a
+  clone of its output: a JAX executable returns a fresh array, and a caller
+  that keeps one output must not see the next call overwrite it.
+- ``batched(fn)``: ``fn`` over a leading dimension, the counterpart of
+  ``jax.jit(jax.vmap(fn))`` (``imageprocessingtools_tpu/serving.py:147-149``,
+  ``parallel/batch.py:53-92``). N images of one shape run in groups of G
+  (``group_size``: as many as ``GROUP_INPUT_BYTES`` of input hold;
+  ``spans``): on a CUDA device, one graph per (fn, device, image shape,
+  dtype, images in the group) holds the group's per-image launches and
+  their outputs; the images are copied from where they lie (the host, for
+  serving) straight into the graph's static input, and the batch is ⌊N/G⌋
+  replays of the G-image graph and one replay of the remainder's, each
+  group's outputs stacked out of the graph into fresh tensors (one copy,
+  as the eager loop's ``torch.stack`` is). On a CPU device each group is
+  the eager per-image loop (``eager_batch`` is the plain form of this
+  dispatch).
+
+Memory: each graph holds a pool of its own. Every graph that ``graphed`` and
+``batched`` keep is in one LRU (``held``) with its bytes (its static input
+and what the allocator reserved during its capture). After each capture the
+least recently used graphs are dropped until those kept hold at most
+``GRAPH_BYTES_BOUND`` bytes (a single graph above the bound stays alone),
+and the allocator's cache is emptied so that their pools go back to the
+card. The LRU is for one thread: serving replays from its main thread only.
 
 Launch counts (each wrapper's ``.launches``): the warm-up's launches count,
 as they run. A capture launches nothing, so the counts it added are taken
@@ -29,12 +60,17 @@ back and credited once per replay instead.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import functools
+import time
 import warnings
+import weakref
 
 import torch
 
-GRAPH_CACHE_SIZE = 4  # graphs a ``graphed`` callable keeps, least recently used evicted
+GRAPH_BYTES_BOUND = 8 << 30  # bytes of all graphs kept together (a single larger one stays)
+GROUP_INPUT_BYTES = 256 << 20  # a ``batched`` group's input bytes at most (unless it is one image)
 
 
 class CaptureError(RuntimeError):
@@ -54,13 +90,17 @@ def _counted() -> tuple:
 
 @dataclasses.dataclass
 class Captured:
-    """One captured graph: ``out`` is its static output (a tensor or a tuple
-    of tensors, rewritten by every replay), ``launches`` the launches of
-    each counted wrapper that one replay makes."""
+    """One captured graph: ``out`` is its static output (what ``fn``
+    returned, rewritten by every replay), ``launches`` the launches of
+    each counted wrapper that one replay makes, ``pool_bytes`` what the
+    allocator reserved for it during the capture, ``holds`` the tables made
+    outside the capture that it reads."""
 
     graph: torch.cuda.CUDAGraph
     out: object
     launches: dict
+    pool_bytes: int = 0
+    holds: list = dataclasses.field(default_factory=list)
 
     def replay(self) -> None:
         """Run the graph once on the current stream."""
@@ -69,37 +109,97 @@ class Captured:
             wrapper.launches += n
 
 
+_holds: list | None = None  # while a capture (its warm-up too) is underway: the tables it reads
+
+
+def capturing() -> bool:
+    """Whether a capture is underway on this thread's current stream, or
+    ``capture``'s warm-up for one."""
+    return _holds is not None or (torch.cuda.is_available()
+                                  and torch.cuda.is_current_stream_capturing())
+
+
+def device_table(maxsize: int):
+    """``functools.lru_cache(maxsize)`` for a function that makes a table on
+    a device which captured launches read by pointer: while a capture is
+    underway, the graph keeps every table it was given, so that eviction
+    from the cache cannot free a table that a graph still reads."""
+
+    def decorate(make):
+        cached = functools.lru_cache(maxsize=maxsize)(make)
+
+        @functools.wraps(make)
+        def table(*args):
+            out = cached(*args)
+            if _holds is not None:
+                _holds.append(out)
+            return out
+
+        table.cache_clear, table.cache_info = cached.cache_clear, cached.cache_info
+        return table
+
+    return decorate
+
+
+def capture_failure(fn, error: BaseException) -> BaseException:
+    """What a capture of ``fn`` raises when ``error`` ended it: an
+    allocation failure (``MemoryError``, which ``kernels.TooLarge`` is, and
+    ``torch.OutOfMemoryError``) and anything that is not an ``Exception``
+    as they are; anything else as a ``CaptureError`` naming ``fn``."""
+    if not isinstance(error, Exception) or isinstance(error, (MemoryError,
+                                                              torch.OutOfMemoryError)):
+        return error
+    return CaptureError(f"{_name(fn)} cannot be captured in a CUDA graph: {error}")
+
+
+def _fail(fn, error: BaseException):
+    failure = capture_failure(fn, error)
+    if failure is error:
+        raise error
+    raise failure from error
+
+
 def capture(fn, *args) -> Captured:
     """Capture ``fn(*args)`` (CUDA tensors, read where they lie) into a
     CUDA graph, after one warm-up call on the capture's side stream."""
+    global _holds
     device = next(a.device for a in args if isinstance(a, torch.Tensor) and a.is_cuda)
-    with torch.cuda.device(device):
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            fn(*args)  # the warm-up: builds, fills the caches, runs
-        torch.cuda.synchronize()
-        wrappers = _counted()
-        before = [w.launches for w in wrappers]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(stream):
-            graph.capture_begin()
+    outer, _holds = _holds, []
+    holds = _holds
+    try:
+        with torch.cuda.device(device):
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                fn(*args)  # the warm-up: builds, fills the caches, runs
+            torch.cuda.synchronize()
+            wrappers = _counted()
+            before = [w.launches for w in wrappers]
+            graph = torch.cuda.CUDAGraph()
+            reserved = torch.cuda.memory_reserved(device)
             try:
-                out = fn(*args)
+                with torch.cuda.stream(stream):
+                    graph.capture_begin()
+                    try:
+                        out = fn(*args)
+                    except BaseException:
+                        _abandon(graph)
+                        raise
+                    graph.capture_end()
             except BaseException as e:
-                _abandon(graph)
-                raise CaptureError(f"{_name(fn)} cannot be captured in a CUDA graph: {e}") from e
-            try:
-                graph.capture_end()
-            except RuntimeError as e:
-                raise CaptureError(f"{_name(fn)} cannot be captured in a CUDA graph: {e}") from e
-        torch.cuda.current_stream().wait_stream(stream)
-        launches = {}
-        for w, n in zip(wrappers, before):
-            if w.launches != n:
-                launches[w] = w.launches - n
-                w.launches = n  # a capture launches nothing
-    return Captured(graph, out, launches)
+                for w, n in zip(wrappers, before):
+                    w.launches = n  # nothing of the capture ran
+                _fail(fn, e)
+            torch.cuda.current_stream().wait_stream(stream)
+            launches = {}
+            for w, n in zip(wrappers, before):
+                if w.launches != n:
+                    launches[w] = w.launches - n
+                    w.launches = n  # a capture launches nothing
+            pool_bytes = torch.cuda.memory_reserved(device) - reserved
+    finally:
+        _holds = outer
+    return Captured(graph, out, launches, pool_bytes, holds)
 
 
 def _abandon(graph: torch.cuda.CUDAGraph) -> None:
@@ -127,14 +227,107 @@ def _clone(out):
     return type(out)(_clone(o) for o in out)
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
 class _Entry:
-    """A graph of ``Graphed``, its input buffer, and an event recorded after
-    its last call's clone (calls on other streams wait for it)."""
+    """A kept graph, its input buffer, and an event recorded after its last
+    call's outputs were read (calls on other streams wait for it). ``owner``
+    (a weak reference, so that a dropped cache frees its graphs at once) and
+    ``key``: the cache that holds it, so that the byte bound can drop it
+    there; ``name``: its function's; ``seconds``: its capture's, the warm-up
+    included."""
 
     static_in: torch.Tensor
     captured: Captured
+    key: tuple = ()
+    owner: weakref.ref | None = None
+    name: str = ""
+    seconds: float = 0.0
     done: torch.cuda.Event = dataclasses.field(default_factory=torch.cuda.Event)
+
+    @property
+    def nbytes(self) -> int:
+        return self.static_in.nbytes + self.captured.pool_bytes
+
+
+# id(entry) -> a weak reference to it, least recently used first: a graph
+# lives as long as the cache that owns it (a ``Graphed`` may be dropped).
+_held: collections.OrderedDict = collections.OrderedDict()
+captures_made = 0  # graphs captured and kept in this process, for reports
+
+
+def _live() -> list:
+    """The kept graphs still alive, least recently used first."""
+    for key, ref in list(_held.items()):
+        if ref() is None:
+            del _held[key]
+    return [ref() for ref in _held.values()]
+
+
+def evictions(sizes: list, bound: int) -> int:
+    """How many of the oldest graphs (``sizes``: their bytes, oldest first)
+    to drop so that the rest hold at most ``bound`` bytes; the newest always
+    stays (a pure function)."""
+    total, k = sum(sizes), 0
+    while k < len(sizes) - 1 and total > bound:
+        total -= sizes[k]
+        k += 1
+    return k
+
+
+def _keep(entry: _Entry) -> None:
+    """Count a new graph against ``GRAPH_BYTES_BOUND``, dropping the least
+    recently used ones (once their last call has finished) past it."""
+    global captures_made
+    captures_made += 1
+    _held[id(entry)] = weakref.ref(entry)
+    live = _live()
+    k = evictions([e.nbytes for e in live], GRAPH_BYTES_BOUND)
+    for old in live[:k]:
+        del _held[id(old)]
+        old.done.synchronize()
+        owner = old.owner() if old.owner is not None else None
+        if owner is not None:
+            owner.pop(old.key, None)
+    if k:
+        torch.cuda.empty_cache()  # the dropped graphs' pools go back to the card
+
+
+def _find(cache, key, make) -> _Entry:
+    """The graph kept in ``cache`` (a weakly referenceable dict) for
+    ``key``, made by ``make()`` and counted against the bound on a miss,
+    moved to the LRU's end on a hit."""
+    entry = cache.get(key)
+    if entry is None:
+        entry = cache[key] = make()
+        _keep(entry)
+    elif id(entry) in _held:
+        _held.move_to_end(id(entry))
+    return entry
+
+
+def held() -> list:
+    """The graphs kept now, least recently used first: each one's function,
+    input shape, bytes and capture seconds."""
+    return [{"fn": e.name, "input": tuple(e.static_in.shape), "bytes": e.nbytes,
+             "capture_s": e.seconds} for e in _live()]
+
+
+def _capture_entry(fn, x: torch.Tensor, key: tuple, cache, name: str) -> _Entry:
+    """A graph of ``fn`` on a copy of ``x`` made on ``x``'s device."""
+    t0 = time.perf_counter()
+    static_in = torch.empty_like(x, device=torch.cuda.current_device())
+    static_in.copy_(x)
+    return _Entry(static_in, capture(fn, static_in), key, weakref.ref(cache), name,
+                  time.perf_counter() - t0)
+
+
+def _replay(entry: _Entry, x: torch.Tensor):
+    """``x`` copied into the graph's input (after the graph's last call),
+    one replay; the static output, valid until the entry's next call."""
+    torch.cuda.current_stream().wait_event(entry.done)
+    entry.static_in.copy_(x)
+    entry.captured.replay()
+    return entry.captured.out
 
 
 class Graphed:
@@ -146,33 +339,14 @@ class Graphed:
         self.__name__ = _name(fn)
         self.__doc__ = fn.__doc__
 
-    def _lookup(self, key, make):
-        """The entry for ``key``, made by ``make()`` on a miss; past
-        ``GRAPH_CACHE_SIZE`` entries the least recently used is dropped once
-        its last call has finished."""
-        entry = self._graphs.pop(key, None)
-        if entry is None:
-            entry = make()
-            while len(self._graphs) >= GRAPH_CACHE_SIZE:
-                _, old = self._graphs.popitem(last=False)
-                old.done.synchronize()  # its memory goes back to the allocator
-        self._graphs[key] = entry
-        return entry
-
-    def _make(self, x: torch.Tensor) -> _Entry:
-        static_in = torch.empty_like(x)
-        static_in.copy_(x)
-        return _Entry(static_in, capture(self.fn, static_in))
-
     def __call__(self, x: torch.Tensor):
-        if x.device.type != "cuda":
-            return self.fn(x)
+        if x.device.type != "cuda" or capturing():
+            return self.fn(x)  # inside a capture, the outer graph captures the body
         with torch.cuda.device(x.device):
-            entry = self._lookup(graph_key(x), lambda: self._make(x))
-            torch.cuda.current_stream().wait_event(entry.done)
-            entry.static_in.copy_(x)
-            entry.captured.replay()
-            out = _clone(entry.captured.out)
+            key = graph_key(x)
+            entry = _find(self._graphs, key,
+                          lambda: _capture_entry(self.fn, x, key, self._graphs, self.__name__))
+            out = _clone(_replay(entry, x))
             entry.done.record()
         return out
 
@@ -181,3 +355,113 @@ def graphed(fn) -> Graphed:
     """``fn`` (a tensor -> a tensor or a tuple of tensors) replayed from a
     CUDA graph on a CUDA tensor, called as it is on a CPU tensor."""
     return Graphed(fn)
+
+
+def group_size(image_bytes: int) -> int:
+    """Images in one ``batched`` graph for images of ``image_bytes`` each:
+    as many as ``GROUP_INPUT_BYTES`` hold, at least 1 (10 at 4K RGB,
+    24,883,200 bytes an image; 43 at 1080p RGB)."""
+    return max(1, GROUP_INPUT_BYTES // max(1, image_bytes))
+
+
+def spans(n: int, group: int) -> list:
+    """(start, count) of each group of a batch of ``n`` images in groups of
+    ``group``: ⌊n / group⌋ groups of ``group``, then one of the rest (a
+    pure function)."""
+    if n < 0 or group < 1:
+        raise ValueError(f"spans: {n} images in groups of {group}")
+    full = n // group * group
+    return [(s, group) for s in range(0, full, group)] + ([(full, n - full)] if n > full else [])
+
+
+def _each(fn, batch: torch.Tensor) -> list:
+    """``fn`` on each image of ``batch`` in turn, eagerly: one output (a
+    tensor or a tuple of tensors) per image."""
+    return [fn(batch[i]) for i in range(batch.shape[0])]
+
+
+def _stack(outs: list, out=None, row: int = 0):
+    """Per-image outputs stacked along a new leading dimension (a tuple of
+    stacks for tuple outputs): into fresh tensors, or into rows ``row`` on
+    of ``out``."""
+    if isinstance(outs[0], tuple):
+        return tuple(_stack([o[k] for o in outs], None if out is None else out[k], row)
+                     for k in range(len(outs[0])))
+    if out is None:
+        return torch.stack(outs)
+    return torch.stack(outs, out=out[row:row + len(outs)])
+
+
+def eager_batch(fn, batch: torch.Tensor):
+    """The plain form of ``batched``: ``fn`` on each image of ``batch`` in
+    turn, eagerly, on the batch's device, the outputs stacked along a new
+    leading dimension (a tuple of stacks for tuple outputs)."""
+    return _stack(_each(fn, batch))
+
+
+def _empty_batch(one, n: int) -> object:
+    """Empty tensors for ``n`` images of the shapes, dtypes and device of
+    ``one`` (one image's output; a tuple for tuple outputs)."""
+    if isinstance(one, tuple):
+        return tuple(_empty_batch(o, n) for o in one)
+    return torch.empty((n,) + tuple(one.shape), dtype=one.dtype, device=one.device)
+
+
+# (fn, device, image shape, dtype, images) -> _Entry
+_batch_graphs: collections.OrderedDict = collections.OrderedDict()
+
+
+class Batched:
+    """``fn`` over a leading dimension (see the module's docstring)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.__name__ = f"batched({_name(fn)})"
+
+        def body(x):
+            return _each(fn, x)
+
+        body.__qualname__ = self.__name__
+        self._body = body
+
+    def _group(self, part: torch.Tensor, device: torch.device):
+        """(the graph or None, one group's per-image outputs): on a CUDA
+        device the graph's static outputs after a replay (valid until that
+        graph's next call), on a CPU device the eager loop's."""
+        if device.type != "cuda":
+            return None, _each(self.fn, part.to(device))
+        key = (self.fn, device, tuple(part.shape[1:]), part.dtype, part.shape[0])
+        entry = _find(_batch_graphs, key,
+                      lambda: _capture_entry(self._body, part, key, _batch_graphs, self.__name__))
+        return entry, _replay(entry, part)
+
+    def __call__(self, images, device):
+        """``fn`` on every image of ``images`` (uint8[N, ...]: numpy, or a
+        tensor on any device) on ``device``: its outputs stacked (a tuple of
+        stacks for tuple outputs), fresh tensors on ``device`` that no later
+        call rewrites, as a JAX executable returns fresh arrays. On a card
+        the stack is the copy out of the graph: each group's per-image
+        outputs are stacked into the fresh tensors before its graph's next
+        replay; serving downloads these (``serving._to_host``)."""
+        batch = torch.as_tensor(images)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        n, out = batch.shape[0], None
+        group = group_size(batch[0].numel() * batch.element_size())
+        with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+            for start, count in spans(n, group):
+                entry, outs = self._group(batch[start:start + count], device)
+                if out is None:
+                    out = _empty_batch(outs[0], n)
+                _stack(outs, out, start)
+                if entry is not None:
+                    entry.done.record()
+        return out
+
+
+def batched(fn) -> Batched:
+    """``fn`` (an image -> a tensor or a tuple of tensors) over a leading
+    dimension: replays of CUDA graphs over groups of images on a CUDA
+    device, the eager loop on a CPU device."""
+    return Batched(fn)

@@ -15,6 +15,8 @@ logic and are held here too; the graphs themselves run only on a card
 from __future__ import annotations
 
 import ast
+import collections
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -96,30 +98,39 @@ def test_graph_key_is_the_tensors_metadata():
     assert graphs.graph_key(view) != graphs.graph_key(view.contiguous())
 
 
-def test_graph_cache_keeps_its_stated_size():
+def test_graph_cache_keeps_its_stated_size(monkeypatch):
+    """A ``graphed`` callable's graphs count against the one byte bound of
+    every graph kept (``GRAPH_BYTES_BOUND``): past it the least recently
+    used are dropped from their cache, after their last call; a hit makes
+    nothing and moves the graph to the LRU's end."""
     class Entry:
-        def __init__(self, name):
-            self.name, self.synced = name, False
+        nbytes = 100
+
+        def __init__(self, key, owner):
+            self.key, self.owner, self.synced = key, weakref.ref(owner), False
             self.done = self
 
         def synchronize(self):
             self.synced = True
 
-    assert graphs.GRAPH_CACHE_SIZE == 4
+    assert graphs.GRAPH_BYTES_BOUND == 8 << 30
+    monkeypatch.setattr(graphs, "GRAPH_BYTES_BOUND", 4 * Entry.nbytes)
+    monkeypatch.setattr(graphs, "_held", collections.OrderedDict())
     g = graphs.graphed(lambda x: x)
     made = {}
 
     def lookup(key):
-        return g._lookup(key, lambda: made.setdefault(key, Entry(key)))
+        return graphs._find(g._graphs, key, lambda: made.setdefault(key, Entry(key, g._graphs)))
 
     for key in range(6):
-        assert lookup(key).name == key
+        assert lookup(key).key == key
     assert list(g._graphs) == [2, 3, 4, 5]
     assert made[0].synced and made[1].synced and not made[2].synced  # evicted ones waited for
-    assert lookup(3) is made[3]  # a hit makes nothing, and moves 3 to the end
-    assert list(g._graphs) == [2, 4, 5, 3]
+    assert lookup(3) is made[3] and len(made) == 6  # a hit makes nothing, and moves 3 to the end
+    assert [e.key for e in graphs._live()] == [2, 4, 5, 3]
     lookup(6)
-    assert list(g._graphs) == [4, 5, 3, 6]
+    assert sorted(g._graphs) == [3, 4, 5, 6] and made[2].synced
+    assert sum(e.nbytes for e in graphs._live()) <= graphs.GRAPH_BYTES_BOUND
 
 
 def test_every_jax_kernels_export_has_a_port_counterpart():

@@ -857,23 +857,33 @@ def test_graphed_staged_forms_on_two_streams_at_once(cuda):
             assert torch.equal(hist, want_hist[k]) and torch.equal(eager_hist, want_hist[k])
 
 
+def _uploads_a_table(x):
+    """A body that uploads from the host on every call, as ``contrast`` and
+    ``pack_bits_device`` did before their tables were cached per device."""
+    return x + torch.tensor([1], dtype=x.dtype, device=x.device)
+
+
 def test_capture_refuses_an_upload_from_the_host(cuda):
     import functools
 
     from imageprocessingtools_tpu_torch.ops.color import contrast
+    from imageprocessingtools_tpu_torch.ops.packing import pack_bits_device
+    from imageprocessingtools_tpu_torch.parallel import batch_apply
     from imageprocessingtools_tpu_torch.utils import device_loop_rate, graphs
 
-    from imageprocessingtools_tpu_torch.ops.packing import pack_bits_device
-
     gray = _image((64, 96), seed=3).to(cuda)
-    with pytest.raises(graphs.CaptureError, match="contrast"):
-        graphs.graphed(functools.partial(contrast, factor=1.5))(gray)
-    with pytest.raises(graphs.CaptureError, match="pack_bits_device"):
-        graphs.graphed(pack_bits_device)(gray & 1)  # its weights: torch.tensor(..., device=)
+    with pytest.raises(graphs.CaptureError, match="_uploads_a_table"):
+        graphs.graphed(_uploads_a_table)(gray)
+    with pytest.raises(graphs.CaptureError, match="batched\\(_uploads_a_table\\)"):
+        batch_apply(_uploads_a_table, torch.stack([gray, gray]))
     with pytest.raises(graphs.CaptureError, match="device_loop_rate"):
-        device_loop_rate(lambda x: contrast(x, 1.5), gray, iters=2, repeats=1)
-    # The card is still usable, and a capturable body still captures.
+        device_loop_rate(_uploads_a_table, gray, iters=2, repeats=1)
+    # The card is still usable, and a capturable body still captures: since
+    # their tables are made once per device, contrast and the packing too.
     assert torch.equal(graphs.graphed(core.sobel)(gray), core.sobel_plain(gray))
+    factor = functools.partial(contrast, factor=1.5)
+    assert torch.equal(graphs.graphed(factor)(gray), factor(gray))
+    assert torch.equal(graphs.graphed(pack_bits_device)(gray & 1), pack_bits_device(gray & 1))
 
 
 def test_device_loop_rate_times_the_card_for_mega(cuda):
@@ -890,24 +900,166 @@ def test_device_loop_rate_times_the_card_for_mega(cuda):
     assert 0.8 * traced_us <= loop_us <= 2.5 * traced_us, (loop_us, traced_us)
 
 
-def test_graph_cache_frees_its_graphs(cuda):
+def test_graph_cache_frees_its_graphs(cuda, monkeypatch):
+    """Six graphs of equal pixel counts under a byte bound that holds four:
+    the graphs kept stay within the bound, the memory the card holds for
+    them with it, and dropping the callable frees them all."""
+    import collections
+
     from imageprocessingtools_tpu_torch.utils import graphs
 
+    monkeypatch.setattr(graphs, "_held", collections.OrderedDict())  # other tests' graphs aside
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(cuda)
     g = graphs.graphed(fused.fused_pipeline_mega)
-    size = graphs.GRAPH_CACHE_SIZE
-    shapes = [(384 * (k + 1), 393216 // (384 * (k + 1)), 3) for k in range(size + 2)]
+    shapes = [(384 * (k + 1), 393216 // (384 * (k + 1)), 3) for k in range(6)]
     held = []
     for i, shape in enumerate(shapes):
         out = g(_image(shape, seed=i).to(cuda))
         del out
         torch.cuda.synchronize()
+        if i == 0:
+            bound = int(4.5 * next(iter(g._graphs.values())).nbytes)
+            monkeypatch.setattr(graphs, "GRAPH_BYTES_BOUND", bound)
+        kept = graphs._live()
+        assert sum(e.nbytes for e in kept) <= bound and len(kept) == len(g._graphs)
         held.append(torch.cuda.memory_allocated(cuda) - base)
-        assert len(g._graphs) == min(i + 1, size)
-    # Equal pixel counts: past the LRU's size the graphs hold as much as
-    # ``size`` of them, not one more.
-    assert all(h <= held[size - 1] * 1.05 for h in held[size:]), held
-    del g
+        assert held[-1] <= bound, (i, held)
+    assert 2 <= len(g._graphs) < len(shapes)  # the bound dropped some, not all
+    del g, kept
     torch.cuda.synchronize()
-    assert torch.cuda.memory_allocated(cuda) - base <= held[size - 1] * 0.05
+    assert torch.cuda.memory_allocated(cuda) - base <= 0.05 * bound
+
+
+# ---------------------------------------------------------------------------
+# Batched graphs (utils/graphs.py::batched): serving's and the batch module's
+# jax.jit(jax.vmap(fn)), one replay per group of images.
+# ---------------------------------------------------------------------------
+
+def _batch_tasks():
+    from imageprocessingtools_tpu_torch.pipeline import PipelineConfig
+
+    return {"edge_detect": "edge_detect", "enhance": "enhance", "print_ready": "print_ready",
+            "thumbnail": "thumbnail",
+            "fanout -gray;-w1920 -r30": (PipelineConfig(gray=True),
+                                         PipelineConfig(new_width=1920, angle=30.0)),
+            "-w1920 -r30 -mono -fv": PipelineConfig(new_width=1920, angle=30.0, mono=True,
+                                                    flip_v=True)}
+
+
+def _host_batch(n, shape, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, size=(n,) + shape, dtype=np.uint8)
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("shape", [(2160, 3840, 3), (1080, 1920, 3)])
+@pytest.mark.parametrize("task", list(_batch_tasks()))
+def test_batched_graphs_equal_the_eager_loop(cuda, task, shape):
+    """G + 1 images (G is 10 at 4K, 43 at 1080p): a replay of the G-image
+    graph, then one of the 1-image remainder's, byte-equal to the eager loop."""
+    from imageprocessingtools_tpu_torch import serving
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    one, _ = serving._task_fn(_batch_tasks()[task])
+    group = graphs.group_size(int(np.prod(shape)))
+    assert group == {(2160, 3840, 3): 10, (1080, 1920, 3): 43}[shape]
+    imgs = _host_batch(group + 1, shape, seed=60)
+    run = graphs.batched(one)
+    got = _as_tuple(run(imgs, cuda))
+    want = _as_tuple(graphs.eager_batch(one, torch.from_numpy(imgs).to(cuda)))
+    keys = [k for k in graphs._batch_graphs if k[0] is one and k[2] == shape]
+    assert sorted(k[4] for k in keys) == [1, group]
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g, w)
+
+
+def test_batched_graphs_leave_the_first_chunks_outputs_alone(cuda):
+    from imageprocessingtools_tpu_torch import serving
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    one, _ = serving._task_fn("enhance")
+    run = graphs.batched(one)
+    chunks = [_host_batch(2, (1080, 1920, 3), seed=s) for s in (61, 62)]
+    first = run(chunks[0], cuda)
+    kept = first.clone()
+    second = run(chunks[1], cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(first, kept) and not torch.equal(first, second)
+    static = graphs._batch_graphs[(one, first.device, (1080, 1920, 3), torch.uint8, 2)]
+    assert len(static.captured.out) == 2  # the graph keeps each image's output, not a stack
+    assert all(not (first.data_ptr() <= o.data_ptr() < first.data_ptr() + first.nbytes)
+               for o in static.captured.out)
+    assert torch.equal(second, graphs.eager_batch(one, torch.from_numpy(chunks[1]).to(cuda)))
+
+
+@pytest.mark.parametrize("task", ["print_ready", "fanout -gray;-w1920 -r30"])
+def test_batched_mesh_shards_equal_the_one_device_run(cuda, task):
+    from imageprocessingtools_tpu_torch import serving
+    from imageprocessingtools_tpu_torch.parallel.batch import batch_apply, gather
+
+    config = _batch_tasks()[task]
+    one, _ = serving._task_fn(config)
+    card = torch.device("cuda", torch.cuda.current_device())
+    imgs = _host_batch(5, (1080, 1920, 3), seed=63)
+    whole = _as_tuple(batch_apply(one, imgs))
+    shards = batch_apply(one, np.concatenate([imgs, imgs[-1:]]), mesh=(card, card))
+    for k, joined in enumerate(_as_tuple(gather(shards, card))):
+        assert torch.equal(joined[:5], whole[k])
+    padded, _ = serving.process_batch(imgs, config, mesh=(card,) * 3)  # 5 images, 2 padded
+    host = serving._to_host(padded)
+    for k, (joined, h) in enumerate(zip(_as_tuple(gather(padded, card)), _as_tuple(host))):
+        assert torch.equal(joined, whole[k]) and np.array_equal(h, whole[k].cpu().numpy())
+
+
+def test_batch_apply_over_a_graphed_alias(cuda):
+    """A ``graphed`` callable inside a batch's capture runs its body, which
+    the batch's graph captures (as a jitted function inlines under
+    ``jax.jit``): no graph of its own, and the bytes of the eager forms."""
+    from imageprocessingtools_tpu_torch import kernels
+    from imageprocessingtools_tpu_torch.parallel.batch import batch_apply
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    alias = kernels.fused_gray_gauss_histeq
+    imgs = _host_batch(3, (540, 960, 3), seed=65)
+    own = set(alias._graphs)
+    got = batch_apply(alias, imgs)
+    assert set(alias._graphs) == own and graphs._holds is None
+    want = torch.stack([fused.fused_pipeline_mega(torch.from_numpy(i).to(cuda)) for i in imgs])
+    assert torch.equal(got, want)
+    assert torch.equal(batch_apply(alias, imgs[::-1].copy()), want.flip(0))
+
+
+def test_an_out_of_memory_error_in_a_capture_reaches_serves_surface(cuda, tmp_path,
+                                                                     monkeypatch, capsys):
+    """The card's allocator refuses every new segment once a capture has
+    begun (a per-process memory fraction at what is reserved), so the graph's
+    pool cannot be made: ``serve`` prints the C's allocation message and
+    exits 255, as for an out-of-memory error outside a capture."""
+    from imageprocessingtools_tpu_torch import serve
+    from imageprocessingtools_tpu_torch.codec import ppm
+    from imageprocessingtools_tpu_torch.ops import _exact
+
+    path = str(tmp_path / "frame.ppm")
+    ppm.write_ppm(path, _host_batch(1, (720, 1296, 3), seed=64)[0])  # a shape no test captured
+    card = torch.device("cuda", torch.cuda.current_device())
+    real = torch.cuda.CUDAGraph.capture_begin
+    total = torch.cuda.get_device_properties(card).total_memory
+
+    def capture_begin(self, *args, **kwargs):
+        torch.cuda.set_per_process_memory_fraction(
+            torch.cuda.memory_reserved(card) / total, card)
+        return real(self, *args, **kwargs)
+
+    torch.cuda.empty_cache()
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", capture_begin)
+    try:
+        rc = serve.main(["--preset", "enhance", path])
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, card)
+    assert (rc, capsys.readouterr().out) == (255, _exact.B9_MESSAGE)
+    monkeypatch.undo()
+    assert serve.main(["--preset", "enhance", path]) == 0  # the card still serves
