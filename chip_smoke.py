@@ -55,20 +55,33 @@ in order, printing one line per phase:
    them beside another checkout's);
 7. spatial and mesh (``parallel/spatial.py``): on a 4K noise image, with a
    mesh that names the card four times (four row bands), the fused pipeline,
-   the four presets, ``-w1920 -r30 -mono -fv`` and ``-r90``, each byte-equal
-   to the unsharded path on the card and to the plain path on the CPU (K1
-   runs in its band form there); the band and unsharded forms of the fused
-   pipeline and of edge_detect timed side by side (ms per call, and device
-   us from ``torch.profiler`` traces; the unsharded fused pipeline, which is
-   the flagship mega, is traced by ``utils.profiling.trace_to`` with 20 calls
-   in an ``annotate`` region, read with ``profile_device.device_events``, and
-   the trace must hold the region and 20 times one call's device events, or
-   the run fails); then ``serve --mesh`` and ``serve
-   --spatial`` over phase 6's files (``--mesh`` replaying the card's graphs),
-   byte-equal to phase 6's outputs. Where
-   torch sees more than one card, the spatial paths and a batch also run
-   over a mesh of every card (copies between cards); otherwise the line
-   says that they were not exercised;
+   the four presets, ``-w1920 -r30 -mono -fv``, ``-r90``, ``-w1920``,
+   ``-r30`` and ``-r180``, each one CUDA graph (the band pipelines' compiled
+   form, the JAX package's ``jax.jit(shard_map(...))``), byte-equal to the
+   unsharded path on the card and (the fused pipeline, the presets, the
+   first two configs) to the plain path on the CPU (K1 runs in its band
+   form there); each of these in 1 and 4 bands compiled and eager (the bands
+   views of the input), byte-equal to each other and to the unsharded path,
+   with ms per call of both (CUDA events); the fused pipeline and
+   edge_detect in 4 bands traced eager, compiled and eager over bands that
+   are separate copies (device us, and of it the window joins,
+   ``torch.cat``'s kernels) beside the unsharded form (the flagship mega is
+   traced by ``utils.profiling.trace_to`` with 20 calls in an ``annotate``
+   region, read with ``profile_device.device_events``, and the trace must
+   hold the region and 20 times one call's device events, or the run
+   fails); the band graphs' bytes and capture seconds; uint8[16384, 16384,
+   3] of numpy noise, the fused pipeline and edge_detect compiled in 4
+   bands against the unsharded compiled path (``kernels.fused_gray_gauss_
+   histeq_pallas_mega``, ``graphs.graphed`` of the preset), with ms per
+   call and graph bytes, and ``serve --spatial``'s fan-out of the presets
+   against its eager band form; then ``serve --mesh`` and ``serve
+   --spatial`` over phase 6's files (``--mesh`` replaying the card's
+   graphs), and ``serve --spatial`` again, which must capture nothing, all
+   byte-equal to phase 6's outputs, with the graphs kept against
+   ``graphs.GRAPH_BYTES_BOUND``. Where torch sees more than one card, the
+   spatial paths (eager there) and a batch also run over a mesh of every
+   card (copies between cards); otherwise the line says that they were not
+   exercised;
 8. images of 2^31 bytes and more, made on the card from a seeded
    ``torch.Generator``: K1 (30 degrees), K2 and K6 on uint8[27000, 27000, 3],
    K5 and K7 (Sobel) on uint8[46341, 46341], each one launch; output rows
@@ -271,21 +284,32 @@ def max_abs_err(torch, a, b) -> int:
 
 SPATIAL_CONFIGS = {"-w1920 -r30 -mono -fv": dict(new_width=1920, angle=30.0, mono=True,
                                                    flip_v=True),
-                   "-r90": dict(angle=90.0)}
+                   "-r90": dict(angle=90.0), "-w1920": dict(new_width=1920),
+                   "-r30": dict(angle=30.0), "-r180": dict(angle=180.0)}
+PLAIN_CONFIGS = ("-w1920 -r30 -mono -fv", "-r90")  # also held to the plain path on the cpu
+GIANT = (16384, 16384, 3)  # 805,306,368 bytes
+
+
+def joins_us(split: dict) -> float:
+    """The device us of a trace's window joins (``torch.cat``'s kernels)."""
+    return sum(us for name, us in split.items() if "Cat" in name)
 
 
 def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files, bad,
             fanout_flags, n_good, plain_presets, trace_dir) -> tuple[list[str], tuple, tuple]:
     """Spatial and mesh: the band paths on a mesh that names the card four
-    times, then ``serve --mesh`` and ``serve --spatial`` over phase 6's
-    files. Returns the lines to print, and the traces (device us per call,
-    events) of the flagship mega, eager and compiled."""
+    times (compiled: one CUDA graph each), the compiled band forms against
+    the eager ones in 1 and 4 bands, their device us and joins, a giant
+    image, then ``serve --mesh`` and ``serve --spatial`` (twice) over phase
+    6's files. Returns the lines to print, and the traces (device us per
+    call, events) of the flagship mega, eager and compiled."""
     from imageprocessingtools_tpu_torch import parallel
     from imageprocessingtools_tpu_torch.kernels import core, fused
     from imageprocessingtools_tpu_torch.models import PRESETS as PRESET_FNS
     from imageprocessingtools_tpu_torch.parallel import spatial
     from imageprocessingtools_tpu_torch.pipeline import PipelineConfig, run_pipeline
-    from imageprocessingtools_tpu_torch.profile_device import device_us_per_call
+    from imageprocessingtools_tpu_torch.profile_device import device_split, device_us_per_call
+    from imageprocessingtools_tpu_torch.utils import graphs
 
     card0 = torch.device("cuda", torch.cuda.current_device())
     mesh4 = (card0,) * 4
@@ -293,6 +317,8 @@ def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files,
     labels = ["fused", *PRESETS.split(","), *configs]
 
     def banded(label, src, mesh):
+        """The band form through the public functions: compiled for an
+        image on a one-card mesh, eager for bands."""
         if label == "fused":
             return spatial.fused_pipeline_spatial(src, mesh)
         if label in configs:
@@ -308,14 +334,19 @@ def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files,
 
     host = image((H4K, W4K, 3), seed=80)
     outs = {}
-    # Four bands each: fused K6, K4, K3; edge_detect K6, Sobel; enhance K8, K4,
-    # K3, sharpen; print_ready K8, K4, K3; thumbnail and -w1920 two K9 passes
-    # of four launches; -r30 K1 in its band form, four launches.
+    captures = graphs.captures_made
+    # Four bands each, one graph each (its warm-up and one replay): fused K6,
+    # K4, K3; edge_detect K6, Sobel; enhance K8, K4, K3, sharpen; print_ready
+    # K8, K4, K3; thumbnail, -w1920 and -w1920 -r30 two K9 passes of four
+    # launches; -r30 K1 in its band form, four launches, and four more.
     path_counts["spatial"] = drive(
         "phase 7 spatial",
         {"gray_gauss": 8, "sobel": 4, "sharpen": 4, "fused_elementwise": 8, "histogram": 12,
-         "lut_apply": 12, "resize_pass": 16, "rotate": 4},
+         "lut_apply": 12, "resize_pass": 24, "rotate": 8},
         lambda: outs.update({label: banded(label, host, mesh4) for label in labels}))
+    if graphs.captures_made - captures != len(labels):
+        fail(f"phase 7 spatial captured {graphs.captures_made - captures} graphs, not one per "
+             f"band path ({len(labels)})")
     src = torch.from_numpy(host).to(dev)
     expected = {}
     for label in labels:
@@ -327,43 +358,145 @@ def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files,
         if not torch.equal(got, expected[label]):
             fail(f"spatial {label} differs from the unsharded path on the card by "
                  f"{max_abs_err(torch, got, expected[label])}")
+        if label in configs and label not in PLAIN_CONFIGS:
+            continue
         with ipt_device("cpu"):
             plain = unsharded(label, torch.from_numpy(host))
         if not torch.equal(got.cpu(), plain):
             fail(f"spatial {label} differs from the plain path on the cpu")
     n_bands = {label: len(outs[label]) for label in labels}
+    del outs
     lines = [f"phase 7 spatial: {', '.join(labels)} on {H4K}x{W4K} in bands {n_bands} over a mesh "
-             f"of the card x4, byte-equal to the unsharded path on the card and to the plain "
-             f"path on the cpu"]
+             f"of the card x4, one CUDA graph each, byte-equal to the unsharded path on the card "
+             f"and (all but {', '.join(c for c in configs if c not in PLAIN_CONFIGS)}) to the "
+             f"plain path on the cpu"]
 
-    # Band and unsharded forms side by side, input on the card.
-    timed = {"fused": (lambda: spatial.fused_pipeline_spatial(src, mesh4),
-                       lambda: fused.fused_pipeline_mega(src)),
-             "edge_detect": (lambda: spatial.preset_pipeline_spatial(src, "edge_detect", mesh4),
-                             lambda: core.sobel(core.gray_gauss(src)))}
+    # The compiled band forms against the eager ones (the bands given as
+    # views of the input on the card) in 1 and 4 bands, byte-equal to each
+    # other and to the unsharded path; ms per call of both.
+    form_ms = {}
+    for n in (1, 4):
+        mesh = (card0,) * n
+        for label in labels:
+            def compiled(label=label, mesh=mesh):
+                return banded(label, src, mesh)
+
+            def eager(label=label, mesh=mesh):
+                return banded(label, spatial.shard_rows(src, mesh), mesh)
+
+            c, e = (spatial.gather(f(), card0) for f in (compiled, eager))
+            if not (torch.equal(c, e) and torch.equal(c, expected[label])):
+                fail(f"spatial {label} in {n} bands: compiled, eager and unsharded differ "
+                     f"({max_abs_err(torch, c, e)}, {max_abs_err(torch, c, expected[label])})")
+            del c, e
+            task = configs.get(label, label)
+            entry = spatial._band_graphs[spatial.graph_key(task, src.shape, src.dtype, mesh)]
+            form_ms[label, n] = (median_ms(torch, eager), median_ms(torch, compiled),
+                                 median_ms(torch, entry.captured.replay))
+    lines.append(f"phase 7 band forms, ms per call eager / compiled / the replay alone (CUDA "
+                 f"events around {REPS} calls, median of 5, input on the card; compiled: the "
+                 f"copy-in and the outputs' clone included) in 1 and 4 bands, {H4K}x{W4K} on "
+                 f"{card}, compiled and eager byte-equal to each other and to the unsharded "
+                 f"path: " + "; ".join(
+                     f"{label} " + ", ".join(f"{n} " + " / ".join(
+                         f"{t:.4f}" for t in form_ms[label, n]) for n in (1, 4))
+                     for label in labels))
+
     # The run's only traces, taken within seconds of each other: a trace
     # taken long after the process's first one loses device events at its
-    # start. The unsharded fused pipeline is the flagship mega: it is traced
+    # start. Four bands: eager (the bands views of one input), compiled, and
+    # eager over bands that are separate copies (each window then joined by
+    # torch.cat, as before bands were views); the unsharded form beside
+    # them. The unsharded fused pipeline is the flagship mega: it is traced
     # with utils.profiling (trace_to, an annotate region).
+    timed = {"fused": lambda: fused.fused_pipeline_mega(src),
+             "edge_detect": lambda: core.sobel(core.gray_gauss(src))}
+    copies = [spatial.Band(b.row0, b.data.clone()) for b in spatial.shard_rows(src, mesh4)]
     parts = []
-    for label, (band_fn, one_fn) in timed.items():
-        ms = (median_ms(torch, band_fn), median_ms(torch, one_fn))
+    for label, one_fn in timed.items():
         # A trace that still lost events after profile_device's retries stops the run.
-        band_us = device_us_per_call(f"spatial {label}", band_fn)
+        split = {
+            "eager": device_split(f"spatial {label} eager",
+                                  lambda: banded(label, spatial.shard_rows(src, mesh4), mesh4)),
+            "compiled": device_split(f"spatial {label} compiled",
+                                     lambda: banded(label, src, mesh4)),
+            "copies": device_split(f"spatial {label} eager over copies",
+                                   lambda: banded(label, copies, mesh4)),
+        }
         if label == "fused":
             mega_trace = traced_us(torch, "chip_smoke: flagship mega", one_fn, REPS, trace_dir)
             graph_trace = traced_us(torch, "chip_smoke: flagship mega compiled",
                                     lambda: fused.fused_gray_gauss_histeq_pallas_mega(src),
                                     REPS, trace_dir)
-            us = (band_us, mega_trace[0])
+            one_us = mega_trace[0]
         else:
-            us = (band_us, device_us_per_call(label, one_fn))
-        parts.append(f"{label} ms per call {ms[0]:.4f} / {ms[1]:.4f}, "
-                     f"device us {us[0]:.2f} / {us[1]:.2f}")
-    lines.append(f"phase 7 times, 4 bands / unsharded, {H4K}x{W4K} on {card}: " + "; ".join(parts))
+            one_us = device_us_per_call(label, one_fn)
+        us = {form: sum(s.values()) for form, s in split.items()}
+        more = {name[:40]: t - split["eager"].get(name, 0.0) for name, t in
+                split["compiled"].items() if t - split["eager"].get(name, 0.0) > 0.5}
+        parts.append(f"{label} device us eager {us['eager']:.2f} (joins "
+                     f"{joins_us(split['eager']):.2f}), compiled {us['compiled']:.2f} (joins "
+                     f"{joins_us(split['compiled']):.2f}; more than eager: " + ", ".join(
+                         f"{name} {t:.2f}" for name, t in sorted(more.items(),
+                                                                 key=lambda kv: -kv[1]))
+                     + f"), eager over separate copies {us['copies']:.2f} (joins "
+                     f"{joins_us(split['copies']):.2f}), unsharded {one_us:.2f}")
+    del copies
+    lines.append(f"phase 7 times, 4 bands, {H4K}x{W4K} on {card} (profile_device, {REPS} calls): "
+                 + "; ".join(parts))
+    kept = [k for k in graphs.held() if k["fn"].startswith("spatial ")]
+    lines.append(f"phase 7 band graphs on {card}: {graphs.captures_made - captures} captured, "
+                 f"{len(kept)} kept: " + ", ".join(
+                     f"{k['fn']} {'x'.join(map(str, k['input']))} {k['bytes']} B in "
+                     f"{k['capture_s']:.3f} s" for k in kept))
+    del src
+
+    # One giant image: fused and edge_detect compiled in 4 bands against the
+    # unsharded compiled path on the card; serve --spatial's fan-out of the
+    # four presets (P4 packed) in one band against its eager band form.
+    giant = torch.from_numpy(image(GIANT, seed=82)).to(dev)
+    edge_graphed = graphs.graphed(PRESET_FNS["edge_detect"])
+    giant_parts = []
+    for label, one_fn in (("fused", fused.fused_gray_gauss_histeq_pallas_mega),
+                          ("edge_detect", edge_graphed)):
+        got = spatial.gather(banded(label, giant, mesh4), card0)
+        band_entry = spatial._band_graphs[spatial.graph_key(label, GIANT, torch.uint8, mesh4)]
+        want = one_fn(giant)
+        one_entry = one_fn._graphs[graphs.graph_key(giant)]
+        if not torch.equal(got, want):
+            fail(f"giant {label} in 4 bands differs from the unsharded compiled path by "
+                 f"{max_abs_err(torch, got, want)}")
+        del got, want
+        ms = (median_ms(torch, lambda: banded(label, giant, mesh4), repeats=3),
+              median_ms(torch, lambda: one_fn(giant), repeats=3))
+        giant_parts.append(f"{label} ms per call 4 bands {ms[0]:.4f} / unsharded {ms[1]:.4f}, "
+                           f"graph bytes {band_entry.nbytes} / {one_entry.nbytes}, captured in "
+                           f"{band_entry.seconds:.3f} / {one_entry.seconds:.3f} s")
+    del edge_graphed
+    fan = tuple(PRESETS.split(","))
+    pack = tuple(name == "print_ready" for name in fan)
+    with spatial.band_outputs(fan, giant, (card0,), pack) as (got, _):
+        got = [spatial.gather(bands, card0) for bands in got]
+    fan_entry = spatial._band_graphs[spatial.graph_key(fan, GIANT, torch.uint8, (card0,), pack)]
+    n_kept = len(graphs.held())
+    if fan_entry.nbytes > graphs.GRAPH_BYTES_BOUND and n_kept != 1:
+        fail(f"a graph of {fan_entry.nbytes} bytes, above the bound, is kept beside {n_kept - 1}")
+    with spatial.band_outputs(fan, spatial.shard_rows(giant, (card0,)), (card0,), pack) as (
+            eager, _):
+        for name, g, bands in zip(fan, got, eager):
+            if not torch.equal(g, spatial.gather(bands, card0)):
+                fail(f"giant serve --spatial fan-out: {name} differs from the eager band form")
+    del got, eager, giant
+    torch.cuda.empty_cache()
+    lines.append(f"phase 7 giant uint8[{', '.join(map(str, GIANT))}] on {card}, byte-equal, "
+                 f"compiled (CUDA events around {REPS} calls, median of 3, input on the card): "
+                 + "; ".join(giant_parts) + f"; serve --spatial's fan-out of the presets in one "
+                 f"band (P4 packed) {fan_entry.nbytes} B captured in {fan_entry.seconds:.3f} s, "
+                 f"graphs kept with it {n_kept - 1}, byte-equal to its eager band form")
 
     # serve --mesh and serve --spatial over phase 6's files (one band and one
-    # shard per card), byte-equal to phase 6's outputs.
+    # shard per card), byte-equal to phase 6's outputs; then serve --spatial
+    # again in the same process, which replays the graphs of the first.
     def moved_serving():
         for mode in ("--mesh", "--spatial"):
             sfx = "." + mode[2:]
@@ -378,24 +511,44 @@ def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files,
          "fused_elementwise": 2 * (2 * n_good + 8), "histogram": 4 * n_good,
          "lut_apply": 4 * n_good, "rotate": 16, "resize_pass": 2 * (2 * n_good + 2 * 8)},
         moved_serving)
+    captures = graphs.captures_made
+    serve_run("--spatial presets again",
+              ["--spatial", "--preset", PRESETS, "--skip-bad", "--suffix", ".again", *files, bad])
+    serve_run("--spatial fanout again",
+              ["--spatial", "--fanout", fanout_flags, "--suffix", ".again", *files[:8]])
+    if graphs.captures_made != captures:
+        fail(f"the second serve --spatial captured {graphs.captures_made - captures} graphs")
     n_equal = 0
     for i, path in enumerate(files):
         for tag in list(plain_presets)[:4] + (["gray", "w1920-r30"] if i < 8 else []):
             with open(f"{path}.{tag}.out", "rb") as f:
                 want = f.read()
-            for mode in ("mesh", "spatial"):
+            for mode in ("mesh", "spatial", "again"):
                 with open(f"{path}.{tag}.{mode}", "rb") as f:
                     if f.read() != want:
                         fail(f"serve --{mode} {path}.{tag} differs from phase 6's output")
                 n_equal += 1
-    if os.path.exists(bad + ".edge_detect.spatial"):
-        fail("serve --spatial wrote an output for the truncated file")
-    lines.append(f"phase 7 serving: --mesh and --spatial wrote {n_equal} outputs byte-equal to "
-                 f"phase 6's; wall on {card}: " + ", ".join(
+    for sfx in ("spatial", "again"):
+        if os.path.exists(f"{bad}.edge_detect.{sfx}"):
+            fail("serve --spatial wrote an output for the truncated file")
+    kept = graphs.held()
+    total = sum(k["bytes"] for k in kept)
+    if total > graphs.GRAPH_BYTES_BOUND and len(kept) > 1:
+        fail(f"{len(kept)} graphs hold {total} bytes, above the bound "
+             f"{graphs.GRAPH_BYTES_BOUND}")
+    served = [k for k in kept if k["fn"].startswith("spatial ") and k["input"][0] in (H4K, 1080)
+              and k["fn"].count(";")]
+    lines.append(f"phase 7 serving: --mesh, --spatial and --spatial again wrote {n_equal} "
+                 f"outputs byte-equal to phase 6's; the second --spatial captured nothing; "
+                 f"graphs kept {len(kept)}, {total} bytes of the bound's "
+                 f"{graphs.GRAPH_BYTES_BOUND}, --spatial's: " + ", ".join(
+                     f"{k['fn']} {'x'.join(map(str, k['input']))} {k['bytes']} B in "
+                     f"{k['capture_s']:.3f} s" for k in served)
+                 + f"; wall on {card}: " + ", ".join(
                      f"{label} {wall:.3f} s" for label, (wall, _) in serve_walls.items()
                      if label.startswith("--")))
 
-    # Every card torch sees, where there are several.
+    # Every card torch sees, where there are several: the eager band paths.
     if torch.cuda.device_count() > 1:
         every = parallel.default_mesh()
         for label in labels:

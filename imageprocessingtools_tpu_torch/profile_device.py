@@ -26,7 +26,8 @@ It prints the card's name and power limit, then one JSON object per line:
   beside the ``torch.stack`` and ``torch.roll`` form it replaces; the fused
   pipeline, edge_detect, K1 at 30 degrees and K9 at 4K -> 1920 in four row
   bands on the card (``parallel/spatial.py``, input on the card, cases
-  "spatial ..."). Back-to-back calls on one 4K
+  "spatial ...": one replay of a band graph each, and the fused pipeline
+  and edge_detect also eager). Back-to-back calls on one 4K
   input find it in the 50 MB L2 cache, so K1, K2, K6 and K8 are also profiled
   over four noise inputs in turn (seeds 1-4, 100 MB), and K4, K5 and K7's
   three instances over their four grays in turn (33 MB; with K5's and K7's
@@ -202,12 +203,19 @@ def profile_kernels(dev, words=()) -> None:
         "K9 resize_width 1080p -> 3840, RGB": lambda: resize_width(img_1080, 3840),
         "K9 resize_width 4K -> 1920, gray": lambda: resize_width(gray, 1920),
         "dense resize_width_dense 4K -> 1920, RGB": lambda: resize_width_dense(img, 1920),
+        # One replay of a band graph each (a one-card mesh), the input's
+        # copy-in and the outputs' clone included; then the eager band form
+        # (the bands given as views of the input).
         "spatial fused, 4 bands": lambda: spatial.fused_pipeline_spatial(img, mesh4),
         "spatial edge_detect, 4 bands":
             lambda: spatial.preset_pipeline_spatial(img, "edge_detect", mesh4),
         "spatial K1 rotate 30, RGB, 4 bands": lambda: spatial.rotate_spatial(img, 30.0, mesh4),
         "spatial K9 resize_width 4K -> 1920, RGB, 4 bands":
             lambda: spatial.resize_width_spatial(img, 1920, mesh4),
+        "spatial fused, 4 bands, eager":
+            lambda: spatial.fused_pipeline_spatial(spatial.shard_rows(img, mesh4), mesh4),
+        "spatial edge_detect, 4 bands, eager": lambda: spatial.preset_pipeline_spatial(
+            spatial.shard_rows(img, mesh4), "edge_detect", mesh4),
     }
     for label, fn in cases.items():
         if words and not any(word in label for word in words):
@@ -240,12 +248,21 @@ def _complete_trace(label: str, fn) -> list[dict]:
                      f"(name: [found, wanted]): {json.dumps(lost)}")
 
 
-def device_us_per_call(label: str, fn) -> float:
-    """Device us per call of ``fn``: the device events of ``REPS`` profiled
-    calls (a complete trace, ``_complete_trace``) summed, over ``REPS``."""
+def device_split(label: str, fn) -> dict[str, float]:
+    """Device us per call of ``fn`` by event name: the device events of
+    ``REPS`` profiled calls (a complete trace, ``_complete_trace``), after a
+    warm-up call, summed per name over ``REPS``."""
     fn()
     torch.cuda.synchronize()
-    return sum(e["dur"] for e in _complete_trace(label, fn)) / REPS
+    split = collections.Counter()
+    for e in _complete_trace(label, fn):
+        split[e["name"]] += e["dur"] / REPS
+    return dict(split)
+
+
+def device_us_per_call(label: str, fn) -> float:
+    """Device us per call of ``fn``: its ``device_split`` summed."""
+    return sum(device_split(label, fn).values())
 
 
 def profile_serving(tmp: str) -> None:

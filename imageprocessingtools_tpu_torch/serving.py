@@ -21,7 +21,8 @@ so one chunk's graphs are found again by the next chunk of that shape.
 
 ``process_file_spatial`` takes one giant image in row bands over a mesh
 (``parallel/spatial.py``), decoded once and uploaded once for every fan-out
-element.
+element: on one card one replay per file of one CUDA graph of the whole
+task, the counterpart of the JAX package's jitted band pipelines.
 
 Not ported: the strict-rotation branches, since the port's rotation is exact
 and needs no audit.
@@ -202,25 +203,22 @@ def process_batch(images, config: PipelineConfig | str | tuple, mesh: tuple | No
     return shards, file_type
 
 
-def _spatial_task(item):
-    """(fn(bands, mesh) -> bands, file_type) for one element of a spatial
-    run: ``"fused"``, a preset name or a PipelineConfig."""
-    if item == "fused":
-        return spatial.fused_pipeline_spatial, FILETYPE_PGM
+def _spatial_file_type(item) -> int:
+    """The file type of one element of a spatial run: ``"fused"``, a preset
+    name or a PipelineConfig."""
+    if isinstance(item, str) and item == "fused":
+        return FILETYPE_PGM
     if isinstance(item, str):
         get_preset(item)  # raises ValueError for unknown names
-        return (lambda bands, mesh: spatial.preset_pipeline_spatial(bands, item, mesh),
-                PRESET_FILE_TYPES[item])
-    return (lambda bands, mesh: spatial.run_pipeline_spatial(bands, item, mesh),
-            item.file_type)
+        return PRESET_FILE_TYPES[item]
+    return item.file_type
 
 
-def _write_bands(out_path: str, bands: list, file_type: int, max_color: int) -> None:
-    """Encode one image held in bands: P4 bits packed per band on its
-    device, the bands joined on the host, written by the native encoder."""
-    width = bands[0].data.shape[1]
-    if file_type == FILETYPE_PBM:
-        bands = [spatial.Band(b.row0, pack_bits_device(b.data)) for b in bands]
+def _write_bands(out_path: str, bands: list, file_type: int, max_color: int,
+                 width: int) -> None:
+    """Encode one image held in bands (P4 rows already packed, of ``width``
+    pixels): the bands downloaded and joined on the host, written by the
+    native encoder."""
     out = spatial.gather(bands).numpy()
     native.encode_batch_files(
         [out_path], out[None], file_type, [max_color],
@@ -234,29 +232,36 @@ def process_file_spatial(path: str, config, mesh: tuple | None = None,
     ``config`` is a PipelineConfig (the reference's pipeline), ``"fused"``
     (gray -> 5x5 Gaussian -> histogram equalization, written as P5), a
     preset name, or a tuple of these (fan-out): the file is decoded once and
-    its bands uploaded once for every element, each written to
+    every element runs on that one copy, each written to
     ``<path>.<tag><suffix>`` (`config_tag`). ``mesh`` defaults to
     ``parallel.batch.default_mesh()``. Writes ``<path><suffix>`` and
     returns its path, or the list of paths for a fan-out.
+
+    The whole task is one band pipeline (``spatial.band_outputs``), with P4
+    outputs packed on the device inside it: on a one-card mesh one replay
+    of one CUDA graph per file (the first file of a shape captures it), the
+    decoded image copied from the host straight into the graph's input, and
+    the graph's static outputs downloaded before its next replay; over
+    several cards, or on the CPU, the eager band pipeline.
     """
     if mesh is None:
         mesh = default_mesh()
     items = config if isinstance(config, tuple) else (config,)
-    if isinstance(config, tuple):
-        tags = [config_tag(it) for it in items]  # validates B2 per element
-        if len(set(tags)) != len(tags):
-            raise ValueError(f"duplicate fan-out outputs: {sorted(tags)}")
-        names = ["." + t + suffix for t in tags]
-    else:
-        names = [suffix]
-    tasks = [_spatial_task(it) for it in items]
+    tags = [config_tag(it) for it in items]  # validates B2 per element
+    if len(set(tags)) != len(tags):
+        raise ValueError(f"duplicate fan-out outputs: {sorted(tags)}")
+    names = ["." + t + suffix for t in tags] if isinstance(config, tuple) else [suffix]
+    file_types = [_spatial_file_type(it) for it in items]
+    pack = tuple(ft == FILETYPE_PBM for ft in file_types)
     with open(path, "rb") as f:
         img, max_color = ppm.decode_ppm(f.read())
-    bands = spatial.shard_rows(img, mesh)
-    out_paths = []
-    for name, (fn, file_type) in zip(names, tasks):
-        out_paths.append(path + name)
-        _write_bands(out_paths[-1], fn(bands, mesh), file_type, max_color)
+    h, w = img.shape[:2]
+    out_paths = [path + name for name in names]
+    with spatial.band_outputs(config, img, mesh, pack) as (outs, _):
+        for out_path, item, bands, file_type in zip(
+                out_paths, items, outs if isinstance(config, tuple) else (outs,), file_types):
+            width = _task_unpacked_shape(item, h, w)[1] if file_type == FILETYPE_PBM else 0
+            _write_bands(out_path, bands, file_type, max_color, width)
     return out_paths if isinstance(config, tuple) else out_paths[0]
 
 

@@ -21,11 +21,15 @@ CUDA graphs their captures), it runs ``--repeats`` times, on the host clock:
   ``process_batch`` (upload and device), ``_to_host`` (download) and
   ``_encode_chunk`` (encode), each synchronised;
 - the same presets and the fan-out ``-gray;-w1920 -r30`` with the reader
-  and writer threads (walls only).
+  and writer threads (walls only);
+- the same presets and fan-out with ``--spatial`` (each file one image in
+  row bands over the card; walls only).
 
 Then, per preset and for the fan-out, ms per chunk of the eight 4K images
-with the input already on the card, through ``parallel.batch.batch_apply``
-(CUDA events around 20 calls, median of 3). Each turn prints one JSON line,
+with the input already on the card, through ``parallel.batch.batch_apply``,
+and ms per call of the fused pipeline and edge_detect on the first 4K image
+on the card in four row bands of that card (``parallel/spatial.py``), each
+CUDA events around 20 calls, median of 3. Each turn prints one JSON line,
 with the sha256 of every output file it wrote; the last line gives each
 checkout's medians and fails (exit 1) if two turns wrote different bytes.
 """
@@ -69,6 +73,7 @@ def turn(root: str, folder: str, repeats: int) -> dict:
     import torch
 
     from imageprocessingtools_tpu_torch import serve, serving
+    from imageprocessingtools_tpu_torch.parallel import spatial
     from imageprocessingtools_tpu_torch.parallel.batch import batch_apply
     from imageprocessingtools_tpu_torch.pipeline import PipelineConfig
 
@@ -89,6 +94,8 @@ def turn(root: str, folder: str, repeats: int) -> dict:
 
     sequential = ["--sequential", "--preset", PRESETS, *files]
     overlapped = {"presets": ["--preset", PRESETS, *files], "fanout": ["--fanout", FANOUT, *files]}
+    overlapped.update({f"spatial {label}": ["--spatial", "--suffix", ".spatial", *argv]
+                       for label, argv in overlapped.items()})
     for argv in (sequential, *overlapped.values()):
         wall(argv)
 
@@ -124,24 +131,31 @@ def turn(root: str, folder: str, repeats: int) -> dict:
         for i, (h, w) in enumerate(SHAPES[:8])])).to("cuda")
     tasks = {**{name: name for name in PRESETS.split(",")},
              "fanout": (PipelineConfig(gray=True), PipelineConfig(new_width=1920, angle=30.0))}
-    chunk_ms = {}
-    for label, task in tasks.items():
-        one, _ = serving._task_fn(task)
-        batch_apply(one, chunk)
+    def ms(fn) -> float:
+        fn()
         torch.cuda.synchronize()
         samples = []
         for _ in range(3):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(REPS):
-                batch_apply(one, chunk)
+                fn()
             end.record()
             end.synchronize()
             samples.append(start.elapsed_time(end) / REPS)
-        chunk_ms[label] = statistics.median(samples)
+        return statistics.median(samples)
+
+    chunk_ms = {}
+    for label, task in tasks.items():
+        one, _ = serving._task_fn(task)
+        chunk_ms[label] = ms(lambda: batch_apply(one, chunk))
+    img, mesh4 = chunk[0], (torch.device("cuda", torch.cuda.current_device()),) * 4
+    chunk_ms["fused in 4 bands"] = ms(lambda: spatial.fused_pipeline_spatial(img, mesh4))
+    chunk_ms["edge_detect in 4 bands"] = ms(
+        lambda: spatial.preset_pipeline_spatial(img, "edge_detect", mesh4))
 
     digest = hashlib.sha256()
-    for name in sorted(n for n in os.listdir(folder) if n.endswith(".out")):
+    for name in sorted(n for n in os.listdir(folder) if n.endswith((".out", ".spatial"))):
         with open(os.path.join(folder, name), "rb") as f:
             digest.update(name.encode() + f.read())
     return {"runs": runs, "chunk_ms": chunk_ms, "outputs_sha256": digest.hexdigest()}

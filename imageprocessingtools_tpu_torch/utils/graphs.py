@@ -43,9 +43,14 @@ which one replay runs on the card with no host work between its launches.
   as the eager loop's ``torch.stack`` is). On a CPU device each group is
   the eager per-image loop (``eager_batch`` is the plain form of this
   dispatch).
+- ``replayed(cache, key, fn, x, name)``: the one path of all three forms
+  (``graphed``, ``batched`` and the band pipelines of
+  ``parallel/spatial.py``): the graph kept for ``key``, captured on a miss,
+  ``x`` copied in, one replay, its static output inside the block.
 
-Memory: each graph holds a pool of its own. Every graph that ``graphed`` and
-``batched`` keep is in one LRU (``held``) with its bytes (its static input
+Memory: each graph holds a pool of its own. Every graph that ``graphed``,
+``batched`` and the band pipelines keep is in one LRU (``held``) with its
+bytes (its static input
 and what the allocator reserved during its capture). After each capture the
 least recently used graphs are dropped until those kept hold at most
 ``GRAPH_BYTES_BOUND`` bytes (a single graph above the bound stays alone),
@@ -330,6 +335,20 @@ def _replay(entry: _Entry, x: torch.Tensor):
     return entry.captured.out
 
 
+@contextlib.contextmanager
+def replayed(cache, key, fn, x: torch.Tensor, name: str):
+    """One replay of the graph of ``fn`` that ``cache`` keeps for ``key``
+    (captured on a copy of ``x`` made on the current card on a miss, and
+    counted against the byte bound), ``x`` copied into its input first: its
+    static output inside the block, which the graph's next call rewrites.
+    Calls on other streams wait for the block's end."""
+    entry = _find(cache, key, lambda: _capture_entry(fn, x, key, cache, name))
+    try:
+        yield _replay(entry, x)
+    finally:
+        entry.done.record()
+
+
 class Graphed:
     """``fn`` as a compiled callable (see the module's docstring)."""
 
@@ -342,13 +361,9 @@ class Graphed:
     def __call__(self, x: torch.Tensor):
         if x.device.type != "cuda" or capturing():
             return self.fn(x)  # inside a capture, the outer graph captures the body
-        with torch.cuda.device(x.device):
-            key = graph_key(x)
-            entry = _find(self._graphs, key,
-                          lambda: _capture_entry(self.fn, x, key, self._graphs, self.__name__))
-            out = _clone(_replay(entry, x))
-            entry.done.record()
-        return out
+        with torch.cuda.device(x.device), replayed(self._graphs, graph_key(x), self.fn, x,
+                                                   self.__name__) as out:
+            return _clone(out)
 
 
 def graphed(fn) -> Graphed:
@@ -425,15 +440,13 @@ class Batched:
         self._body = body
 
     def _group(self, part: torch.Tensor, device: torch.device):
-        """(the graph or None, one group's per-image outputs): on a CUDA
-        device the graph's static outputs after a replay (valid until that
-        graph's next call), on a CPU device the eager loop's."""
+        """A context giving one group's per-image outputs: on a CUDA device
+        the graph's static outputs after a replay (``replayed``), on a CPU
+        device the eager loop's."""
         if device.type != "cuda":
-            return None, _each(self.fn, part.to(device))
+            return contextlib.nullcontext(_each(self.fn, part.to(device)))
         key = (self.fn, device, tuple(part.shape[1:]), part.dtype, part.shape[0])
-        entry = _find(_batch_graphs, key,
-                      lambda: _capture_entry(self._body, part, key, _batch_graphs, self.__name__))
-        return entry, _replay(entry, part)
+        return replayed(_batch_graphs, key, self._body, part, self.__name__)
 
     def __call__(self, images, device):
         """``fn`` on every image of ``images`` (uint8[N, ...]: numpy, or a
@@ -451,12 +464,10 @@ class Batched:
         group = group_size(batch[0].numel() * batch.element_size())
         with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
             for start, count in spans(n, group):
-                entry, outs = self._group(batch[start:start + count], device)
-                if out is None:
-                    out = _empty_batch(outs[0], n)
-                _stack(outs, out, start)
-                if entry is not None:
-                    entry.done.record()
+                with self._group(batch[start:start + count], device) as outs:
+                    if out is None:
+                        out = _empty_batch(outs[0], n)
+                    _stack(outs, out, start)
         return out
 
 

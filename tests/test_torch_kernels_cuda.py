@@ -1063,3 +1063,124 @@ def test_an_out_of_memory_error_in_a_capture_reaches_serves_surface(cuda, tmp_pa
     assert (rc, capsys.readouterr().out) == (255, _exact.B9_MESSAGE)
     monkeypatch.undo()
     assert serve.main(["--preset", "enhance", path]) == 0  # the card still serves
+
+
+# ---------------------------------------------------------------------------
+# Compiled band pipelines (parallel/spatial.py::band_outputs): the JAX
+# package's jax.jit(shard_map(...)) per (shape, mesh), one graph on a card.
+# ---------------------------------------------------------------------------
+
+def _band_tasks():
+    from imageprocessingtools_tpu_torch.pipeline import PipelineConfig
+
+    presets = ("edge_detect", "enhance", "print_ready", "thumbnail")
+    return {"fused": "fused", **{name: name for name in presets},
+            "-w120": PipelineConfig(new_width=120), "-r30": PipelineConfig(angle=30.0),
+            "-r90": PipelineConfig(angle=90.0), "-r180": PipelineConfig(angle=180.0),
+            "-w150 -r30 -mono -fv": PipelineConfig(new_width=150, angle=30.0, mono=True,
+                                                   flip_v=True),
+            "fanout of the presets": presets}
+
+
+def _unsharded(task, img):
+    from imageprocessingtools_tpu_torch.models import PRESETS
+    from imageprocessingtools_tpu_torch.pipeline import run_pipeline
+
+    if isinstance(task, tuple):
+        return tuple(_unsharded(item, img) for item in task)
+    if task == "fused":
+        return fused.fused_pipeline_mega(img)
+    if isinstance(task, str):
+        return PRESETS[task](img)
+    return run_pipeline(img, task)[0]
+
+
+def _gathered(out, device):
+    from imageprocessingtools_tpu_torch.parallel import spatial
+
+    if isinstance(out, tuple):
+        return tuple(_gathered(o, device) for o in out)
+    assert all(b.data.device == device for b in out)
+    return spatial.gather(out, device)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("label", list(_band_tasks()))
+def test_compiled_band_pipelines_equal_the_eager_bands_and_the_unsharded_path(cuda, label, n):
+    """One graph per (task, shape, mesh) on a mesh that names the card n
+    times, fed from the host and from the card, byte-equal to the eager band
+    form and to the unsharded path; a second call captures nothing and
+    leaves the first call's outputs alone."""
+    from imageprocessingtools_tpu_torch.parallel import spatial
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    task = _band_tasks()[label]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = (dev,) * n
+    host = _image((211, 307, 3), seed=70 + n).numpy()  # a shape no other test captures
+    src = torch.from_numpy(host).to(dev)
+    captures = graphs.captures_made
+    from_host = spatial.band_pipeline(task, host, mesh)
+    assert graphs.captures_made == captures + 1
+    assert spatial.graph_key(task, host.shape, torch.uint8, mesh) in spatial._band_graphs
+    kept = _gathered(from_host, dev)
+    other = _image((211, 307, 3), seed=80 + n).to(dev)
+    from_card = spatial.band_pipeline(task, other, mesh)
+    assert graphs.captures_made == captures + 1  # the same graph, replayed
+    eager = spatial.band_pipeline(task, spatial.shard_rows(src, mesh), mesh)
+    for got, want in ((kept, _gathered(eager, dev)), (kept, _unsharded(task, src)),
+                      (_gathered(from_card, dev), _unsharded(task, other)),
+                      (_gathered(from_host, dev), kept)):
+        for g, w in zip(*((x,) if not isinstance(task, tuple) else x for x in (got, want))):
+            assert torch.equal(g, w)
+
+
+def test_an_uncapturable_band_body_raises_capture_error(cuda, monkeypatch):
+    from imageprocessingtools_tpu_torch.parallel import spatial
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    img = _image((131, 257, 3), seed=90).to(dev)  # a shape no other test captures
+    real = spatial._equalize_lut
+
+    def uploads(hist, n_pixels):  # a host upload on every call: cannot be captured
+        return real(hist, n_pixels) + torch.tensor([0], dtype=torch.uint8, device=hist.device)
+
+    monkeypatch.setattr(spatial, "_equalize_lut", uploads)
+    with pytest.raises(graphs.CaptureError, match="spatial fused on 4 bands"):
+        spatial.fused_pipeline_spatial(img, (dev,) * 4)
+    assert spatial.graph_key("fused", img.shape, img.dtype, (dev,) * 4) \
+        not in spatial._band_graphs
+    monkeypatch.undo()
+    got = spatial.gather(spatial.fused_pipeline_spatial(img, (dev,) * 4), dev)
+    assert torch.equal(got, fused.fused_pipeline_mega(img))
+
+
+def test_an_out_of_memory_error_in_a_band_capture_reaches_serves_surface(cuda, tmp_path,
+                                                                          monkeypatch, capsys):
+    """As for a batch graph: ``serve --spatial`` prints the C's allocation
+    message and exits 255 when a band graph's pool cannot be made."""
+    from imageprocessingtools_tpu_torch import serve
+    from imageprocessingtools_tpu_torch.codec import ppm
+    from imageprocessingtools_tpu_torch.ops import _exact
+
+    path = str(tmp_path / "giant.ppm")
+    ppm.write_ppm(path, _host_batch(1, (712, 1304, 3), seed=91)[0])  # a shape no test captured
+    card = torch.device("cuda", torch.cuda.current_device())
+    real = torch.cuda.CUDAGraph.capture_begin
+    total = torch.cuda.get_device_properties(card).total_memory
+
+    def capture_begin(self, *args, **kwargs):
+        torch.cuda.set_per_process_memory_fraction(
+            torch.cuda.memory_reserved(card) / total, card)
+        return real(self, *args, **kwargs)
+
+    torch.cuda.empty_cache()
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", capture_begin)
+    try:
+        rc = serve.main(["--spatial", "--preset", "enhance", path])
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, card)
+    assert (rc, capsys.readouterr().out) == (255, _exact.B9_MESSAGE)
+    monkeypatch.undo()
+    assert serve.main(["--spatial", "--preset", "enhance", path]) == 0  # the card still serves
