@@ -18,7 +18,15 @@ in order, printing one line per phase:
    of 5 such runs), its least time on the card from the bytes and operations
    of that 4K call, and the time of the one PyTorch call that computes the
    same function, where there is one (K9, the resize pass, is checked and
-   timed through ``resize_width`` and ``resize``, two launches each);
+   timed through ``resize_width`` and ``resize``, two launches each); then
+   the batch axis (``jax.vmap``'s one kernel over the batch): K2/K6, K4, K3
+   and K7 over uint8[N, ...] in one launch, each byte-equal to its plain
+   batch version and to its single-image kernel image by image, on
+   uint8[4, 2160, 3840(, 3)] and odd batches (3 x 37 x 53, heights below
+   the halo, 64 x 512 x 512, a batch of one, constant images among noise,
+   a view 5 bytes into its buffer), K8 on uint8[4, 2160, 3840, 3], with ms
+   per call at 4K x 4 beside the single-image kernel on each image and the
+   least time;
 4. the CLI (``imageprocessingtools_tpu_torch.cli.main``) over four 4K P6
    files, each run split into decode, resize plan and table upload, upload
    and device, download, and encode and write (``-w1920`` twice: its first
@@ -36,20 +44,29 @@ in order, printing one line per phase:
    CUDA graph) and ``dispatch_time`` (one replay) beside its device us, eager
    and graphed (traced in phase 7, printed after it), the loop rate held to
    [0.8, 2.5] times the eager device time; then a batch of four 4K images
-   through ``parallel.batched_fused_pipeline`` (K2 and K3 once per image),
-   one replay of a captured graph of the four (``utils.graphs.batched``, the
-   JAX package's ``jax.jit(jax.vmap(fn))``), byte-equal to the eager loop
-   (``graphs.eager_batch``) and to the plain pipeline per image;
+   through ``parallel.batched_fused_pipeline``, one replay of a captured
+   graph of the four (``utils.graphs.batched``, the JAX package's
+   ``jax.jit(jax.vmap(fn))``) through the mega form's batch form: K2 and K3
+   launched exactly once each over the four (the counts show it, or the run
+   fails), byte-equal to the eager loop (``graphs.eager_batch``) and to the
+   plain pipeline per image;
 6. preset serving (``imageprocessingtools_tpu_torch.serve.main``), each
    chunk one replay per group of G images: the four presets fanned out over
    eight 4K and two 1080p P6 files and one truncated file (``--skip-bad``),
    every output byte-equal to the presets' plain bodies and to the eager
    loop on the same decoded images on the card; a reference-flag fan-out
    over the 4K files; a byte-for-byte cross-check of a smaller file against
-   the same ``serve`` run on the CPU in a subprocess; G, the graphs kept,
-   their bytes against ``graphs.GRAPH_BYTES_BOUND`` and their capture
-   seconds; per preset and for the fan-out, ms per chunk of eight 4K images
-   on the card, eager loop against graphed (CUDA events); and ``serve
+   the same ``serve`` run on the CPU in a subprocess; the presets' kernels
+   launched once per group (their batch forms: K6, K7, K4 and K3 over the
+   group, none image by image, in the counts and in each graph's record);
+   G, the graphs kept, their bytes against ``graphs.GRAPH_BYTES_BOUND`` and
+   their capture seconds; per preset and for the fan-out, ms per chunk of
+   eight 4K images on the card, eager loop against graphed (CUDA events);
+   the batch forms against the per-image graphs of the same bodies (mega at
+   4K x 10, 1080p x 8, 1366x768 x 16 and 512x512 x 64; edge_detect, enhance
+   and print_ready at 4K x 8 and 512x512 x 64): ms per group and device us
+   per image, byte-equal, each kernel once per group against once per
+   image; and ``serve
    --sequential``'s split (decode, upload and device, download, encode) and
    the overlapped serves' walls in three turns (``serving_turns.py`` times
    them beside another checkout's);
@@ -89,8 +106,9 @@ in order, printing one line per phase:
    to the plain versions on the same window, K2's histogram to
    ``torch.bincount``, and each kernel's time per call (CUDA events).
 
-Every kernel's launch count is set to 0 just before each of phases 4, 5 (the
-flagship, then the batch), 6 and 7 (the band paths, then the moved serving)
+Every kernel's launch count (the batched wrappers' too) is set to 0 just
+before each of phases 4, 5 (the flagship, then the batch), 6 and 7 (the
+band paths, then the moved serving)
 and read just after it; a kernel that a phase's path uses and that was not
 launched there is a failure. A wrapper counts where it launches its kernel;
 a CUDA graph's replay launches without calling the wrappers, so a capture
@@ -141,11 +159,17 @@ KERNELS = {
     # matrix pass (and its host loop for the exact mode).
     "resize_pass": ("resize.cu", "imageprocessingtools_tpu/ops/resize.py:59"),
 }
+# The batch axis (jax.vmap's one kernel over the batch): each batched wrapper
+# -> the kernel whose source and Pallas function it shares.
+BATCH_KERNELS = {"gray_gauss_hist_batch": "gray_gauss_hist", "gray_gauss_batch": "gray_gauss",
+                 "histogram_batch": "histogram", "lut_apply_batch": "lut_apply",
+                 "stencil3_batch": "stencil3"}
 # K7's instances: the template's three wrappers. Box is on no path (no preset
 # uses it), nor is K8 with a non-empty chain (the paths run it with the
 # empty chain, as grayscale); phase 3 holds both to their plain versions.
 STENCIL3 = ("box_blur", "sharpen", "sobel")
-OFF_PATH = ("box_blur", "fused_elementwise with a non-empty chain")
+STENCIL3_BATCH = tuple(f"{name}_batch" for name in STENCIL3)
+OFF_PATH = ("box_blur", "box_blur_batch", "fused_elementwise with a non-empty chain")
 # K8's chains in phase 3: every single op, contrast at four factors, and the
 # full chain.
 FULL_CHAIN = (("invert", 0), ("brightness", 30), ("contrast", 1.5), ("threshold", 128))
@@ -288,6 +312,192 @@ SPATIAL_CONFIGS = {"-w1920 -r30 -mono -fv": dict(new_width=1920, angle=30.0, mon
                    "-r30": dict(angle=30.0), "-r180": dict(angle=180.0)}
 PLAIN_CONFIGS = ("-w1920 -r30 -mono -fv", "-r90")  # also held to the plain path on the cpu
 GIANT = (16384, 16384, 3)  # 805,306,368 bytes
+
+
+def at_byte(torch, x, offset: int):
+    """A contiguous copy of ``x`` that starts ``offset`` bytes into its buffer."""
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    flat[offset:] = x.reshape(-1)
+    return flat[offset:].view(x.shape)
+
+
+# Phase 3's batched kernels: 4K x 4 (timed), and odd batches: W % 16 != 0
+# and H * W % 16 != 0 (3 x 37 x 53), heights below the halo, a 1080p-like
+# odd shape, more 512x512 images than the card has SMs, and a batch of one.
+BATCH_N = 4
+BATCH_SHAPES = [(BATCH_N, H4K, W4K), (3, 37, 53), (7, 5, 3840), (2, 1081, 1927), (64, 512, 512),
+                (1, 29, 130)]
+
+
+def phase_3_batch(torch, dev, card, check) -> tuple[str, dict, dict]:
+    """Each batched kernel (K2/K6, K4, K3 and K7 over uint8[N, ...] in one
+    launch) against its plain batch version and against its single-image
+    kernel image by image, on ``BATCH_SHAPES`` of noise, noise and constant
+    images in turn, and a view 5 bytes into its buffer; K8 (no batch entry:
+    it takes uint8[..., 3]) on the 4K batch. Returns the line to print, ms
+    per call at 4K x 4 (batched, plain batch, the single-image kernel on each
+    image in turn; then the card's time of the batched call and of the
+    single-image calls, each replayed from a CUDA graph) and the least times
+    of those calls."""
+    from imageprocessingtools_tpu_torch.kernels import core
+    from imageprocessingtools_tpu_torch.ops.histogram import _equalize_lut
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    batches = {}
+    for n, h, w in BATCH_SHAPES:
+        x = torch.randint(0, 256, (n, h, w, 3), generator=gen, device=dev, dtype=torch.uint8)
+        batches[f"{n}x{h}x{w}"] = x
+        if n > 1 and h < 1000:  # the flush between images: constant images among noise
+            mixed = x.clone()
+            mixed[::2] = (torch.arange(0, n, 2, device=dev) * 37 % 256).to(torch.uint8)[
+                :, None, None, None]
+            batches[f"{n}x{h}x{w} mixed"] = mixed
+            batches[f"{n}x{h}x{w} at byte 5"] = at_byte(torch, x, 5)
+    stencils = {f"{name}_batch": (getattr(core, f"{name}_batch"), getattr(core, name),
+                                  getattr(core, f"{name}_batch_plain")) for name in STENCIL3}
+    for what, x in batches.items():
+        blurred, hist = core.gray_gauss_hist_batch(x)
+        exp_blurred, exp_hist = core.gray_gauss_hist_batch_plain(x)
+        check("gray_gauss_hist_batch", blurred, exp_blurred, f"{what} images")
+        check("gray_gauss_hist_batch", hist, exp_hist, f"{what} histograms")
+        check("gray_gauss_batch", core.gray_gauss_batch(x), exp_blurred, what)
+        gray = at_byte(torch, blurred, 5) if what.endswith("at byte 5") else blurred
+        luts = _equalize_lut(hist, gray.shape[1] * gray.shape[2])
+        hists = core.histogram_batch(gray)
+        check("histogram_batch", hists, core.histogram_batch_plain(gray), what)
+        mapped = core.lut_apply_batch(gray, luts)
+        check("lut_apply_batch", mapped, core.lut_apply_batch_plain(gray, luts), what)
+        outs = {name: fn(gray) for name, (fn, _, _) in stencils.items()}
+        for name, (_, _, plain) in stencils.items():
+            check(name, outs[name], plain(gray), what)
+        for i in range(x.shape[0]):  # the single-image kernels, image by image
+            one_blurred, one_hist = core.gray_gauss_hist(x[i])
+            check("gray_gauss_hist_batch", blurred[i], one_blurred, f"{what} image {i}")
+            check("gray_gauss_hist_batch", hist[i], one_hist, f"{what} histogram {i}")
+            check("histogram_batch", hists[i], core.histogram(gray[i]), f"{what} image {i}")
+            check("lut_apply_batch", mapped[i], core.lut_apply(gray[i], luts[i]),
+                  f"{what} image {i}")
+            for name, (_, single, _) in stencils.items():
+                check(name, outs[name][i], single(gray[i]), f"{what} image {i}")
+    x = batches[f"{BATCH_N}x{H4K}x{W4K}"]
+    check("fused_elementwise", core.fused_elementwise(x), core.fused_elementwise_plain(x),
+          f"uint8[{BATCH_N}, {H4K}, {W4K}, 3]")
+    blurred, hist = core.gray_gauss_hist_batch(x)
+    luts = _equalize_lut(hist, H4K * W4K)
+    rows = range(BATCH_N)
+
+    def each(fn, *args):  # the single-image kernel on each image in turn
+        return lambda: [fn(*(a[i] for a in args)) for i in rows]
+
+    calls = {
+        "gray_gauss_hist_batch": (lambda: core.gray_gauss_hist_batch(x),
+                                  lambda: core.gray_gauss_hist_batch_plain(x),
+                                  each(core.gray_gauss_hist, x)),
+        "gray_gauss_batch": (lambda: core.gray_gauss_batch(x),
+                             lambda: core.gray_gauss_batch_plain(x), each(core.gray_gauss, x)),
+        "histogram_batch": (lambda: core.histogram_batch(blurred),
+                            lambda: core.histogram_batch_plain(blurred),
+                            each(core.histogram, blurred)),
+        "lut_apply_batch": (lambda: core.lut_apply_batch(blurred, luts),
+                            lambda: core.lut_apply_batch_plain(blurred, luts),
+                            each(core.lut_apply, blurred, luts)),
+        **{name: (lambda fn=fn: fn(blurred), lambda plain=plain: plain(blurred),
+                  each(single, blurred))
+           for name, (fn, single, plain) in stencils.items()},
+    }
+    times = {name: (median_ms(torch, a), median_ms(torch, b, repeats=3), median_ms(torch, c))
+             for name, (a, b, c) in calls.items()}
+    # The card's time of the batched call and of the single-image calls on
+    # each image, each captured into a CUDA graph and replayed (no host
+    # launches between them).
+    device_times = {name: tuple(median_ms(torch, graphs.capture(lambda _, fn=fn: fn(), x).replay)
+                                for fn in (a, c))
+                    for name, (a, _, c) in calls.items()}
+    px = BATCH_N * H4K * W4K
+    bounds = {
+        "gray_gauss_hist_batch": bound(4 * px + BATCH_N * 256 * 4, (GRAY_OPS + GAUSS_OPS + 1) * px),
+        "gray_gauss_batch": bound(4 * px, (GRAY_OPS + GAUSS_OPS) * px),
+        "histogram_batch": bound(px + BATCH_N * 256 * 4, px),
+        "lut_apply_batch": bound(2 * px + BATCH_N * 256, 0),
+        "stencil3_batch": bound(2 * px, SOBEL_OPS * px),
+    }
+    line = (f"phase 3 batch axis: the batched kernels byte-equal to their plain batch versions "
+            f"and to the single-image kernels image by image on {', '.join(batches)}; K8 on "
+            f"uint8[{BATCH_N}, {H4K}, {W4K}, 3]; ms per call on uint8[{BATCH_N}, {H4K}, {W4K}"
+            f"(, 3)] (batched / plain batch / the single-image kernel on each image) on {card}: "
+            + ", ".join(f"{k} {a:.4f} / {b:.4f} / {c:.4f}" for k, (a, b, c) in times.items())
+            + "; the card's ms per call (each call a CUDA graph, replayed; batched / the "
+            "single-image kernel on each image): "
+            + ", ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in device_times.items())
+            + "; least ms: " + ", ".join(f"{k} {b:.4f} ({by})" for k, (b, by) in bounds.items()))
+    return line, {k: times[k] + device_times[k] for k in times}, bounds
+
+
+# The batch forms against the per-image graphs: (task, images, H, W).
+BATCH_FORM_CASES = [("mega", 10, H4K, W4K), ("mega", 8, 1080, 1920), ("mega", 16, 768, 1366),
+                    ("mega", 64, 512, 512)] + [
+    (name, n, h, w) for name in ("edge_detect", "enhance", "print_ready")
+    for n, h, w in ((8, H4K, W4K), (64, 512, 512))]
+
+
+def batch_form_times(torch, dev, card) -> str:
+    """Each of ``BATCH_FORM_CASES`` as one group through ``graphs.batched``
+    twice: the function with its batch form (each kernel launched once over
+    the group) and the same body with none (the per-image graph), byte-equal;
+    ms per group (the input on the card copied into the graph, one replay,
+    the outputs copied out) and the replay alone per image (the graph's
+    device time: CUDA events around 20 replays, its input already in it),
+    with each graph's launches per replay (each kernel once in the batch
+    form's, once per image in the other, or the run fails). The graphs are
+    dropped after each case."""
+    from imageprocessingtools_tpu_torch import serving
+    from imageprocessingtools_tpu_torch.kernels import fused
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    card0 = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    forms = {"mega": fused.fused_pipeline_mega}
+    forms.update({name: serving._task_fn(name)[0] for name, *_ in BATCH_FORM_CASES
+                  if name != "mega"})
+
+    def without(fn):
+        def each(img):  # the same body, with no batch form
+            return fn(img)
+        return each
+
+    bodies = {name: (fn, without(fn)) for name, fn in forms.items()}
+    parts = []
+    for name, n, h, w in BATCH_FORM_CASES:
+        if graphs.group_size(h * w * 3) < n:
+            fail(f"{name} {n}x{h}x{w} is not one group")
+        x = torch.randint(0, 256, (n, h, w, 3), generator=gen, device=dev, dtype=torch.uint8)
+        outs, cols = [], []
+        for fn in bodies[name]:
+            run = graphs.batched(fn)
+            outs.append(run(x, dev))
+            key = (fn, card0, (h, w, 3), torch.uint8, n)
+            entry = graphs._batch_graphs[key]
+            group_ms = median_ms(torch, lambda: run(x, dev), repeats=3)
+            replay_ms = median_ms(torch, entry.captured.replay, repeats=3)
+            made = {wr.__name__: k for wr, k in entry.captured.launches.items()}
+            cols.append(f"{group_ms:.4f} ms, the replay alone {replay_ms:.4f} ms = "
+                        f"{replay_ms * 1e3 / n:.2f} us an image, launches {made}")
+            each_time = 1 if fn is bodies[name][0] else n  # once per group, or once per image
+            if not made or any(k != each_time for k in made.values()):
+                fail(f"{name} {n}x{h}x{w}: a replay launches {made}, not each kernel "
+                     f"{each_time} times")
+            del entry
+            graphs._batch_graphs.pop(key)
+        if not torch.equal(outs[0], outs[1]):
+            fail(f"{name} on {n}x{h}x{w}: the batch form differs from the per-image graph")
+        parts.append(f"{name} {n}x{h}x{w}: batch form {cols[0]}; per image {cols[1]}")
+        del x, outs
+    return (f"phase 6 batch forms against the per-image graphs, one group each, byte-equal (ms "
+            f"per group, input on the card, and the replay alone: device us per image, CUDA "
+            f"events around {REPS} replays, median of 3) on {card}: " + "; ".join(parts))
 
 
 def joins_us(split: dict) -> float:
@@ -505,11 +715,16 @@ def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files,
             serve_run(f"{mode} fanout", [mode, "--fanout", fanout_flags, "--suffix", sfx,
                                          *files[:8]])
 
+    # --mesh (a batch of shards, one card here) as phase 6: the batch forms
+    # once per group; --spatial one band per file on one card, the presets'
+    # single-image kernels once per file.
     path_counts["serving moved"] = drive(
         "phase 7 serving",
-        {"gray_gauss": 2 * n_good, "sobel": 2 * n_good, "sharpen": 2 * n_good,
-         "fused_elementwise": 2 * (2 * n_good + 8), "histogram": 4 * n_good,
-         "lut_apply": 4 * n_good, "rotate": 16, "resize_pass": 2 * (2 * n_good + 2 * 8)},
+        {"gray_gauss": n_good, "sobel": n_good, "sharpen": n_good,
+         "fused_elementwise": (2 * n_good + 8) + (4 + 8), "histogram": 2 * n_good,
+         "lut_apply": 2 * n_good, "gray_gauss_batch": 2, "sobel_batch": 2, "sharpen_batch": 2,
+         "histogram_batch": 4, "lut_apply_batch": 4, "rotate": 16,
+         "resize_pass": 2 * (2 * n_good + 2 * 8)},
         moved_serving)
     captures = graphs.captures_made
     serve_run("--spatial presets again",
@@ -737,6 +952,9 @@ def main() -> int:
         "gaussian_blur": core.gaussian_blur, "gray_gauss": core.gray_gauss,
         "box_blur": core.box_blur, "sharpen": core.sharpen, "sobel": core.sobel,
         "fused_elementwise": core.fused_elementwise, "resize_pass": k9.resize_pass,
+        **{name: getattr(core, name) for name in
+           ("gray_gauss_hist_batch", "gray_gauss_batch", "histogram_batch", "lut_apply_batch")
+           + STENCIL3_BATCH},
     }
     plains = {
         "histogram": core.histogram_plain, "gaussian_blur": core.gaussian_blur_plain,
@@ -966,6 +1184,8 @@ def main() -> int:
           + "".join(f", {k} {b:.4f} ({by})" for k, (b, by) in list(resize_bounds.items())[1:])
           + f"; torch.bincount {library['histogram']:.4f}; resize_width_dense at 4K -> 1920 "
           f"{library['resize_pass']:.4f} (max |dense - K9| {dense_err})")
+    batch_line, batch_times, batch_bounds = phase_3_batch(torch, dev, card, check)
+    print(batch_line)
 
     tmp = tempfile.mkdtemp(prefix="ipt_chip_smoke_")
     trace_dir = os.path.join(tmp, "traces")
@@ -1141,16 +1361,27 @@ def main() -> int:
                                    stat="median") * 1e3
         dispatch_ms = dispatch_time(fused.fused_pipeline_mega, flagship) * 1e3
 
-        # The batch module: four 4K images through the mega form, K2 and K3
-        # once per image, in one replay of a graph of the four (G is 10 at
-        # 4K), each output byte-equal to the plain pipeline's and to the eager
-        # loop's.
+        # The batch module: four 4K images through the mega form's batch
+        # form, captured in a first call, then one replay of the graph of the
+        # four (G is 10 at 4K) with the counts at 0: K2 and K3 exactly once
+        # each; each output byte-equal to the plain pipeline's and to the
+        # eager loop's.
         batch_in = torch.from_numpy(image((4, H4K, W4K, 3), seed=31))
         captures = graphs.captures_made
-        path_counts["batch"] = drive(
-            "phase 5 batch", {"gray_gauss_hist": 4, "lut_apply": 4},
+        first_batch = parallel.batched_fused_pipeline(batch_in)  # captures the graph (and warms up)
+        path_counts["batch"] = drive(  # one replay
+            "phase 5 batch", {"gray_gauss_hist_batch": 1, "lut_apply_batch": 1},
             lambda: results.update(batch=parallel.batched_fused_pipeline(batch_in)))
+        once = {name: path_counts["batch"][name] for name in
+                ("gray_gauss_hist_batch", "lut_apply_batch", "gray_gauss_hist", "lut_apply")}
+        if once != {"gray_gauss_hist_batch": 1, "lut_apply_batch": 1, "gray_gauss_hist": 0,
+                    "lut_apply": 0}:
+            fail(f"batched_fused_pipeline on four images did not launch K2 and K3 once each "
+                 f"over the batch (launches {once})")
         batch_out = results.pop("batch")
+        if not torch.equal(batch_out, first_batch):
+            fail("batched_fused_pipeline's replay differs from its first call")
+        del first_batch
         if batch_out.dtype != torch.uint8 or tuple(batch_out.shape) != (4, H4K, W4K):
             fail(f"batched_fused_pipeline gave {batch_out.dtype} {tuple(batch_out.shape)}")
         if batch_out.device.type != "cuda":
@@ -1167,8 +1398,8 @@ def main() -> int:
                 fail(f"batched_fused_pipeline image {i} differs from the plain pipeline")
         print(f"phase 5 batch: batched_fused_pipeline on uint8[4, 2160, 3840, 3] (one replay of a "
               f"captured 4-image graph, {batch_graph.nbytes} bytes, captured in "
-              f"{batch_graph.seconds:.3f} s) byte-equal to the eager loop and to four plain "
-              f"pipelines")
+              f"{batch_graph.seconds:.3f} s; its batch form: K2 and K3 launched once each, "
+              f"{once}) byte-equal to the eager loop and to four plain pipelines")
 
         # Phase 6: preset serving.
         if not native.available():
@@ -1202,18 +1433,38 @@ def main() -> int:
             serve_run("presets", ["--preset", PRESETS, "--skip-bad", *files, bad])
             serve_run("fanout", ["--fanout", fanout_flags, *files[:8]])
 
-        # Per good file: edge_detect one K6 and one Sobel, enhance one K8, one
-        # K4, one K3 and one sharpen, print_ready one K8, one K4 and one K3,
-        # thumbnail two K9; the fan-out one K8 (-gray), two K9 (-w1920) and one
+        # Per group of images of one shape (the 4K files and the 1080p ones:
+        # two), the presets' batch forms: edge_detect one K6 and one Sobel,
+        # enhance one K8, one K4, one K3 and one sharpen, print_ready one K8,
+        # one K4 and one K3, each over the group; thumbnail two K9 per file;
+        # the fan-out (no batch form) one K8 (-gray), two K9 (-w1920) and one
         # K1 per 4K file.
         n_good = len(files)
         captures = graphs.captures_made
         path_counts["serving"] = drive(
             "phase 6 serving",
-            {"gray_gauss": n_good, "sobel": n_good, "sharpen": n_good,
-             "fused_elementwise": 2 * n_good + 8, "histogram": 2 * n_good,
-             "lut_apply": 2 * n_good, "rotate": 8, "resize_pass": 2 * n_good + 2 * 8},
+            {"gray_gauss_batch": 2, "sobel_batch": 2, "sharpen_batch": 2,
+             "fused_elementwise": 4 + 8, "histogram_batch": 4, "lut_apply_batch": 4, "rotate": 8,
+             "resize_pass": 2 * n_good + 2 * 8},
             serving_runs)
+        per_image = {name: path_counts["serving"][name] for name in
+                     ("gray_gauss", "sobel", "sharpen", "histogram", "lut_apply")}
+        if any(per_image.values()):
+            fail(f"phase 6 serving launched the presets' kernels image by image: {per_image}")
+        # Each preset graph's own record: every kernel of a batch form once per
+        # replay (one group), none of them per image.
+        presets_one = serving._task_fn(tuple(PRESETS.split(",")))[0]
+        per_group = {"gray_gauss_batch": 1, "sobel_batch": 1, "sharpen_batch": 1,
+                     "histogram_batch": 2, "lut_apply_batch": 2}
+        preset_graphs = [e for k, e in graphs._batch_graphs.items() if k[0] is presets_one]
+        if len(preset_graphs) != 2:
+            fail(f"serve --preset kept {len(preset_graphs)} graphs, not one per shape (2)")
+        for entry in preset_graphs:
+            made = {w.__name__: n for w, n in entry.captured.launches.items()}
+            if ({name: made.get(name, 0) for name in per_group} != per_group
+                    or any(made.get(name) for name in per_image)):
+                fail(f"a serve --preset graph of {tuple(entry.static_in.shape)} launches "
+                     f"{made} per replay, not the batch forms' kernels once each")
         if f"skipped {bad}: Error: unexpected end of file." not in serve_walls["presets"][1]:
             fail(f"serve did not report the truncated file: {serve_walls['presets'][1]}")
         serving_captures = graphs.captures_made - captures
@@ -1306,6 +1557,7 @@ def main() -> int:
                       f"graphed / the replay alone, CUDA events around {REPS} calls, median of 3) "
                       f"on {card}: " + ", ".join(f"{k} {a:.4f} / {b:.4f} / {c:.4f}"
                                                  for k, (a, b, c) in chunk_ms.items()))
+        form_line = batch_form_times(torch, dev, card)
 
         # serve's sequential split (no reader or writer thread), host seconds
         # per stage, each synchronised, in three turns; then the overlapped
@@ -1403,7 +1655,7 @@ def main() -> int:
     print(f"phase 6 serving: {n_checked} outputs byte-equal to the plain bodies on the card and "
           f"to the eager loop on the same decoded images; 768x1024 cuda and cpu outputs "
           f"byte-equal {cross_worst}; native codec built")
-    for line in (graph_line, chunk_line, split_line):
+    for line in (graph_line, chunk_line, form_line, split_line):
         print(line)
     for line in phase7 + phase8:
         print(line)
@@ -1441,6 +1693,34 @@ def main() -> int:
         if name == "fused_elementwise":  # off the paths: the full chain
             entry.update(full_chain_ms=times["fused_elementwise_full_chain"][0],
                          full_chain_plain_ms=times["fused_elementwise_full_chain"][1])
+        entries.append(entry)
+    # The batched entries: times and least time at uint8[BATCH_N, 2160, 3840(, 3)],
+    # beside the single-image kernel on each image in turn (per_image_ms), and
+    # the card's time of both from CUDA graph replays (device_ms,
+    # per_image_device_ms). No
+    # single PyTorch call computes a histogram per image, a LUT per image or
+    # the stencils, so library_ms is null.
+    for name, single in BATCH_KERNELS.items():
+        source, replaces = KERNELS[single]
+        entry = {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
+                 "replaces": replaces, "batch": BATCH_N, "bound_ms": batch_bounds[name][0],
+                 "bound_by": batch_bounds[name][1], "library_ms": None}
+        if name == "stencil3_batch":  # the three instances; Sobel's times
+            instances = {k: {"launches": launches[k], "on_path": k not in OFF_PATH,
+                             "max_abs_err": errs[k], "ms": batch_times[k][0],
+                             "plain_ms": batch_times[k][1], "per_image_ms": batch_times[k][2],
+                             "device_ms": batch_times[k][3],
+                             "per_image_device_ms": batch_times[k][4]}
+                         for k in STENCIL3_BATCH}
+            entry.update(launches=sum(k["launches"] for k in instances.values()),
+                         max_abs_err=max(k["max_abs_err"] for k in instances.values()),
+                         **{key: instances["sobel_batch"][key] for key in
+                            ("ms", "plain_ms", "per_image_ms", "device_ms",
+                             "per_image_device_ms")}, instances=instances)
+        else:
+            entry.update(launches=launches[name], max_abs_err=errs[name],
+                         **dict(zip(("ms", "plain_ms", "per_image_ms", "device_ms",
+                                     "per_image_device_ms"), batch_times[name])))
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -51,7 +51,20 @@
 // one atomic; it is flushed with one global atomicAdd per non-empty bin into
 // an int32[256] the wrapper zeroes. Integer sums are order-free, so the
 // histogram is exact, and the bytes equal core.gray_gauss_plain's.
+//
+// The batch axis (the counterpart of jax.vmap of the Pallas kernels, whose
+// batching rule adds a leading grid axis): uint8[N, H, W, 3] -> uint8[N, H,
+// W] (and int32[N, 256]) in one launch. The tiles of all N images are one
+// index, t = n * tiles_per_image + the tile's index in image n, so the
+// resident blocks fill the card at any image size (a 512x512 image has 64
+// tiles for 132 SMs). A block walks tiles of several images; its shared
+// histogram is flushed into hist[n] (and zeroed) whenever its next tile lies
+// in another image or it has none, so counts never mix images. A single
+// image is the batch of one. Image n starts at byte 3 H W n of rgb and H W n
+// of out; with W % 16 == 0 every image's start keeps the alignment of the
+// first, so kAligned holds for all of them when it holds for the first.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -100,10 +113,12 @@ constexpr int SMEM_BYTES = 2 * BUF_BYTES + 2 * 8 + 256 * 4;
 //
 // A block stays resident and takes tiles blockIdx.x, + gridDim.x, ...; it
 // stages tile i + 1 in one buffer while it computes tile i from the other.
+// Tile t is tile t % per_image of image t / per_image; tiles = N per_image.
 template <bool kHistogram, bool kAligned>
 __global__ void __launch_bounds__(THREADS)
 gray_gauss_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ out,
-                  int* __restrict__ hist, int H, int W, int tiles_x, int tiles) {
+                  int* __restrict__ hist, int H, int W, int tiles_x, int per_image,
+                  int tiles) {
     // buf[k] row r: image row clamp(y0 - 2 + r), from row byte 3 x0 - 16 - lead
     // on. Once step 2 has read it, the same memory holds h_s: row r, word
     // 4 l + m, the horizontal sums h[m] of columns x0 + 8 l .. + 7 (hsum8).
@@ -122,8 +137,11 @@ gray_gauss_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ out,
         for (int b = tid; b < 256; b += THREADS) shist[b] = 0;
     }
     __syncthreads();
-    auto halo_row = [&](int y0, int r) {
-        return rgb + static_cast<size_t>(min(max(y0 + r - 2, 0), H - 1)) * W3;
+    // Image n's RGB (its output is at out + n H W), and halo row r of a tile
+    // at row y0 of an image that starts at img.
+    auto image_rgb = [&](int n) { return rgb + static_cast<size_t>(n) * H * W3; };
+    auto halo_row = [&](const uint8_t* img, int y0, int r) {
+        return img + static_cast<size_t>(min(max(y0 + r - 2, 0), H - 1)) * W3;
     };
     // Row byte of a staged row's first byte: 16-byte aligned in memory (3 x0
     // is a multiple of 16).
@@ -136,20 +154,32 @@ gray_gauss_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ out,
     // the (at most two) chunks that straddle its left or right edge one by
     // one. Bytes outside the image are not read: step 2 replicates the edge
     // columns' gray values instead.
-    auto load = [&](int t, int k) {
+    // A tile is (n, local): tile local of image n.
+    auto load = [&](int n, int local, int k) {
         if (tid >= HALO_H) return;
-        const int x0 = (t % tiles_x) * TILE_W, y0 = (t / tiles_x) * TILE_H;
-        const uint8_t* row = halo_row(y0, tid);
+        const int x0 = (local % tiles_x) * TILE_W, y0 = (local / tiles_x) * TILE_H;
+        const uint8_t* row = halo_row(image_rgb(n), y0, tid);
         ipt::stage_row<RGB_CHUNKS>(buf[k][tid], row, base_of(x0, row), W3, &full[k]);
     };
 
     const int first = blockIdx.x, step = gridDim.x;  // the launch makes first < tiles
-    load(first, 0);
+    // The block's next tile is step tiles on: step divided by per_image once
+    // here, so that a tile costs the single image's index arithmetic.
+    const int step_n = step / per_image, step_local = step % per_image;
+    int n = first / per_image, local = first % per_image;
+    load(n, local, 0);
     __syncthreads();  // the first tile's edge bytes (later tiles': the loop's barriers)
     for (int t = first, i = 0; t < tiles; t += step, ++i) {
         const int k = i & 1;
-        if (t + step < tiles) load(t + step, k ^ 1);
-        const int x0 = (t % tiles_x) * TILE_W, y0 = (t / tiles_x) * TILE_H;
+        int next_n = n + step_n, next_local = local + step_local;
+        if (next_local >= per_image) {
+            next_local -= per_image;
+            ++next_n;
+        }
+        if (t + step < tiles) load(next_n, next_local, k ^ 1);
+        const int x0 = (local % tiles_x) * TILE_W, y0 = (local / tiles_x) * TILE_H;
+        const uint8_t* img = image_rgb(n);
+        uint8_t* img_out = out + static_cast<size_t>(n) * H * W;
         ipt::mbar_wait(&full[k], (i >> 1) & 1);
 
         // 2. Gray and the horizontal pass: warp w takes halo rows w, w + TY,
@@ -165,7 +195,7 @@ gray_gauss_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ out,
 #pragma unroll
         for (int j = 0; j < HALO_H / TY; ++j) {
             const int r = warp + TY * j;
-            const uint8_t* row_s = buf[k][r] + 16 + (3 * x0 - 16 - base_of(x0, halo_row(y0, r)));  // column x0
+            const uint8_t* row_s = buf[k][r] + 16 + (3 * x0 - 16 - base_of(x0, halo_row(img, y0, r)));  // column x0
             uint32_t w[6], u[2];
             load_words<kAligned, 6>(row_s + 24 * lane, w);
             load_words<kAligned, 2>(row_s + (lane == 0 ? -8 : 3 * TILE_W), u);
@@ -183,9 +213,9 @@ gray_gauss_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ out,
                 const int c = min(W - 1 - x0, TILE_W + 1);  // the last column that counts
                 const uint8_t* p = row_s + 3 * c;
                 const uint32_t last = div3(p[0] + p[1] + p[2]);
-                const int n = W - x0 - RUN * lane;
-                clamp_right(ea, oa, n, last);
-                clamp_right(eb, ob, n - 4, last);
+                const int cols = W - x0 - RUN * lane;
+                clamp_right(ea, oa, cols, last);
+                clamp_right(eb, ob, cols - 4, last);
                 clamp_right(ee, oe, lane == 0 ? 4 : W - x0 - TILE_W, last);  // lane 0's lie left
                 if (x0 == 0 && lane == 0) ee = oe = ea << 16;  // column 0's gray
             }
@@ -219,38 +249,49 @@ gray_gauss_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ out,
                 h[j][2] = q.z;
                 h[j][3] = q.w;
             }
-            const int n = min(RUN, W - x);
+            const int len = min(RUN, W - x);
 #pragma unroll
             for (int j = 0; j < ROWS; ++j) {
                 const int y = y0 + r0 + j;
                 if (y >= H) break;
                 uint32_t lo, hi;
                 vsum8(h[j], h[j + 1], h[j + 2], h[j + 3], h[j + 4], lo, hi);
-                store_run<kAligned>(out + static_cast<size_t>(y) * W + x, lo, hi, n);
+                store_run<kAligned>(img_out + static_cast<size_t>(y) * W + x, lo, hi, len);
                 if constexpr (kHistogram) {
-                    if (n == RUN && lo == hi && lo == __byte_perm(lo, 0, 0)) {
+                    if (len == RUN && lo == hi && lo == __byte_perm(lo, 0, 0)) {
                         atomicAdd(&shist[lo & 0xFF], RUN);
                     } else {
 #pragma unroll
                         for (int q = 0; q < RUN; ++q) {
-                            if (q < n) atomicAdd(&shist[((q < 4 ? lo : hi) >> (8 * (q & 3))) & 0xFF], 1);
+                            if (q < len) atomicAdd(&shist[((q < 4 ? lo : hi) >> (8 * (q & 3))) & 0xFF], 1);
                         }
                     }
                 }
             }
         }
         __syncthreads();  // step 3's reads of buf[k] are done before it is loaded again
-    }
 
-    if constexpr (kHistogram) {
-        for (int b = tid; b < 256; b += THREADS) {
-            if (shist[b]) atomicAdd(&hist[b], shist[b]);
+        // 4. Flush the counts into image n's histogram before a tile of
+        // another image is counted (the next atomics on shist come after the
+        // next tile's two barriers).
+        if constexpr (kHistogram) {
+            if (t + step >= tiles || next_n != n) {
+                int* h = hist + 256 * static_cast<size_t>(n);
+                for (int b = tid; b < 256; b += THREADS) {
+                    if (shist[b]) {
+                        atomicAdd(&h[b], shist[b]);
+                        shist[b] = 0;
+                    }
+                }
+            }
         }
+        n = next_n;
+        local = next_local;
     }
 }
 
 template <bool kHistogram, bool kAligned>
-int launch_kernel(const uint8_t* rgb, uint8_t* out, int* hist, int H, int W, int device,
+int launch_kernel(const uint8_t* rgb, uint8_t* out, int* hist, int N, int H, int W, int device,
                   cudaStream_t stream) {
     const auto kernel = gray_gauss_kernel<kHistogram, kAligned>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -262,14 +303,20 @@ int launch_kernel(const uint8_t* rgb, uint8_t* out, int* hist, int H, int W, int
     }
     if (err != cudaSuccess) return static_cast<int>(err);
     const int tiles_x = (W + TILE_W - 1) / TILE_W;
-    const int tiles = tiles_x * ((H + TILE_H - 1) / TILE_H);
-    const int grid = min(tiles, max(per_sm, 1) * sms);
-    kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(rgb, out, hist, H, W, tiles_x, tiles);
+    const long long per_image = static_cast<long long>(tiles_x) * ((H + TILE_H - 1) / TILE_H);
+    const long long tiles = N * per_image;  // the wrapper keeps it below 2^31
+    if (N < 1 || tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    const long long resident = static_cast<long long>(max(per_sm, 1)) * sms;
+    const int grid = static_cast<int>(tiles < resident ? tiles : resident);
+    kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(rgb, out, hist, H, W, tiles_x,
+                                                  static_cast<int>(per_image),
+                                                  static_cast<int>(tiles));
     return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kHistogram>
-int launch(const void* rgb, void* out, void* hist, int H, int W, int device, void* stream) {
+int launch(const void* rgb, void* out, void* hist, int N, int H, int W, int device,
+           void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     const bool aligned = ((reinterpret_cast<uintptr_t>(rgb) | static_cast<uintptr_t>(W)) & 15) == 0 &&
@@ -278,8 +325,8 @@ int launch(const void* rgb, void* out, void* hist, int H, int W, int device, voi
     auto* o = static_cast<uint8_t*>(out);
     auto* h = static_cast<int*>(hist);
     const auto s = static_cast<cudaStream_t>(stream);
-    return aligned ? launch_kernel<kHistogram, true>(in, o, h, H, W, device, s)
-                   : launch_kernel<kHistogram, false>(in, o, h, H, W, device, s);
+    return aligned ? launch_kernel<kHistogram, true>(in, o, h, N, H, W, device, s)
+                   : launch_kernel<kHistogram, false>(in, o, h, N, H, W, device, s);
 }
 
 }  // namespace
@@ -288,11 +335,24 @@ int launch(const void* rgb, void* out, void* hist, int H, int W, int device, voi
 // the caller).
 extern "C" int ipt_gray_gauss_hist(const void* rgb, void* out, void* hist, int H, int W,
                                    int device, void* stream) {
-    return launch<true>(rgb, out, hist, H, W, device, stream);
+    return launch<true>(rgb, out, hist, 1, H, W, device, stream);
 }
 
 // K6: rgb uint8[H, W, 3] -> out uint8[H, W].
 extern "C" int ipt_gray_gauss(const void* rgb, void* out, int H, int W, int device,
                               void* stream) {
-    return launch<false>(rgb, out, nullptr, H, W, device, stream);
+    return launch<false>(rgb, out, nullptr, 1, H, W, device, stream);
+}
+
+// K2 over a batch: rgb uint8[N, H, W, 3] -> out uint8[N, H, W] and hist
+// int32[N, 256] (zeroed by the caller), in one launch.
+extern "C" int ipt_gray_gauss_hist_batch(const void* rgb, void* out, void* hist, int N, int H,
+                                         int W, int device, void* stream) {
+    return launch<true>(rgb, out, hist, N, H, W, device, stream);
+}
+
+// K6 over a batch: rgb uint8[N, H, W, 3] -> out uint8[N, H, W], in one launch.
+extern "C" int ipt_gray_gauss_batch(const void* rgb, void* out, int N, int H, int W, int device,
+                                    void* stream) {
+    return launch<false>(rgb, out, nullptr, N, H, W, device, stream);
 }

@@ -48,6 +48,16 @@
 //
 // Integer sums are order-free, so the result is exact for any count below
 // 2^31 (the wrapper checks).
+//
+// The batch axis (the counterpart of jax.vmap of histogram_pallas):
+// uint8[N, n] -> int32[N, 256] in one launch, image b on blockIdx.y. Image
+// b's blocks count only its bytes (its own head and tail included), flush
+// into hist[b] and arrive on arrival words of its own (ARRIVAL_WORDS of them
+// at arrivals + b ARRIVAL_WORDS, which the caller gives zeroed and the
+// launch leaves zero), so counts never mix images. The blocks per image are
+// the card's SMs over N (at least one), so a batch takes about one block per
+// SM as one image does. A single image is launched without the batch
+// offsets (histogram_kernel<false>).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -89,10 +99,19 @@ __device__ __forceinline__ bool arrive(unsigned long long* word, unsigned of, in
     return true;
 }
 
+// kBatch: image blockIdx.y of the batch (values + n blockIdx.y, its own
+// histogram and arrival words); a single image is compiled without those
+// offsets. gridDim.x blocks an image.
+template <bool kBatch>
 __global__ void __launch_bounds__(THREADS)
 histogram_kernel(const uint8_t* __restrict__ values, int* __restrict__ hist,
                  unsigned long long* __restrict__ arrivals, long long n) {
     __shared__ __align__(16) int counts[256 * 32];
+    if constexpr (kBatch) {
+        values += n * blockIdx.y;
+        hist += 256 * blockIdx.y;
+        arrivals += static_cast<size_t>(ARRIVAL_WORDS) * blockIdx.y;
+    }
 
     // The bytes before the first 16-byte boundary (head) and after the last
     // (tail), and the n_vec 16-byte words between (n < 2^31, so ints do).
@@ -160,9 +179,33 @@ unsigned long long* arrival_words(int device, cudaStream_t stream, cudaError_t* 
     return words;
 }
 
+// N images of n values on `words` (N ARRIVAL_WORDS): the card's SMs over N
+// blocks per image (at least 1), each image's count capped at one block per
+// 16 KB of its values.
+int launch(const void* values, void* hist, int N, long long n, int device, void* stream,
+           unsigned long long* words) {
+    int sms = 0;
+    const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    long long blocks = (n / 16 + THREADS - 1) / THREADS;
+    const long long share = sms / N;
+    if (blocks > share) blocks = share;
+    if (blocks < 1) blocks = 1;
+    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(N));
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto* v = static_cast<const uint8_t*>(values);
+    auto* h = static_cast<int*>(hist);
+    if (N == 1) {
+        histogram_kernel<false><<<grid, THREADS, 0, s>>>(v, h, words, n);
+    } else {
+        histogram_kernel<true><<<grid, THREADS, 0, s>>>(v, h, words, n);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// The number of 64-bit arrival words a launch uses.
+// The number of 64-bit arrival words a launch uses (per image, for a batch).
 extern "C" int ipt_histogram_arrival_words() { return ARRIVAL_WORDS; }
 
 // values uint8[n] -> hist int32[256] (any contents before: every word is
@@ -173,17 +216,20 @@ extern "C" int ipt_histogram_arrival_words() { return ARRIVAL_WORDS; }
 extern "C" int ipt_histogram(const void* values, void* hist, long long n, int device,
                              void* stream, void* arrivals) {
     cudaError_t err = cudaSetDevice(device);
-    int sms = 0;
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const auto s = static_cast<cudaStream_t>(stream);
     auto* words = static_cast<unsigned long long*>(arrivals);
-    if (words == nullptr) words = arrival_words(device, s, &err);
+    if (words == nullptr) words = arrival_words(device, static_cast<cudaStream_t>(stream), &err);
     if (words == nullptr) return static_cast<int>(err);
-    long long blocks = (n / 16 + THREADS - 1) / THREADS;
-    if (blocks < 1) blocks = 1;
-    if (blocks > sms) blocks = sms;
-    histogram_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(
-        static_cast<const uint8_t*>(values), static_cast<int*>(hist), words, n);
-    return static_cast<int>(cudaGetLastError());
+    return launch(values, hist, 1, n, device, stream, words);
+}
+
+// values uint8[N, n] -> hist int32[N, 256] (every word stored), in one
+// launch. `arrivals`: N ARRIVAL_WORDS zeroed 64-bit words (a launch leaves
+// them zero); required.
+extern "C" int ipt_histogram_batch(const void* values, void* hist, int N, long long n, int device,
+                                   void* stream, void* arrivals) {
+    if (arrivals == nullptr || N < 1 || N > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return launch(values, hist, N, n, device, stream, static_cast<unsigned long long*>(arrivals));
 }

@@ -12,6 +12,14 @@
 // What bounds it on an H100: bytes (1 read and 1 written per pixel, 8.3 MB
 // each way at 4K). Shared-memory LUT reads are byte-indexed and may conflict
 // on banks for skewed images; the vector loads keep global traffic coalesced.
+//
+// The batch axis (the counterpart of jax.vmap of lut_apply_pallas): values
+// uint8[N, n] through luts uint8[N, 256] in one launch, image b on
+// blockIdx.y with LUT b in its blocks' shared memory. Each image's bytes are
+// mapped on their own, as a single image's are: in 16-byte words where its
+// input and output start on 16-byte boundaries (with n % 16 == 0 every
+// image does when the first does), else byte by byte, so no word straddles
+// two images whatever n % 16 is. A single image is the batch of one.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -27,11 +35,14 @@ __device__ __forceinline__ uint32_t map_word(uint32_t w, const uint8_t* lut) {
            (static_cast<uint32_t>(lut[w >> 24]) << 24);
 }
 
+// Image blockIdx.y: values and out + n blockIdx.y, luts + 256 blockIdx.y.
 __global__ void __launch_bounds__(THREADS)
-lut_apply_kernel(const uint8_t* __restrict__ values, uint8_t* __restrict__ out,
-                 const uint8_t* __restrict__ lut, long long n) {
+lut_apply_kernel(const uint8_t* __restrict__ batch, uint8_t* __restrict__ batch_out,
+                 const uint8_t* __restrict__ luts, long long n) {
     __shared__ uint8_t slut[256];
-    for (int i = threadIdx.x; i < 256; i += THREADS) slut[i] = lut[i];
+    const uint8_t* __restrict__ values = batch + n * blockIdx.y;
+    uint8_t* __restrict__ out = batch_out + n * blockIdx.y;
+    for (int i = threadIdx.x; i < 256; i += THREADS) slut[i] = luts[256 * blockIdx.y + i];
     __syncthreads();
 
     const long long stride = static_cast<long long>(gridDim.x) * THREADS;
@@ -54,21 +65,35 @@ lut_apply_kernel(const uint8_t* __restrict__ values, uint8_t* __restrict__ out,
     }
 }
 
+// N images of n values: one 16-byte word per thread, at most 65535 blocks an
+// image (a grid-stride loop covers the rest).
+int launch(const void* values, void* out, const void* luts, int N, long long n, int device,
+           void* stream) {
+    if (N < 1 || N > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    long long blocks = (n / 16 + THREADS - 1) / THREADS;
+    if (blocks < 1) blocks = 1;
+    if (blocks > 65535) blocks = 65535;
+    lut_apply_kernel<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(N)), THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(values), static_cast<uint8_t*>(out),
+        static_cast<const uint8_t*>(luts), n);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int ipt_lut_apply(const void* values, void* out, const void* lut, long long n,
                              int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    // One 16-byte word per thread, capped: a grid-stride loop covers the rest.
-    long long blocks = (n / 16 + THREADS - 1) / THREADS;
-    if (blocks < 1) blocks = 1;
-    if (blocks > 65535) blocks = 65535;
-    lut_apply_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(values), static_cast<uint8_t*>(out),
-        static_cast<const uint8_t*>(lut), n);
-    return static_cast<int>(cudaGetLastError());
+    return launch(values, out, lut, 1, n, device, stream);
+}
+
+// values uint8[N, n] -> out uint8[N, n], image b through luts[b] (uint8[N,
+// 256]), in one launch.
+extern "C" int ipt_lut_apply_batch(const void* values, void* out, const void* luts, int N,
+                                   long long n, int device, void* stream) {
+    return launch(values, out, luts, N, n, device, stream);
 }
 
 // Shared by every entry point's wrapper to word its errors.

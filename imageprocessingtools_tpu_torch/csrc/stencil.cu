@@ -40,6 +40,15 @@
 // sharing column sums between neighbours (box: one vertical sum; Sobel:
 // a + 2b + c and c - a), and stores the run as one 16-byte vector when the
 // rows are 16-byte aligned.
+//
+// K7's batch axis (the counterpart of jax.vmap of _make_stencil3's kernels):
+// uint8[N, H, W] -> uint8[N, H, W] in one launch, image n on grid.z (at most
+// 65535). A block's tile and its halo rows lie in its own image (the rows
+// clamp to that image's first and last), so no halo reads across two
+// images. With W % 16 == 0 every image starts where the first does modulo
+// 16, so the aligned path holds for all of them when it holds for the
+// first. A single image is launched without the batch offset
+// (stencil3_kernel<..., false>).
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -308,8 +317,10 @@ __device__ __forceinline__ void read_run(const uint8_t* row, int tx, int lead, i
 }
 
 // kAligned: src, out and W are multiples of 16, so every row starts on a
-// 16-byte boundary and the runs load and store as 16-byte vectors.
-template <class Op, bool kAligned>
+// 16-byte boundary and the runs load and store as 16-byte vectors. kBatch:
+// image blockIdx.z of the batch; a single image is compiled without its
+// offset.
+template <class Op, bool kAligned, bool kBatch>
 __global__ void __launch_bounds__(S_THREADS, 4)
 stencil3_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ out, int H, int W) {
     // smem row r holds image row clamp(y0 - 1 + r) from column
@@ -321,6 +332,11 @@ stencil3_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ out, int 
     const int tx = threadIdx.x, ty = threadIdx.y;
     const int x0 = blockIdx.x * S_TILE_W;
     const int y0 = blockIdx.y * S_TILE_H;
+    if constexpr (kBatch) {
+        const size_t image = static_cast<size_t>(blockIdx.z) * H * W;  // image blockIdx.z's offset
+        src += image;
+        out += image;
+    }
     for (int r = ty; r < S_HALO_H; r += S_TY) {
         const uint8_t* row = src + static_cast<size_t>(min(max(y0 + r - 1, 0), H - 1)) * W;
         const int lead = kAligned ? 0 : static_cast<int>((reinterpret_cast<uintptr_t>(row) + x0) & 15);
@@ -376,21 +392,22 @@ stencil3_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ out, int 
 }
 
 template <class Op>
-int launch_stencil3(const void* src, void* out, int H, int W, int device, void* stream) {
+int launch_stencil3(const void* src, void* out, int N, int H, int W, int device, void* stream) {
+    if (N < 1 || N > 65535) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((W + S_TILE_W - 1) / S_TILE_W, (H + S_TILE_H - 1) / S_TILE_H);
+    const dim3 grid((W + S_TILE_W - 1) / S_TILE_W, (H + S_TILE_H - 1) / S_TILE_H, N);
     const dim3 block(S_TX, S_TY);
     const bool aligned =
         ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(out) | W) & 15) == 0;
     const auto s = static_cast<cudaStream_t>(stream);
     const auto* in = static_cast<const uint8_t*>(src);
     auto* o = static_cast<uint8_t*>(out);
-    if (aligned) {
-        stencil3_kernel<Op, true><<<grid, block, 0, s>>>(in, o, H, W);
-    } else {
-        stencil3_kernel<Op, false><<<grid, block, 0, s>>>(in, o, H, W);
-    }
+    using Kernel = void (*)(const uint8_t*, uint8_t*, int, int);
+    const Kernel kernels[2][2] = {  // [aligned][a batch]
+        {stencil3_kernel<Op, false, false>, stencil3_kernel<Op, false, true>},
+        {stencil3_kernel<Op, true, false>, stencil3_kernel<Op, true, true>}};
+    kernels[aligned][N > 1]<<<grid, block, 0, s>>>(in, o, H, W);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,17 +435,33 @@ extern "C" int ipt_gaussian_blur(const void* src, void* out, int H, int W, int d
 
 extern "C" int ipt_box_blur(const void* src, void* out, int H, int W, int device,
                             void* stream) {
-    return launch_stencil3<BoxBlur>(src, out, H, W, device, stream);
+    return launch_stencil3<BoxBlur>(src, out, 1, H, W, device, stream);
 }
 
 extern "C" int ipt_sharpen(const void* src, void* out, int H, int W, int device,
                            void* stream) {
-    return launch_stencil3<Sharpen>(src, out, H, W, device, stream);
+    return launch_stencil3<Sharpen>(src, out, 1, H, W, device, stream);
 }
 
 extern "C" int ipt_sobel(const void* src, void* out, int H, int W, int device,
                          void* stream) {
-    return launch_stencil3<Sobel>(src, out, H, W, device, stream);
+    return launch_stencil3<Sobel>(src, out, 1, H, W, device, stream);
+}
+
+// K7 over a batch: src uint8[N, H, W] -> out uint8[N, H, W], in one launch.
+extern "C" int ipt_box_blur_batch(const void* src, void* out, int N, int H, int W, int device,
+                                  void* stream) {
+    return launch_stencil3<BoxBlur>(src, out, N, H, W, device, stream);
+}
+
+extern "C" int ipt_sharpen_batch(const void* src, void* out, int N, int H, int W, int device,
+                                 void* stream) {
+    return launch_stencil3<Sharpen>(src, out, N, H, W, device, stream);
+}
+
+extern "C" int ipt_sobel_batch(const void* src, void* out, int N, int H, int W, int device,
+                               void* stream) {
+    return launch_stencil3<Sobel>(src, out, N, H, W, device, stream);
 }
 
 // Test entry: out[m] = Sobel's clipped root of m for 0 <= m < n (int32 out[n]).

@@ -52,4 +52,4 @@ def counted_wrappers() -> tuple:
 
     return (rotate.rotate_bicubic, core.gray_gauss_hist, core.gray_gauss,
             core.fused_elementwise, core.lut_apply, core.histogram, core.gaussian_blur,
-            core.box_blur, core.sharpen, core.sobel, resize.resize_pass)
+            core.box_blur, core.sharpen, core.sobel, resize.resize_pass) + core.BATCH_WRAPPERS

@@ -69,12 +69,19 @@ _SIGNATURES = {
     "ipt_gray_gauss_hist": [_P, _P, _P, _I, _I, _I, _P],
     # rgb, out, H, W, device, stream
     "ipt_gray_gauss": [_P, _P, _I, _I, _I, _P],
+    # the batch forms: rgb, out, (hist,) N, H, W, device, stream
+    "ipt_gray_gauss_hist_batch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "ipt_gray_gauss_batch": [_P, _P, _I, _I, _I, _I, _P],
     # rgb, out, table (or None for the empty chain), n pixels, device, stream
     "ipt_fused_elementwise": [_P, _P, _P, ctypes.c_longlong, _I, _P],
     # values, out, lut, n, device, stream
     "ipt_lut_apply": [_P, _P, _P, ctypes.c_longlong, _I, _P],
+    # values, out, luts, N, n per image, device, stream
+    "ipt_lut_apply_batch": [_P, _P, _P, _I, ctypes.c_longlong, _I, _P],
     # values, hist, n, device, stream, arrival words (or None for the stream's own)
     "ipt_histogram": [_P, _P, ctypes.c_longlong, _I, _P, _P],
+    # values, hist, N, n per image, device, stream, N times the arrival words
+    "ipt_histogram_batch": [_P, _P, _I, ctypes.c_longlong, _I, _P, _P],
     # (): the number of 64-bit arrival words a K4 launch uses
     "ipt_histogram_arrival_words": [],
     # src, out, H, W, device, stream
@@ -82,6 +89,10 @@ _SIGNATURES = {
     "ipt_box_blur": [_P, _P, _I, _I, _I, _P],
     "ipt_sharpen": [_P, _P, _I, _I, _I, _P],
     "ipt_sobel": [_P, _P, _I, _I, _I, _P],
+    # src, out, N, H, W, device, stream
+    "ipt_box_blur_batch": [_P, _P, _I, _I, _I, _I, _P],
+    "ipt_sharpen_batch": [_P, _P, _I, _I, _I, _I, _P],
+    "ipt_sobel_batch": [_P, _P, _I, _I, _I, _I, _P],
     # src, dst, idx, w, rows, cols, channels, out_size, taps, dim, vec (dim 0's bytes
     # per thread), device, stream
     "ipt_resize_pass": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _I,

@@ -26,6 +26,17 @@ Counterpart of ``imageprocessingtools_tpu/kernels/pallas_core.py``:
   static chain of invert, brightness, contrast and threshold. With the
   empty chain it is ``ops.color.grayscale`` on a CUDA tensor.
 
+K2, K6, K4, K3 and K7 also take a batch axis, the counterpart of
+``jax.vmap`` over their Pallas kernels (whose batching rule adds a leading
+grid axis): ``gray_gauss_hist_batch``, ``gray_gauss_batch``,
+``histogram_batch``, ``lut_apply_batch``, ``box_blur_batch``,
+``sharpen_batch`` and ``sobel_batch`` map uint8[N, ...] to outputs with a
+leading N in one launch over the whole batch, each image on its own, as
+the single-image wrapper maps it. Their plain versions (``*_batch_plain``)
+are the single-image plain versions image by image, stacked. A batched
+launch takes at most ``MAX_BATCH`` images (K3, K4 and K7 put the image on a
+grid axis); K2's and K6's limit is their tile count over the batch.
+
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor. Offsets into an image are 64-bit in every kernel,
 so an image of 2^31 bytes or more is one launch; what a launch cannot take
@@ -51,6 +62,7 @@ from imageprocessingtools_tpu_torch.kernels import _build
 from imageprocessingtools_tpu_torch.utils import graphs
 
 _MAX_GRID_Y = 65535 * 32  # image rows per K7 launch: grid.y tiles of 32 rows
+MAX_BATCH = 65535  # images per batched K3, K4 or K7 launch: a grid axis
 _TILE_W, _TILE_H = 256, 16  # K2, K5 and K6's output tiles
 
 _GAUSS_TAPS = (1, 4, 6, 4, 1)
@@ -191,6 +203,59 @@ def gray_gauss_hist_plain(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
     return blurred, histogram_plain(blurred)
 
 
+def _stacked(outs: list, shape: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """Per-image outputs of ``shape`` stacked along a new leading axis
+    (an empty [0, *shape] tensor for no images)."""
+    if not outs:
+        return torch.empty((0,) + tuple(shape), dtype=dtype, device=device)
+    return torch.stack(outs)
+
+
+def gray_gauss_batch_plain(imgs: torch.Tensor) -> torch.Tensor:
+    """Plain torch form of K6 over a batch: ``gray_gauss_plain`` per image."""
+    return _stacked([gray_gauss_plain(x) for x in imgs], imgs.shape[1:3], torch.uint8,
+                    imgs.device)
+
+
+def gray_gauss_hist_batch_plain(imgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch form of K2 over a batch: ``gray_gauss_hist_plain`` per image."""
+    outs = [gray_gauss_hist_plain(x) for x in imgs]
+    return (_stacked([o[0] for o in outs], imgs.shape[1:3], torch.uint8, imgs.device),
+            _stacked([o[1] for o in outs], (256,), torch.int32, imgs.device))
+
+
+def histogram_batch_plain(values: torch.Tensor) -> torch.Tensor:
+    """Plain torch form of K4 over a batch: uint8[N, ...] -> int32[N, 256],
+    ``histogram_plain`` per image."""
+    return _stacked([histogram_plain(v) for v in values], (256,), torch.int32, values.device)
+
+
+def lut_apply_batch_plain(values: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """Plain torch form of K3 over a batch: image i of uint8[N, ...] through
+    row i of uint8[N, 256], ``lut_apply_plain`` per image."""
+    return _stacked([lut_apply_plain(v, lut) for v, lut in zip(values, luts)],
+                    values.shape[1:], torch.uint8, values.device)
+
+
+def _stencil_batch_plain(plain, imgs: torch.Tensor) -> torch.Tensor:
+    return _stacked([plain(x) for x in imgs], imgs.shape[1:], torch.uint8, imgs.device)
+
+
+def box_blur_batch_plain(imgs: torch.Tensor) -> torch.Tensor:
+    """Plain torch form of K7 box over a batch, ``box_blur_plain`` per image."""
+    return _stencil_batch_plain(box_blur_plain, imgs)
+
+
+def sharpen_batch_plain(imgs: torch.Tensor) -> torch.Tensor:
+    """Plain torch form of K7 sharpen over a batch, ``sharpen_plain`` per image."""
+    return _stencil_batch_plain(sharpen_plain, imgs)
+
+
+def sobel_batch_plain(imgs: torch.Tensor) -> torch.Tensor:
+    """Plain torch form of K7 Sobel over a batch, ``sobel_plain`` per image."""
+    return _stencil_batch_plain(sobel_plain, imgs)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: the plain version on a CPU tensor, the kernel on a CUDA tensor.
 # ---------------------------------------------------------------------------
@@ -205,16 +270,23 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _tiles_limit(h: int, w: int) -> str | None:
-    tiles = -(-w // _TILE_W) * -(-h // _TILE_H)
+def _tiles_limit(h: int, w: int, n: int = 1) -> str | None:
+    tiles = n * -(-w // _TILE_W) * -(-h // _TILE_H)
     return f"{tiles} tiles do not fit a C int" if tiles > _build.INT_MAX else None
 
 
-def gray_gauss_limit(h: int, w: int) -> str | None:
-    """Why K2 or K6 cannot take uint8[h, w, 3] in one launch, or None: their
-    C entries take H and W as ints (3 W bytes a row) and count tiles in an
-    int. Offsets into the image are 64-bit, so its size is no limit."""
-    return _build.int_limit(h, 3 * w) or _tiles_limit(h, w)
+def batch_limit(n: int) -> str | None:
+    """Why a batched K3, K4 or K7 launch cannot take ``n`` images, or None:
+    the image is a grid axis of at most ``MAX_BATCH``."""
+    return f"{n} images exceed the grid's {MAX_BATCH}" if n > MAX_BATCH else None
+
+
+def gray_gauss_limit(h: int, w: int, n: int = 1) -> str | None:
+    """Why K2 or K6 cannot take ``n`` images of uint8[h, w, 3] in one
+    launch, or None: their C entries take H and W as ints (3 W bytes a row)
+    and count the tiles of all ``n`` images in an int. Offsets into the
+    images are 64-bit, so their size is no limit."""
+    return _build.int_limit(h, 3 * w) or _tiles_limit(h, w, n)
 
 
 def gaussian_blur_limit(h: int, w: int) -> str | None:
@@ -222,55 +294,73 @@ def gaussian_blur_limit(h: int, w: int) -> str | None:
     return _build.int_limit(h, w) or _tiles_limit(h, w)
 
 
-def stencil3_limit(h: int, w: int) -> str | None:
-    """Why K7 cannot take uint8[h, w] in one launch, or None: a 2-D grid
-    of 32-row tiles takes at most ``_MAX_GRID_Y`` rows."""
+def stencil3_limit(h: int, w: int, n: int = 1) -> str | None:
+    """Why K7 cannot take ``n`` images of uint8[h, w] in one launch, or
+    None: a 3-D grid of 32-row tiles takes at most ``_MAX_GRID_Y`` rows an
+    image and ``MAX_BATCH`` images."""
     if h > _MAX_GRID_Y:
         return f"{h} rows exceed the grid's {_MAX_GRID_Y}"
-    return _build.int_limit(h, w)
+    return _build.int_limit(h, w) or batch_limit(n)
 
 
-def _refuse(name: str, img: torch.Tensor, limit) -> None:
-    reason = limit(img.shape[0], img.shape[1])
+def _refuse(name: str, img: torch.Tensor, limit, batch: bool = False) -> None:
+    """Raise ``TooLarge`` where ``limit`` refuses ``img`` (uint8[H, W, ...],
+    or with ``batch`` uint8[N, H, W, ...])."""
+    if batch:
+        n, h, w = img.shape[:3]
+        reason, what = limit(h, w, n), f"{n}x{h}x{w}"
+    else:
+        h, w = img.shape[:2]
+        reason, what = limit(h, w), f"{h}x{w}"
     if reason:
-        raise _build.TooLarge(f"{name}: {img.shape[0]}x{img.shape[1]} is too large: {reason}")
+        raise _build.TooLarge(f"{name}: {what} is too large: {reason}")
 
 
-def _check_gray(name: str, img: torch.Tensor, limit) -> None:
+def _check_gray(name: str, img: torch.Tensor, limit, batch: bool = False) -> None:
     _require_cuda(name, img)
-    if img.dtype != torch.uint8 or img.ndim != 2 or not img.is_contiguous():
+    if img.dtype != torch.uint8 or img.ndim != 2 + batch or not img.is_contiguous():
         raise TypeError(
-            f"{name}: need a contiguous uint8[H, W] tensor, got "
+            f"{name}: need a contiguous uint8[{'N, ' * batch}H, W] tensor, got "
             f"{img.dtype} {tuple(img.shape)} contiguous={img.is_contiguous()}")
-    _refuse(name, img, limit)
+    _refuse(name, img, limit, batch)
 
 
-def _check_rgb(name: str, img: torch.Tensor) -> None:
+def _check_rgb(name: str, img: torch.Tensor, batch: bool = False) -> None:
     _require_cuda(name, img)
-    if (img.dtype != torch.uint8 or img.ndim != 3 or img.shape[2] != 3
+    if (img.dtype != torch.uint8 or img.ndim != 3 + batch or img.shape[-1] != 3
             or not img.is_contiguous()):
         raise TypeError(
-            f"{name}: need a contiguous uint8[H, W, 3] tensor, got "
+            f"{name}: need a contiguous uint8[{'N, ' * batch}H, W, 3] tensor, got "
             f"{img.dtype} {tuple(img.shape)} contiguous={img.is_contiguous()}")
-    _refuse(name, img, gray_gauss_limit)
+    _refuse(name, img, gray_gauss_limit, batch)
+
+
+def _gray_gauss(wrapper, entry: str, img: torch.Tensor, histogram: bool, batch: bool):
+    """The body of K2's and K6's wrappers on a CUDA tensor: uint8[(N,) H, W,
+    3] through the C entry point ``entry`` (counted on ``wrapper``), with
+    ``histogram`` each image's int32[256] histogram too."""
+    _check_rgb(wrapper.__name__, img, batch)
+    dims = tuple(img.shape[:-1])  # ([N,] H, W), the C entry's dimensions
+    if histogram:
+        _check_count(dims[-2] * dims[-1])  # each int32 histogram, as the plain version's
+    out = torch.empty(dims, dtype=torch.uint8, device=img.device)
+    hist = None
+    if histogram:
+        hist = torch.zeros(dims[:-2] + (256,), dtype=torch.int32, device=img.device)
+    if out.numel():
+        status = getattr(_build.library(), entry)(
+            img.data_ptr(), out.data_ptr(), *(() if hist is None else (hist.data_ptr(),)), *dims,
+            img.device.index, _stream(img))
+        _build.check(status, entry)
+        wrapper.launches += 1
+    return (out, hist) if histogram else out
 
 
 def gray_gauss_hist(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """uint8[H, W, 3] -> (uint8[H, W], int32[256]): K2 on CUDA, plain on CPU."""
     if img.device.type == "cpu":
         return gray_gauss_hist_plain(img)
-    _check_rgb("gray_gauss_hist", img)
-    h, w = img.shape[0], img.shape[1]
-    _check_count(h * w)  # the int32 histogram, as the plain version's
-    out = torch.empty((h, w), dtype=torch.uint8, device=img.device)
-    hist = torch.zeros(256, dtype=torch.int32, device=img.device)
-    if out.numel():
-        status = _build.library().ipt_gray_gauss_hist(
-            img.data_ptr(), out.data_ptr(), hist.data_ptr(), h, w,
-            img.device.index, _stream(img))
-        _build.check(status, "ipt_gray_gauss_hist")
-        gray_gauss_hist.launches += 1
-    return out, hist
+    return _gray_gauss(gray_gauss_hist, "ipt_gray_gauss_hist", img, True, False)
 
 
 def gray_gauss(img: torch.Tensor) -> torch.Tensor:
@@ -278,15 +368,24 @@ def gray_gauss(img: torch.Tensor) -> torch.Tensor:
     CUDA, plain on CPU."""
     if img.device.type == "cpu":
         return gray_gauss_plain(img)
-    _check_rgb("gray_gauss", img)
-    h, w = img.shape[0], img.shape[1]
-    out = torch.empty((h, w), dtype=torch.uint8, device=img.device)
-    if out.numel():
-        status = _build.library().ipt_gray_gauss(
-            img.data_ptr(), out.data_ptr(), h, w, img.device.index, _stream(img))
-        _build.check(status, "ipt_gray_gauss")
-        gray_gauss.launches += 1
-    return out
+    return _gray_gauss(gray_gauss, "ipt_gray_gauss", img, False, False)
+
+
+def gray_gauss_hist_batch(imgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """uint8[N, H, W, 3] -> (uint8[N, H, W], int32[N, 256]), each image as
+    ``gray_gauss_hist``: K2 over the batch in one launch on CUDA, the plain
+    batch version on CPU."""
+    if imgs.device.type == "cpu":
+        return gray_gauss_hist_batch_plain(imgs)
+    return _gray_gauss(gray_gauss_hist_batch, "ipt_gray_gauss_hist_batch", imgs, True, True)
+
+
+def gray_gauss_batch(imgs: torch.Tensor) -> torch.Tensor:
+    """uint8[N, H, W, 3] -> uint8[N, H, W], each image as ``gray_gauss``:
+    K6 over the batch in one launch on CUDA, the plain batch version on CPU."""
+    if imgs.device.type == "cpu":
+        return gray_gauss_batch_plain(imgs)
+    return _gray_gauss(gray_gauss_batch, "ipt_gray_gauss_batch", imgs, False, True)
 
 
 @graphs.device_table(maxsize=64)
@@ -321,15 +420,19 @@ def fused_elementwise(img: torch.Tensor, chain=()) -> torch.Tensor:
     return out
 
 
+def _check_values(name: str, values: torch.Tensor) -> None:
+    _require_cuda(name, values)
+    if values.dtype != torch.uint8 or not values.is_contiguous():
+        raise TypeError(
+            f"{name}: need contiguous uint8 values, got {values.dtype} "
+            f"contiguous={values.is_contiguous()}")
+
+
 def lut_apply(values: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     """uint8 values through a uint8[256] LUT: K3 on CUDA, plain on CPU."""
     if values.device.type == "cpu":
         return lut_apply_plain(values, lut)
-    _require_cuda("lut_apply", values)
-    if values.dtype != torch.uint8 or not values.is_contiguous():
-        raise TypeError(
-            f"lut_apply: need contiguous uint8 values, got {values.dtype} "
-            f"contiguous={values.is_contiguous()}")
+    _check_values("lut_apply", values)
     if (lut.device != values.device or lut.dtype != torch.uint8
             or tuple(lut.shape) != (256,) or not lut.is_contiguous()):
         raise TypeError(
@@ -345,16 +448,75 @@ def lut_apply(values: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def lut_apply_batch(values: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """Image i of uint8[N, ...] through row i of uint8[N, 256], each as
+    ``lut_apply``: K3 over the batch in one launch on CUDA, the plain batch
+    version on CPU."""
+    if values.device.type == "cpu":
+        return lut_apply_batch_plain(values, luts)
+    _check_values("lut_apply_batch", values)
+    n = values.shape[0] if values.ndim else 0
+    if (values.ndim < 1 or luts.device != values.device or luts.dtype != torch.uint8
+            or tuple(luts.shape) != (n, 256) or not luts.is_contiguous()):
+        raise TypeError(
+            f"lut_apply_batch: need uint8[N, ...] values and a contiguous uint8[N, 256] "
+            f"on {values.device}, got {tuple(values.shape)} and {luts.dtype} "
+            f"{tuple(luts.shape)} on {luts.device}")
+    reason = batch_limit(n)
+    if reason:
+        raise _build.TooLarge(f"lut_apply_batch: {tuple(values.shape)} is too large: {reason}")
+    out = torch.empty_like(values)
+    if out.numel():
+        status = _build.library().ipt_lut_apply_batch(
+            values.data_ptr(), out.data_ptr(), luts.data_ptr(), n, values.numel() // n,
+            values.device.index, _stream(values))
+        _build.check(status, "ipt_lut_apply_batch")
+        lut_apply_batch.launches += 1
+    return out
+
+
+def _arrival_words(n: int, device: torch.device) -> torch.Tensor:
+    """Zeroed arrival words for ``n`` images of a K4 launch, made by the
+    caller: under capture from the graph's pool, zeroed by a node of the graph
+    just before K4's (at every replay, because the block goes back to the
+    pool when the wrapper returns and later nodes may reuse it)."""
+    return torch.zeros(n * _build.library().ipt_histogram_arrival_words(), dtype=torch.int64,
+                       device=device)
+
+
+def histogram_batch(values: torch.Tensor) -> torch.Tensor:
+    """uint8[N, ...] -> int32[N, 256], each image's bin counts as
+    ``histogram`` gives them: K4 over the batch in one launch on CUDA, the
+    plain batch version on CPU. Exact below 2^31 elements an image; raises
+    ValueError at or above."""
+    if values.device.type == "cpu":
+        return histogram_batch_plain(values)
+    _check_values("histogram_batch", values)
+    if values.ndim < 1:
+        raise TypeError(f"histogram_batch: need uint8[N, ...] values, got {tuple(values.shape)}")
+    n = values.shape[0]
+    per_image = values[0].numel() if n else 0
+    _check_count(per_image)
+    reason = batch_limit(n)
+    if reason:
+        raise _build.TooLarge(f"histogram_batch: {tuple(values.shape)} is too large: {reason}")
+    if not values.numel():
+        return torch.zeros((n, 256), dtype=torch.int32, device=values.device)
+    hist = torch.empty((n, 256), dtype=torch.int32, device=values.device)  # K4 stores every bin
+    status = _build.library().ipt_histogram_batch(
+        values.data_ptr(), hist.data_ptr(), n, per_image, values.device.index, _stream(values),
+        _arrival_words(n, values.device).data_ptr())
+    _build.check(status, "ipt_histogram_batch")
+    histogram_batch.launches += 1
+    return hist
+
+
 def histogram(values: torch.Tensor) -> torch.Tensor:
     """uint8[...] -> int32[256] bin counts: K4 on CUDA, plain on CPU.
     Exact below 2^31 elements; raises ValueError at or above."""
     if values.device.type == "cpu":
         return histogram_plain(values)
-    _require_cuda("histogram", values)
-    if values.dtype != torch.uint8 or not values.is_contiguous():
-        raise TypeError(
-            f"histogram: need contiguous uint8 values, got {values.dtype} "
-            f"contiguous={values.is_contiguous()}")
+    _check_values("histogram", values)
     _check_count(values.numel())
     if not values.numel():
         return torch.zeros(256, dtype=torch.int32, device=values.device)
@@ -362,12 +524,8 @@ def histogram(values: torch.Tensor) -> torch.Tensor:
     words = None  # eager: the stream's own arrival words, made by the C at first use
     if torch.cuda.is_current_stream_capturing():
         # A capture may not allocate in the C, and a graph may run beside any
-        # stream or other graph: it gets words of its own from its pool,
-        # zeroed by a node of the graph just before K4's. The node runs at
-        # every replay, because the block goes back to the graph's pool when
-        # this call returns and later nodes of the graph may reuse it.
-        words = torch.zeros(_build.library().ipt_histogram_arrival_words(),
-                            dtype=torch.int64, device=values.device)
+        # stream or other graph: it gets words of its own from its pool.
+        words = _arrival_words(1, values.device)
     status = _build.library().ipt_histogram(
         values.data_ptr(), hist.data_ptr(), values.numel(),
         values.device.index, _stream(values), None if words is None else words.data_ptr())
@@ -376,22 +534,40 @@ def histogram(values: torch.Tensor) -> torch.Tensor:
     return hist
 
 
-def _stencil(wrapper, entry: str, plain, img: torch.Tensor,
-             limit=stencil3_limit) -> torch.Tensor:
+def _stencil(wrapper, entry: str, plain, img: torch.Tensor, limit=stencil3_limit,
+             batch: bool = False) -> torch.Tensor:
     """The body of one stencil wrapper: ``plain`` on a CPU tensor, the C
-    entry point ``entry`` on a CUDA tensor (counted on ``wrapper``).
-    ``limit``: the launch's limit function (K7's by default)."""
+    entry point ``entry`` on a CUDA tensor, uint8[H, W] (or with ``batch``
+    uint8[N, H, W], in one launch), counted on ``wrapper``. ``limit``: the
+    launch's limit function (K7's by default)."""
     if img.device.type == "cpu":
         return plain(img)
-    _check_gray(wrapper.__name__, img, limit)
+    _check_gray(wrapper.__name__, img, limit, batch)
     out = torch.empty_like(img)
     if out.numel():
         status = getattr(_build.library(), entry)(
-            img.data_ptr(), out.data_ptr(), img.shape[0], img.shape[1],
-            img.device.index, _stream(img))
+            img.data_ptr(), out.data_ptr(), *img.shape, img.device.index, _stream(img))
         _build.check(status, entry)
         wrapper.launches += 1
     return out
+
+
+def box_blur_batch(imgs: torch.Tensor) -> torch.Tensor:
+    """3x3 box of each image of uint8[N, H, W]: K7 over the batch on CUDA."""
+    return _stencil(box_blur_batch, "ipt_box_blur_batch", box_blur_batch_plain, imgs,
+                    batch=True)
+
+
+def sharpen_batch(imgs: torch.Tensor) -> torch.Tensor:
+    """3x3 sharpen of each image of uint8[N, H, W]: K7 over the batch on CUDA."""
+    return _stencil(sharpen_batch, "ipt_sharpen_batch", sharpen_batch_plain, imgs,
+                    batch=True)
+
+
+def sobel_batch(imgs: torch.Tensor) -> torch.Tensor:
+    """Sobel magnitude of each image of uint8[N, H, W]: K7 over the batch on CUDA."""
+    return _stencil(sobel_batch, "ipt_sobel_batch", sobel_batch_plain, imgs,
+                    batch=True)
 
 
 def gaussian_blur(img: torch.Tensor) -> torch.Tensor:
@@ -415,7 +591,10 @@ def sobel(img: torch.Tensor) -> torch.Tensor:
     return _stencil(sobel, "ipt_sobel", sobel_plain, img)
 
 
+BATCH_WRAPPERS = (gray_gauss_hist_batch, gray_gauss_batch, lut_apply_batch, histogram_batch,
+                  box_blur_batch, sharpen_batch, sobel_batch)
+
 for _wrapper in (gray_gauss_hist, gray_gauss, fused_elementwise, lut_apply, histogram,
-                 gaussian_blur, box_blur, sharpen, sobel):
+                 gaussian_blur, box_blur, sharpen, sobel) + BATCH_WRAPPERS:
     _wrapper.launches = 0
 del _wrapper

@@ -6,6 +6,13 @@ kernels: ``edge_detect`` through K6 (gray fused into the Gaussian, as XLA
 fuses the two stages for the JAX package) and K7 (Sobel), ``enhance``
 through K8 (gray), K4, K3 and K7 (sharpen), ``print_ready`` through K8, K4
 and K3, ``thumbnail`` through K9 (one launch per axis; exact, like the rest).
+
+``edge_detect``, ``enhance`` and ``print_ready`` carry batch forms
+(``utils/graphs.py::batch_form``), the counterpart of ``jax.vmap`` of the
+preset: uint8[N, H, W, 3] -> uint8[N, H, W], each image as the preset
+gives it, each kernel launched once over the batch (K6 and K7 Sobel; K8,
+K4, K3 and K7 sharpen; K8, K4 and K3, then the dither). ``thumbnail`` has
+none yet: K9 runs per image.
 """
 
 from __future__ import annotations
@@ -18,7 +25,9 @@ from imageprocessingtools_tpu_torch import ops
 from imageprocessingtools_tpu_torch.codec.ppm import FILETYPE_PBM, FILETYPE_PGM, FILETYPE_PPM
 from imageprocessingtools_tpu_torch.kernels import core
 from imageprocessingtools_tpu_torch.ops import _exact
+from imageprocessingtools_tpu_torch.ops.histogram import equalize_histogram_batch
 from imageprocessingtools_tpu_torch.pipeline import PipelineConfig, run_pipeline
+from imageprocessingtools_tpu_torch.utils.graphs import batch_form
 
 THUMBNAIL_WIDTH = 256
 
@@ -51,6 +60,25 @@ def thumbnail(img: torch.Tensor, width: int = 256) -> torch.Tensor:
 def print_ready(img: torch.Tensor) -> torch.Tensor:
     """gray -> contrast stretch -> Bayer bilevel (P4-ready bits)."""
     eq = ops.equalize_histogram(ops.grayscale(img))
+    return ops.mono_dither(eq[..., None].expand(eq.shape + (3,)))
+
+
+@batch_form(edge_detect)
+def edge_detect_batch(imgs: torch.Tensor) -> torch.Tensor:
+    """``edge_detect`` of each image of uint8[N, H, W, 3]."""
+    return core.sobel_batch(core.gray_gauss_batch(imgs.contiguous()))
+
+
+@batch_form(enhance)
+def enhance_batch(imgs: torch.Tensor) -> torch.Tensor:
+    """``enhance`` of each image of uint8[N, H, W, 3]."""
+    return core.sharpen_batch(equalize_histogram_batch(ops.grayscale(imgs)))
+
+
+@batch_form(print_ready)
+def print_ready_batch(imgs: torch.Tensor) -> torch.Tensor:
+    """``print_ready`` of each image of uint8[N, H, W, 3]."""
+    eq = equalize_histogram_batch(ops.grayscale(imgs))
     return ops.mono_dither(eq[..., None].expand(eq.shape + (3,)))
 
 

@@ -24,8 +24,10 @@ def _thresholds(device: torch.device) -> torch.Tensor:
 
 
 def mono_dither(img: torch.Tensor) -> torch.Tensor:
-    """uint8[H, W, 3] -> uint8[H, W] in {0, 1}, 1 = black. Bit-exact."""
-    h, w = img.shape[0], img.shape[1]
+    """uint8[..., H, W, 3] -> uint8[..., H, W] in {0, 1}, 1 = black.
+    Bit-exact. Leading axes are a batch: each image is dithered on its own
+    (the JAX ``mono_dither`` under ``jax.vmap``)."""
+    h, w = img.shape[-3], img.shape[-2]
     avg = img.to(torch.int32).sum(-1) // 3
     table = _thresholds(img.device)
     ys = torch.arange(h, device=img.device) % 4

@@ -5,8 +5,9 @@ Counterpart of ``imageprocessingtools_tpu/parallel/batch.py``. There a batch
 is ``vmap`` under ``jit`` (``_jitted_vmap``, ``_shard_mapped_vmap``),
 sharded over a device mesh. Here it is ``utils.graphs.batched``: on a CUDA
 device, replays of CUDA graphs over groups of images, each graph holding
-its group's per-image launches (the images are independent and every kernel
-keeps its single-image signature); on a CPU device the eager loop. A mesh is
+its group's batch form where the function has one (each kernel launched
+once over the group, as ``jax.vmap`` makes one kernel over the batch), else
+its per-image launches; on a CPU device the same group body, eagerly. A mesh is
 a tuple of devices (``default_mesh``); ``batch_apply`` gives each device an
 equal shard of the batch, runs it there on graphs of that device's own (no
 graph spans two cards), and returns the shards' outputs, which the caller
@@ -97,7 +98,8 @@ def gather(shards: list, device="cpu"):
 
 def batched_fused_pipeline(images, mesh: tuple | None = None):
     """Batched flagship pipeline (gray -> 5x5 Gaussian -> histogram
-    equalization): uint8[N, H, W, 3] -> uint8[N, H, W], each image through
-    ``fused_pipeline_mega`` (K2 and K3 on a CUDA device); with ``mesh``,
-    the shards' outputs (see ``batch_apply``)."""
+    equalization): uint8[N, H, W, 3] -> uint8[N, H, W], each image as
+    ``fused_pipeline_mega`` gives it, through its batch form (K2 and K3
+    once per group of images on a CUDA device); with ``mesh``, the shards'
+    outputs (see ``batch_apply``), each card's groups on its own graphs."""
     return batch_apply(fused_pipeline_mega, images, mesh)

@@ -18,6 +18,12 @@ group of G images (``utils.graphs.batched``), each group's host images
 copied straight into the graph's input. As in JAX, the task callables are
 cached (``_pipeline_fn``, ``_preset_pipeline_fn``, ``_fanout_pipeline_fn``),
 so one chunk's graphs are found again by the next chunk of that shape.
+Where ``jax.vmap`` makes one kernel over the batch, a task callable carries
+a batch form (``utils/graphs.py::batch_form``): a preset's that has one
+(edge_detect, enhance, print_ready, with P4 packing), and a fan-out's where
+any element has one (each element in its batch form where it has one, the
+rest per image, in one graph per group). The reference configs and
+``thumbnail`` run per image.
 
 ``process_file_spatial`` takes one giant image in row bands over a mesh
 (``parallel/spatial.py``), decoded once and uploaded once for every fan-out
@@ -49,6 +55,7 @@ from imageprocessingtools_tpu_torch.ops.packing import pack_bits_device
 from imageprocessingtools_tpu_torch.parallel import spatial
 from imageprocessingtools_tpu_torch.parallel.batch import batch_apply, default_mesh
 from imageprocessingtools_tpu_torch.pipeline import PipelineConfig, run_pipeline
+from imageprocessingtools_tpu_torch.utils import graphs
 
 
 @functools.lru_cache(maxsize=64)
@@ -70,17 +77,20 @@ def _pipeline_fn(config: PipelineConfig):
 @functools.lru_cache(maxsize=64)
 def _preset_pipeline_fn(name: str):
     """(single-image fn, file_type) for a models/ preset name. PBM presets
-    pack bits on the device like the reference mono path. Cached, as
-    ``_pipeline_fn`` is."""
+    pack bits on the device like the reference mono path. The fn carries the
+    preset's batch form where it has one. Cached, as ``_pipeline_fn`` is."""
     fn = get_preset(name)  # raises ValueError for unknown names
     file_type = PRESET_FILE_TYPES[name]
 
-    def one(img):
-        out = fn(img)
-        if file_type == FILETYPE_PBM:
-            out = pack_bits_device(out)
-        return out
+    def finish(out):
+        return pack_bits_device(out) if file_type == FILETYPE_PBM else out
 
+    def one(img):
+        return finish(fn(img))
+
+    form = graphs.batch_form_of(fn)
+    if form is not None:
+        graphs.batch_form(one)(lambda imgs: finish(form(imgs)))
     one.__qualname__ = f"task {name}"
     return one, file_type
 
@@ -134,6 +144,8 @@ def _fanout_pipeline_fn(items: tuple):
     def one(img):
         return tuple(fn(img) for fn in fns)
 
+    if any(graphs.batch_form_of(fn) is not None for fn in fns):
+        graphs.batch_form(one)(lambda imgs: tuple(graphs.over_group(fn, imgs) for fn in fns))
     one.__qualname__ = f"task {';'.join(tags)}"
     return one, file_types
 

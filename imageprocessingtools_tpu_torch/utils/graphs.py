@@ -33,16 +33,27 @@ which one replay runs on the card with no host work between its launches.
 - ``batched(fn)``: ``fn`` over a leading dimension, the counterpart of
   ``jax.jit(jax.vmap(fn))`` (``imageprocessingtools_tpu/serving.py:147-149``,
   ``parallel/batch.py:53-92``). N images of one shape run in groups of G
-  (``group_size``: as many as ``GROUP_INPUT_BYTES`` of input hold;
-  ``spans``): on a CUDA device, one graph per (fn, device, image shape,
-  dtype, images in the group) holds the group's per-image launches and
-  their outputs; the images are copied from where they lie (the host, for
-  serving) straight into the graph's static input, and the batch is ⌊N/G⌋
-  replays of the G-image graph and one replay of the remainder's, each
-  group's outputs stacked out of the graph into fresh tensors (one copy,
-  as the eager loop's ``torch.stack`` is). On a CPU device each group is
-  the eager per-image loop (``eager_batch`` is the plain form of this
-  dispatch).
+  (``group_size``: as many as ``GROUP_INPUT_BYTES`` of input hold, at most
+  ``GROUP_IMAGES``; ``spans``): on a CUDA device, one graph per (fn,
+  device, image shape, dtype, images in the group); the images are copied
+  from where they lie (the host, for serving) straight into the graph's
+  static input, and the batch is ⌊N/G⌋ replays of the G-image graph and one
+  replay of the remainder's, each group's outputs copied out of the graph
+  into fresh tensors. A group is ``over_group(fn, group)``: where ``fn``
+  has a batch form (below), that form on the whole group, whose kernels
+  launch once per group (``jax.vmap``'s batching rule: one kernel over the
+  batch) and whose outputs are stacked already (one copy out per output);
+  else ``fn`` on each image in turn, one launch per image and kernel (an
+  arbitrary ``batch_apply`` function, ``thumbnail``, the reference
+  configs), stacked out. On a CPU device the same group body runs eagerly
+  (a batch form through the kernels' plain batch versions);
+  ``eager_batch`` is the per-image loop, the plain form of this dispatch.
+- ``batch_form(single)``: declares the decorated function the batch form of
+  ``single``: uint8[N, ...] -> outputs with a leading N, image i's as
+  ``single(images[i])`` gives it (a tuple output may hold, for an element
+  that has no batch form, a list of per-image outputs). A function that has
+  a batch form never runs per image in ``batched``: if its capture fails,
+  it raises as any capture does.
 - ``replayed(cache, key, fn, x, name)``: the one path of all three forms
   (``graphed``, ``batched`` and the band pipelines of
   ``parallel/spatial.py``): the graph kept for ``key``, captured on a miss,
@@ -76,6 +87,7 @@ import torch
 
 GRAPH_BYTES_BOUND = 8 << 30  # bytes of all graphs kept together (a single larger one stays)
 GROUP_INPUT_BYTES = 256 << 20  # a ``batched`` group's input bytes at most (unless it is one image)
+GROUP_IMAGES = 65535  # a ``batched`` group's images at most: a batched kernel's grid axis
 
 
 class CaptureError(RuntimeError):
@@ -374,9 +386,10 @@ def graphed(fn) -> Graphed:
 
 def group_size(image_bytes: int) -> int:
     """Images in one ``batched`` graph for images of ``image_bytes`` each:
-    as many as ``GROUP_INPUT_BYTES`` hold, at least 1 (10 at 4K RGB,
-    24,883,200 bytes an image; 43 at 1080p RGB)."""
-    return max(1, GROUP_INPUT_BYTES // max(1, image_bytes))
+    as many as ``GROUP_INPUT_BYTES`` hold, at least 1 and at most
+    ``GROUP_IMAGES`` (10 at 4K RGB, 24,883,200 bytes an image; 43 at 1080p
+    RGB; 341 at 512x512 RGB)."""
+    return max(1, min(GROUP_IMAGES, GROUP_INPUT_BYTES // max(1, image_bytes)))
 
 
 def spans(n: int, group: int) -> list:
@@ -393,6 +406,30 @@ def _each(fn, batch: torch.Tensor) -> list:
     """``fn`` on each image of ``batch`` in turn, eagerly: one output (a
     tensor or a tuple of tensors) per image."""
     return [fn(batch[i]) for i in range(batch.shape[0])]
+
+
+def batch_form(single):
+    """Declare the decorated function the batch form of ``single`` (see
+    the module's docstring); returns it unchanged."""
+
+    def declare(form):
+        single.batch_form = form
+        return form
+
+    return declare
+
+
+def batch_form_of(fn):
+    """``fn``'s batch form, or None where it has none."""
+    return getattr(fn, "batch_form", None)
+
+
+def over_group(fn, batch: torch.Tensor):
+    """``fn`` over one group of images: its batch form on the whole group
+    (outputs stacked: a tensor, or a tuple), or where it has none ``fn`` on
+    each image in turn (a list of per-image outputs)."""
+    form = batch_form_of(fn)
+    return _each(fn, batch) if form is None else form(batch)
 
 
 def _stack(outs: list, out=None, row: int = 0):
@@ -422,6 +459,28 @@ def _empty_batch(one, n: int) -> object:
     return torch.empty((n,) + tuple(one.shape), dtype=one.dtype, device=one.device)
 
 
+def _empty_for(group, n: int) -> object:
+    """Empty tensors for ``n`` images shaped as one group's outputs
+    (``over_group``'s: a stack, a per-image list, or a tuple of these)."""
+    if isinstance(group, torch.Tensor):
+        return torch.empty((n,) + tuple(group.shape[1:]), dtype=group.dtype, device=group.device)
+    if isinstance(group, tuple):
+        return tuple(_empty_for(g, n) for g in group)
+    return _empty_batch(group[0], n)
+
+
+def _put(group, out, row: int) -> None:
+    """One group's outputs (as ``_empty_for`` takes them) into rows
+    ``row`` on of ``out``: a stack in one copy, a per-image list stacked."""
+    if isinstance(group, torch.Tensor):
+        out[row:row + group.shape[0]].copy_(group)
+    elif isinstance(group, tuple):
+        for g, o in zip(group, out):
+            _put(g, o, row)
+    else:
+        _stack(group, out, row)
+
+
 # (fn, device, image shape, dtype, images) -> _Entry
 _batch_graphs: collections.OrderedDict = collections.OrderedDict()
 
@@ -434,17 +493,17 @@ class Batched:
         self.__name__ = f"batched({_name(fn)})"
 
         def body(x):
-            return _each(fn, x)
+            return over_group(fn, x)
 
         body.__qualname__ = self.__name__
         self._body = body
 
     def _group(self, part: torch.Tensor, device: torch.device):
-        """A context giving one group's per-image outputs: on a CUDA device
-        the graph's static outputs after a replay (``replayed``), on a CPU
-        device the eager loop's."""
+        """A context giving one group's outputs (``over_group``'s): on a
+        CUDA device the graph's static outputs after a replay
+        (``replayed``), on a CPU device the group body's, run eagerly."""
         if device.type != "cuda":
-            return contextlib.nullcontext(_each(self.fn, part.to(device)))
+            return contextlib.nullcontext(self._body(part.to(device)))
         key = (self.fn, device, tuple(part.shape[1:]), part.dtype, part.shape[0])
         return replayed(_batch_graphs, key, self._body, part, self.__name__)
 
@@ -453,9 +512,10 @@ class Batched:
         tensor on any device) on ``device``: its outputs stacked (a tuple of
         stacks for tuple outputs), fresh tensors on ``device`` that no later
         call rewrites, as a JAX executable returns fresh arrays. On a card
-        the stack is the copy out of the graph: each group's per-image
-        outputs are stacked into the fresh tensors before its graph's next
-        replay; serving downloads these (``serving._to_host``)."""
+        each group's outputs are copied out of the graph into the fresh
+        tensors before its graph's next replay (a batch form's stacks in one
+        copy each, per-image outputs stacked); serving downloads these
+        (``serving._to_host``)."""
         batch = torch.as_tensor(images)
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
@@ -466,13 +526,14 @@ class Batched:
             for start, count in spans(n, group):
                 with self._group(batch[start:start + count], device) as outs:
                     if out is None:
-                        out = _empty_batch(outs[0], n)
-                    _stack(outs, out, start)
+                        out = _empty_for(outs, n)
+                    _put(outs, out, start)
         return out
 
 
 def batched(fn) -> Batched:
     """``fn`` (an image -> a tensor or a tuple of tensors) over a leading
     dimension: replays of CUDA graphs over groups of images on a CUDA
-    device, the eager loop on a CPU device."""
+    device, each group through ``fn``'s batch form where it has one; the
+    same group body run eagerly on a CPU device."""
     return Batched(fn)

@@ -244,14 +244,15 @@ def test_spans_refuse_nonsense(n, group):
 
 @pytest.mark.parametrize("image_bytes, group", [
     (2160 * 3840 * 3, 10), (1080 * 1920 * 3, 43), (4320 * 7680 * 3, 2), (4096 * 8192 * 3, 2),
-    (27000 * 27000 * 3, 1), (36 * 60 * 3, 41425), (0, 1 << 28), (graphs.GROUP_INPUT_BYTES, 1),
-    (graphs.GROUP_INPUT_BYTES // 3, 3),
+    (27000 * 27000 * 3, 1), (36 * 60 * 3, 41425), (512 * 512 * 3, 341), (0, 65535),
+    (36 * 36 * 3, 65535), (graphs.GROUP_INPUT_BYTES, 1), (graphs.GROUP_INPUT_BYTES // 3, 3),
 ])
 def test_group_size_bounds_a_groups_input(image_bytes, group):
     assert graphs.GROUP_INPUT_BYTES == 256 << 20
+    assert graphs.GROUP_IMAGES == 65535  # a batched kernel's grid axis
     assert graphs.group_size(image_bytes) == group
     assert group == 1 or group * image_bytes <= graphs.GROUP_INPUT_BYTES
-    if image_bytes:
+    if image_bytes and group < graphs.GROUP_IMAGES:
         assert (group + 1) * image_bytes > graphs.GROUP_INPUT_BYTES  # no larger group fits
 
 
@@ -272,17 +273,17 @@ def test_evictions_keep_the_bound_and_the_newest_graph(sizes, bound, dropped):
 _TASKS = list(PRESET_NAMES) + [RESIZE_ROTATE, FANOUT]
 
 
-def _groups_of(monkeypatch, image_bytes, group):
+def _groups_of(monkeypatch, run, image_bytes, group):
     """Make G ``group`` for images of ``image_bytes``; the list that the
-    sizes of the groups run go to."""
+    sizes of the groups that ``run`` (a ``graphs.batched``) runs go to."""
     monkeypatch.setattr(graphs, "GROUP_INPUT_BYTES", group * image_bytes)
-    seen, real = [], graphs._each
+    seen, real = [], run._body
 
-    def each(fn, batch):
+    def body(batch):
         seen.append(batch.shape[0])
-        return real(fn, batch)
+        return real(batch)
 
-    monkeypatch.setattr(graphs, "_each", each)
+    monkeypatch.setattr(run, "_body", body)
     return seen
 
 
@@ -292,7 +293,7 @@ def test_batched_on_the_cpu_equals_the_eager_loop_and_jax(task, monkeypatch):
     one, _ = serving._task_fn(_port_task(task))
     run = graphs.batched(one)
     with monkeypatch.context() as patched:
-        seen = _groups_of(patched, imgs[0].nbytes, 8)
+        seen = _groups_of(patched, run, imgs[0].nbytes, 8)
         got = run(imgs, CPU)
     assert seen == [8, 3]  # a group of 8, then one of 3
     eager = graphs.eager_batch(one, torch.from_numpy(imgs))
@@ -311,7 +312,7 @@ def test_batched_on_the_cpu_equals_the_eager_loop_and_jax(task, monkeypatch):
 def test_batched_on_the_cpu_returns_fresh_tensors_in_one_group(monkeypatch):
     imgs = _batch(3, 8, 12)
     run = graphs.batched(lambda x: x[..., 0])
-    seen = _groups_of(monkeypatch, imgs[0].nbytes, 4)
+    seen = _groups_of(monkeypatch, run, imgs[0].nbytes, 4)
     first = run(imgs, CPU)
     second = run(imgs[::-1].copy(), CPU)
     assert seen == [3, 3]

@@ -680,6 +680,177 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The batch axis (K2/K6, K4, K3 and K7 over uint8[N, ...] in one launch):
+# each batched kernel against its plain batch version and against its
+# single-image kernel image by image.
+# ---------------------------------------------------------------------------
+
+
+def _on_card(host: torch.Tensor, cuda, offset: int) -> torch.Tensor:
+    """``host`` on the card as a contiguous view that starts ``offset``
+    bytes into a larger buffer."""
+    flat = torch.zeros(host.numel() + offset, dtype=torch.uint8, device=cuda)
+    flat[offset:] = host.reshape(-1).to(cuda)
+    view = flat[offset:].view(host.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset % 16
+    return view
+
+
+def _rgb_batch(cuda, n, h, w, kind, offset):
+    """uint8[n, h, w, 3] on the card: noise, constant images of n values, or
+    noise and constant images in turn (``mixed``)."""
+    imgs = _image((n, h, w, 3), seed=n * 7 + h * 1000 + w)
+    if kind in ("constant", "mixed"):
+        for i in range(0, n, 1 if kind == "constant" else 2):
+            imgs[i] = 30 + 50 * i % 226
+    return _on_card(imgs, cuda, offset)
+
+
+# Batches of one, odd shapes (W % 16 != 0, H * W % 16 != 0, heights below
+# the halo), more images than the card has SMs, and 4K: a block walks tiles
+# of several images there.
+_BATCH_SHAPES = [(1, 37, 53), (3, 37, 53), (2, 1, 1), (5, 2, 17), (4, 29, 130), (7, 5, 3840),
+                 (3, 64, 256), (200, 16, 40), (64, 512, 512), (4, 2160, 3840)]
+_BATCH_CASES = ([(shape, "noise", 0) for shape in _BATCH_SHAPES]
+                + [(shape, kind, offset) for shape in ((3, 37, 53), (4, 29, 130), (64, 512, 512))
+                   for kind, offset in (("noise", 5), ("constant", 0), ("mixed", 0),
+                                        ("mixed", 11))])
+
+
+@pytest.mark.parametrize("shape,kind,offset", _BATCH_CASES, ids=str)
+def test_gray_gauss_batch_kernels_match_plain_and_the_single_kernel(cuda, shape, kind, offset):
+    imgs = _rgb_batch(cuda, *shape, kind, offset)
+    before = (core.gray_gauss_hist_batch.launches, core.gray_gauss_batch.launches)
+    blurred, hist = core.gray_gauss_hist_batch(imgs)
+    gray = core.gray_gauss_batch(imgs)
+    torch.cuda.synchronize()
+    assert (core.gray_gauss_hist_batch.launches,
+            core.gray_gauss_batch.launches) == (before[0] + 1, before[1] + 1)
+    exp_blurred, exp_hist = core.gray_gauss_hist_batch_plain(imgs)
+    assert torch.equal(blurred, exp_blurred) and torch.equal(gray, exp_blurred)
+    assert hist.dtype == torch.int32 and torch.equal(hist, exp_hist)
+    assert (hist.sum(1) == shape[1] * shape[2]).all()
+    for i in (0, shape[0] // 2, shape[0] - 1):
+        one_blurred, one_hist = core.gray_gauss_hist(imgs[i])
+        assert torch.equal(blurred[i], one_blurred) and torch.equal(hist[i], one_hist)
+
+
+@pytest.mark.parametrize("shape,kind,offset", _BATCH_CASES, ids=str)
+def test_histogram_and_lut_batch_kernels_match_plain_and_the_single_kernels(cuda, shape, kind,
+                                                                            offset):
+    values = _rgb_batch(cuda, *shape, kind, 0)[..., 1].contiguous()
+    values = _on_card(values.cpu(), cuda, offset)
+    luts = _image((shape[0], 256), seed=shape[0]).to(cuda)
+    before = (core.histogram_batch.launches, core.lut_apply_batch.launches)
+    hist = core.histogram_batch(values)
+    out = core.lut_apply_batch(values, luts)
+    torch.cuda.synchronize()
+    assert (core.histogram_batch.launches,
+            core.lut_apply_batch.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(hist, core.histogram_batch_plain(values))
+    assert torch.equal(out, core.lut_apply_batch_plain(values, luts))
+    for i in (0, shape[0] // 2, shape[0] - 1):
+        assert torch.equal(hist[i], core.histogram(values[i]))
+        assert torch.equal(out[i], core.lut_apply(values[i], luts[i]))
+
+
+@pytest.mark.parametrize("n", [1, 2, 15, 16, 17, 4099])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_histogram_and_lut_batch_kernels_at_every_image_length(cuda, n, offset):
+    """Image lengths that are not multiples of 16: every image but the first
+    starts off a 16-byte boundary, and the byte paths take its head and tail."""
+    values = _on_card(_image((5, n), seed=n), cuda, offset)
+    luts = _image((5, 256), seed=n + 1).to(cuda)
+    assert torch.equal(core.histogram_batch(values), core.histogram_batch_plain(values))
+    assert torch.equal(core.lut_apply_batch(values, luts),
+                       core.lut_apply_batch_plain(values, luts))
+
+
+def test_lut_apply_batch_kernel_on_an_output_off_the_inputs_alignment(cuda):
+    values = _on_card(_image((3, 1000), seed=3), cuda, 1)
+    luts = _image((3, 256), seed=4).to(cuda)
+    out = core.lut_apply_batch(values, luts)
+    assert torch.equal(out, core.lut_apply_batch_plain(values, luts))
+
+
+_STENCIL_BATCHES = [(core.box_blur_batch, core.box_blur), (core.sharpen_batch, core.sharpen),
+                    (core.sobel_batch, core.sobel)]
+
+
+@pytest.mark.parametrize("shape,kind,offset", _BATCH_CASES, ids=str)
+@pytest.mark.parametrize("batch_wrapper,single", _STENCIL_BATCHES, ids=lambda f: f.__name__)
+def test_stencil3_batch_kernels_match_plain_and_the_single_kernel(cuda, batch_wrapper, single,
+                                                                  shape, kind, offset):
+    gray = _on_card(_rgb_batch(cuda, *shape, kind, 0)[..., 2].cpu().contiguous(), cuda, offset)
+    before = batch_wrapper.launches
+    out = batch_wrapper(gray)
+    torch.cuda.synchronize()
+    assert batch_wrapper.launches == before + 1
+    plain = {core.box_blur_batch: core.box_blur_batch_plain,
+             core.sharpen_batch: core.sharpen_batch_plain,
+             core.sobel_batch: core.sobel_batch_plain}[batch_wrapper]
+    assert torch.equal(out, plain(gray))
+    for i in (0, shape[0] // 2, shape[0] - 1):
+        assert torch.equal(out[i], single(gray[i]))
+
+
+def test_batch_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    imgs = _image((2, 8, 10, 3), seed=1).to(cuda)
+    for wrapper in (core.gray_gauss_hist_batch, core.gray_gauss_batch):
+        with pytest.raises(TypeError):
+            wrapper(imgs[0])  # one image: the single-image wrapper's
+        with pytest.raises(TypeError):
+            wrapper(imgs.transpose(1, 2))
+    gray = imgs[..., 0].contiguous()
+    for wrapper, _ in _STENCIL_BATCHES:
+        with pytest.raises(TypeError):
+            wrapper(gray[0])
+        with pytest.raises(TypeError):
+            wrapper(imgs[..., 0])  # not contiguous
+    with pytest.raises(TypeError):
+        core.lut_apply_batch(gray, torch.zeros((3, 256), dtype=torch.uint8, device=cuda))
+    with pytest.raises(TypeError):
+        core.histogram_batch(gray.transpose(1, 2))
+
+
+@pytest.mark.parametrize("label, launches", [
+    ("mega", {"gray_gauss_hist_batch": 1, "lut_apply_batch": 1}),
+    ("edge_detect", {"gray_gauss_batch": 1, "sobel_batch": 1}),
+    ("enhance", {"fused_elementwise": 1, "histogram_batch": 1, "lut_apply_batch": 1,
+                 "sharpen_batch": 1}),
+    ("print_ready", {"fused_elementwise": 1, "histogram_batch": 1, "lut_apply_batch": 1}),
+])
+def test_a_batch_form_launches_each_kernel_once_per_group_under_capture(cuda, label, launches):
+    """Five 540x960 images in groups of 2, 2 and 1: each replay credits one
+    launch of each kernel of the batch form and none of a single-image one,
+    and the outputs equal the per-image loop's. The graphs are dropped
+    after."""
+    from imageprocessingtools_tpu_torch import kernels, serving
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    one = fused.fused_pipeline_mega if label == "mega" else serving._task_fn(label)[0]
+    shape = (540, 960, 3)
+    imgs = _host_batch(5, shape, seed=70)
+    run = graphs.batched(one)
+    old = graphs.GROUP_INPUT_BYTES
+    graphs.GROUP_INPUT_BYTES = 2 * imgs[0].nbytes
+    try:
+        run(imgs, cuda)  # captures the 2-image and the 1-image graphs
+        wrappers = {w.__name__: w for w in kernels.counted_wrappers()}
+        before = {name: w.launches for name, w in wrappers.items()}
+        got = run(imgs, cuda)
+        torch.cuda.synchronize()
+    finally:
+        graphs.GROUP_INPUT_BYTES = old
+        for key in [k for k in graphs._batch_graphs if k[0] is one and k[2] == shape]:
+            graphs._batch_graphs.pop(key)
+    made = {name: w.launches - before[name] for name, w in wrappers.items()
+            if w.launches != before[name]}
+    assert made == {name: 3 * n for name, n in launches.items()}  # three replays
+    assert torch.equal(got, graphs.eager_batch(one, torch.from_numpy(imgs).to(cuda)))
+
+
+# ---------------------------------------------------------------------------
 # Images of 2^31 bytes and more: one launch each, offsets past 2^31 checked.
 # ---------------------------------------------------------------------------
 
@@ -990,9 +1161,9 @@ def test_batched_graphs_leave_the_first_chunks_outputs_alone(cuda):
     torch.cuda.synchronize()
     assert torch.equal(first, kept) and not torch.equal(first, second)
     static = graphs._batch_graphs[(one, first.device, (1080, 1920, 3), torch.uint8, 2)]
-    assert len(static.captured.out) == 2  # the graph keeps each image's output, not a stack
-    assert all(not (first.data_ptr() <= o.data_ptr() < first.data_ptr() + first.nbytes)
-               for o in static.captured.out)
+    out = static.captured.out  # enhance's batch form: the graph's own stack of the two
+    assert isinstance(out, torch.Tensor) and tuple(out.shape) == (2, 1080, 1920)
+    assert not (first.data_ptr() <= out.data_ptr() < first.data_ptr() + first.nbytes)
     assert torch.equal(second, graphs.eager_batch(one, torch.from_numpy(chunks[1]).to(cuda)))
 
 
