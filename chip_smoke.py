@@ -19,14 +19,15 @@ in order, printing one line per phase:
    of that 4K call, and the time of the one PyTorch call that computes the
    same function, where there is one (K9, the resize pass, is checked and
    timed through ``resize_width`` and ``resize``, two launches each); then
-   the batch axis (``jax.vmap``'s one kernel over the batch): K2/K6, K4, K3
-   and K7 over uint8[N, ...] in one launch, each byte-equal to its plain
-   batch version and to its single-image kernel image by image, on
-   uint8[4, 2160, 3840(, 3)] and odd batches (3 x 37 x 53, heights below
-   the halo, 64 x 512 x 512, a batch of one, constant images among noise,
-   a view 5 bytes into its buffer), K8 on uint8[4, 2160, 3840, 3], with ms
-   per call at 4K x 4 beside the single-image kernel on each image and the
-   least time;
+   the batch axis (``jax.vmap``'s one kernel over the batch): K2/K6, K4, K3,
+   K7, K1 (30 and 135 degrees) and K9 (each pass) over uint8[N, ...] in one
+   launch, each byte-equal to its plain batch version and to its
+   single-image kernel image by image, on uint8[4, 2160, 3840(, 3)] and odd
+   batches (3 x 37 x 53, heights below the halo, 64 x 512 x 512, a batch of
+   one, constant images among noise, a view 5 bytes into its buffer), K9
+   also at 4K x 4 to 1920 and 256 and at 1080p x 2 to 3840, RGB and gray,
+   K8 on uint8[4, 2160, 3840, 3], with ms per call at 4K x 4 beside the
+   single-image kernel on each image and the least time;
 4. the CLI (``imageprocessingtools_tpu_torch.cli.main``) over four 4K P6
    files, each run split into decode, resize plan and table upload, upload
    and device, download, and encode and write (``-w1920`` twice: its first
@@ -56,17 +57,20 @@ in order, printing one line per phase:
    every output byte-equal to the presets' plain bodies and to the eager
    loop on the same decoded images on the card; a reference-flag fan-out
    over the 4K files; a byte-for-byte cross-check of a smaller file against
-   the same ``serve`` run on the CPU in a subprocess; the presets' kernels
-   launched once per group (their batch forms: K6, K7, K4 and K3 over the
-   group, none image by image, in the counts and in each graph's record);
+   the same ``serve`` run on the CPU in a subprocess; every task's kernels
+   launched once per group (their batch forms: K6, K7, K4, K3, K8, K1 and
+   K9 over the group, none image by image, in the counts and in each
+   graph's record);
    G, the graphs kept, their bytes against ``graphs.GRAPH_BYTES_BOUND`` and
    their capture seconds; per preset and for the fan-out, ms per chunk of
    eight 4K images on the card, eager loop against graphed (CUDA events);
    the batch forms against the per-image graphs of the same bodies (mega at
-   4K x 10, 1080p x 8, 1366x768 x 16 and 512x512 x 64; edge_detect, enhance
-   and print_ready at 4K x 8 and 512x512 x 64): ms per group and device us
-   per image, byte-equal, each kernel once per group against once per
-   image; and ``serve
+   4K x 10, 1080p x 8, 1366x768 x 16 and 512x512 x 64; edge_detect, enhance,
+   print_ready, thumbnail and ``-r30`` at 4K x 8 and 512x512 x 64;
+   ``-w1920``, ``-w1920 -r30 -gray`` and a fan-out of reference configs at
+   4K x 8; ``-mono -fh`` at 512x512 x 64): ms per group and device us per
+   image, byte-equal, each kernel once per group against once per image (a
+   resize's K9 twice); and ``serve
    --sequential``'s split (decode, upload and device, download, encode) and
    the overlapped serves' walls in three turns (``serving_turns.py`` times
    them beside another checkout's);
@@ -163,7 +167,8 @@ KERNELS = {
 # -> the kernel whose source and Pallas function it shares.
 BATCH_KERNELS = {"gray_gauss_hist_batch": "gray_gauss_hist", "gray_gauss_batch": "gray_gauss",
                  "histogram_batch": "histogram", "lut_apply_batch": "lut_apply",
-                 "stencil3_batch": "stencil3"}
+                 "stencil3_batch": "stencil3", "rotate_batch": "rotate",
+                 "resize_pass_batch": "resize_pass"}
 # K7's instances: the template's three wrappers. Box is on no path (no preset
 # uses it), nor is K8 with a non-empty chain (the paths run it with the
 # empty chain, as grayscale); phase 3 holds both to their plain versions.
@@ -205,10 +210,10 @@ def image(shape, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, 256, size=shape, dtype=np.uint8)
 
 
-def median_ms(torch, fn, repeats: int = 5) -> float:
-    """ms per call of ``fn``: CUDA events around REPS back-to-back calls,
-    median over ``repeats`` such runs, after a warm-up call. Where the host
-    enqueues slower than the card runs, this is the host's rate."""
+def median_ms(torch, fn, repeats: int = 5, reps: int = REPS) -> float:
+    """ms per call of ``fn``: CUDA events around ``reps`` (REPS) back-to-back
+    calls, median over ``repeats`` such runs, after a warm-up call. Where the
+    host enqueues slower than the card runs, this is the host's rate."""
     fn()
     torch.cuda.synchronize()
     samples = []
@@ -216,11 +221,11 @@ def median_ms(torch, fn, repeats: int = 5) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
         end.record()
         end.synchronize()
-        samples.append(start.elapsed_time(end) / REPS)
+        samples.append(start.elapsed_time(end) / reps)
     return statistics.median(samples)
 
 
@@ -330,18 +335,40 @@ BATCH_SHAPES = [(BATCH_N, H4K, W4K), (3, 37, 53), (7, 5, 3840), (2, 1081, 1927),
 
 
 def phase_3_batch(torch, dev, card, check) -> tuple[str, dict, dict]:
-    """Each batched kernel (K2/K6, K4, K3 and K7 over uint8[N, ...] in one
-    launch) against its plain batch version and against its single-image
-    kernel image by image, on ``BATCH_SHAPES`` of noise, noise and constant
-    images in turn, and a view 5 bytes into its buffer; K8 (no batch entry:
+    """Each batched kernel (K2/K6, K4, K3, K7, K1 and K9 over uint8[N, ...]
+    in one launch) against its plain batch version and against its
+    single-image kernel image by image, on ``BATCH_SHAPES`` of noise, noise
+    and constant images in turn, and a view 5 bytes into its buffer (K1 at
+    30 and 135 degrees; K9 to half the width plus one, and at 4K to 1920 and
+    256 and at 1080p to 3840, RGB and gray, each pass); K8 (no batch entry:
     it takes uint8[..., 3]) on the 4K batch. Returns the line to print, ms
     per call at 4K x 4 (batched, plain batch, the single-image kernel on each
     image in turn; then the card's time of the batched call and of the
     single-image calls, each replayed from a CUDA graph) and the least times
     of those calls."""
-    from imageprocessingtools_tpu_torch.kernels import core
+    from imageprocessingtools_tpu_torch.kernels import core, rotate
+    from imageprocessingtools_tpu_torch.kernels import resize as k9
     from imageprocessingtools_tpu_torch.ops.histogram import _equalize_lut
+    from imageprocessingtools_tpu_torch.ops.resize import resize_width, resize_width_batch
     from imageprocessingtools_tpu_torch.utils import graphs
+
+    def resize_checked(x, target, what):
+        """K9's two passes over the batch ``x``, each held to the plain batch
+        pass and to the single-image kernel on each image."""
+        out = x
+        for dim, idx, w in k9.device_passes(x.shape[1], x.shape[2], target, dev):
+            src, out = out, k9.resize_pass_batch(out, idx, w, dim)
+            check("resize_pass_batch", out, k9.resize_pass_batch_plain(src, idx, w, dim),
+                  f"{what} to {target}, dim {dim}")
+            for i in range(src.shape[0]):
+                check("resize_pass_batch", out[i], k9.resize_pass(src[i], idx, w, dim),
+                      f"{what} to {target}, dim {dim}, image {i}")
+        return out
+
+    def resize_plain_batch(x, target):
+        for dim, idx, w in k9.device_passes(x.shape[1], x.shape[2], target, dev):
+            x = k9.resize_pass_batch_plain(x, idx, w, dim)
+        return x
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(15)
@@ -372,6 +399,13 @@ def phase_3_batch(torch, dev, card, check) -> tuple[str, dict, dict]:
         outs = {name: fn(gray) for name, (fn, _, _) in stencils.items()}
         for name, (_, _, plain) in stencils.items():
             check(name, outs[name], plain(gray), what)
+        for angle in (30.0, 135.0):
+            rotated = rotate.rotate_bicubic_batch(x, angle)
+            check("rotate_batch", rotated, rotate.rotate_batch_plain(x, angle), f"{what} at {angle}")
+            for i in range(x.shape[0]):
+                check("rotate_batch", rotated[i], rotate.rotate_bicubic(x[i], angle),
+                      f"{what} at {angle}, image {i}")
+        resize_checked(x, x.shape[2] // 2 + 1, what)
         for i in range(x.shape[0]):  # the single-image kernels, image by image
             one_blurred, one_hist = core.gray_gauss_hist(x[i])
             check("gray_gauss_hist_batch", blurred[i], one_blurred, f"{what} image {i}")
@@ -384,6 +418,15 @@ def phase_3_batch(torch, dev, card, check) -> tuple[str, dict, dict]:
     x = batches[f"{BATCH_N}x{H4K}x{W4K}"]
     check("fused_elementwise", core.fused_elementwise(x), core.fused_elementwise_plain(x),
           f"uint8[{BATCH_N}, {H4K}, {W4K}, 3]")
+    # K9 at the main paths' geometries: 4K -> 1920 and -> 256 (thumbnail),
+    # 1080p -> 3840, RGB and gray.
+    x1080 = torch.randint(0, 256, (2, 1080, 1920, 3), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    for src, target, what in ((x, 1920, "4K x 4"), (x, 256, "4K x 4"),
+                              (x1080, 3840, "1080p x 2")):
+        resize_checked(src, target, what)
+        resize_checked(src[..., 1].contiguous(), target, f"{what} gray")
+    del x1080
     blurred, hist = core.gray_gauss_hist_batch(x)
     luts = _equalize_lut(hist, H4K * W4K)
     rows = range(BATCH_N)
@@ -406,8 +449,22 @@ def phase_3_batch(torch, dev, card, check) -> tuple[str, dict, dict]:
         **{name: (lambda fn=fn: fn(blurred), lambda plain=plain: plain(blurred),
                   each(single, blurred))
            for name, (fn, single, plain) in stencils.items()},
+        "rotate_batch": (lambda: rotate.rotate_bicubic_batch(x, 30.0),
+                         lambda: rotate.rotate_batch_plain(x, 30.0),
+                         each(lambda im: rotate.rotate_bicubic(im, 30.0), x)),
+        # K9 through resize_width_batch: two launches, as the single entry's
+        # times are resize_width's.
+        "resize_pass_batch": (lambda: resize_width_batch(x, 1920),
+                              lambda: resize_plain_batch(x, 1920),
+                              each(lambda im: resize_width(im, 1920), x)),
+        "resize_pass_batch_4k_to_256": (lambda: resize_width_batch(x, 256),
+                                        lambda: resize_plain_batch(x, 256),
+                                        each(lambda im: resize_width(im, 256), x)),
     }
-    times = {name: (median_ms(torch, a), median_ms(torch, b, repeats=3), median_ms(torch, c))
+    slow_plain = {"rotate_batch": 2}  # its plain batch takes 0.3 s a call: 2 calls a run
+    times = {name: (median_ms(torch, a),
+                    median_ms(torch, b, repeats=3, reps=slow_plain.get(name, REPS)),
+                    median_ms(torch, c))
              for name, (a, b, c) in calls.items()}
     # The card's time of the batched call and of the single-image calls on
     # each image, each captured into a CUDA graph and replayed (no host
@@ -422,9 +479,18 @@ def phase_3_batch(torch, dev, card, check) -> tuple[str, dict, dict]:
         "histogram_batch": bound(px + BATCH_N * 256 * 4, px),
         "lut_apply_batch": bound(2 * px + BATCH_N * 256, 0),
         "stencil3_batch": bound(2 * px, SOBEL_OPS * px),
+        # K1 and K9: BATCH_N times the single image's bytes and operations.
+        "rotate_batch": bound(*(BATCH_N * v for v in rotate_cost(torch, rotate, x[0], 30.0)),
+                              F64_UNFUSED_OPS_PER_MS),
+        **{name: bound(*(BATCH_N * v for v in resize_cost(
+            k9.device_passes(H4K, W4K, target, dev), (H4K, W4K, 3))), F64_UNFUSED_OPS_PER_MS)
+           for name, target in (("resize_pass_batch", 1920),
+                                ("resize_pass_batch_4k_to_256", 256))},
     }
     line = (f"phase 3 batch axis: the batched kernels byte-equal to their plain batch versions "
-            f"and to the single-image kernels image by image on {', '.join(batches)}; K8 on "
+            f"and to the single-image kernels image by image on {', '.join(batches)} (K1 at 30 "
+            f"and 135 degrees, K9 to half the width plus one); K9 at 4K x 4 to 1920 and 256 and "
+            f"at 1080p x 2 to 3840, RGB and gray; K8 on "
             f"uint8[{BATCH_N}, {H4K}, {W4K}, 3]; ms per call on uint8[{BATCH_N}, {H4K}, {W4K}"
             f"(, 3)] (batched / plain batch / the single-image kernel on each image) on {card}: "
             + ", ".join(f"{k} {a:.4f} / {b:.4f} / {c:.4f}" for k, (a, b, c) in times.items())
@@ -438,8 +504,37 @@ def phase_3_batch(torch, dev, card, check) -> tuple[str, dict, dict]:
 # The batch forms against the per-image graphs: (task, images, H, W).
 BATCH_FORM_CASES = [("mega", 10, H4K, W4K), ("mega", 8, 1080, 1920), ("mega", 16, 768, 1366),
                     ("mega", 64, 512, 512)] + [
-    (name, n, h, w) for name in ("edge_detect", "enhance", "print_ready")
-    for n, h, w in ((8, H4K, W4K), (64, 512, 512))]
+    (name, n, h, w) for name in ("edge_detect", "enhance", "print_ready", "thumbnail", "-r30")
+    for n, h, w in ((8, H4K, W4K), (64, 512, 512))] + [
+    (name, 8, H4K, W4K) for name in ("-w1920", "-w1920 -r30 -gray",
+                                     "fanout -w1920;-r30;-gray;-mono -fh")] + [
+    ("-mono -fh", 64, 512, 512)]
+# Reference configs of those cases, as PipelineConfig keywords.
+FORM_CONFIGS = {"-w1920": dict(new_width=1920), "-r30": dict(angle=30.0),
+                "-gray": dict(gray=True), "-mono -fh": dict(mono=True, flip_h=True),
+                "-w1920 -r30 -gray": dict(new_width=1920, angle=30.0, gray=True)}
+# Each task's launches: the batch form's per group, the per-image graph's per
+# image (a resize is two K9 launches; -mono -fh runs no kernel).
+FORM_LAUNCHES = {
+    "mega": ({"gray_gauss_hist_batch": 1, "lut_apply_batch": 1},
+             {"gray_gauss_hist": 1, "lut_apply": 1}),
+    "edge_detect": ({"gray_gauss_batch": 1, "sobel_batch": 1}, {"gray_gauss": 1, "sobel": 1}),
+    "enhance": ({"fused_elementwise": 1, "histogram_batch": 1, "lut_apply_batch": 1,
+                 "sharpen_batch": 1},
+                {"fused_elementwise": 1, "histogram": 1, "lut_apply": 1, "sharpen": 1}),
+    "print_ready": ({"fused_elementwise": 1, "histogram_batch": 1, "lut_apply_batch": 1},
+                    {"fused_elementwise": 1, "histogram": 1, "lut_apply": 1}),
+    "thumbnail": ({"resize_pass_batch": 2}, {"resize_pass": 2}),
+    "-w1920": ({"resize_pass_batch": 2}, {"resize_pass": 2}),
+    "-r30": ({"rotate_bicubic_batch": 1}, {"rotate_bicubic": 1}),
+    "-w1920 -r30 -gray": ({"resize_pass_batch": 2, "rotate_bicubic_batch": 1,
+                           "fused_elementwise": 1},
+                          {"resize_pass": 2, "rotate_bicubic": 1, "fused_elementwise": 1}),
+    "fanout -w1920;-r30;-gray;-mono -fh": (
+        {"resize_pass_batch": 2, "rotate_bicubic_batch": 1, "fused_elementwise": 1},
+        {"resize_pass": 2, "rotate_bicubic": 1, "fused_elementwise": 1}),
+    "-mono -fh": ({}, {}),
+}
 
 
 def batch_form_times(torch, dev, card) -> str:
@@ -449,18 +544,26 @@ def batch_form_times(torch, dev, card) -> str:
     ms per group (the input on the card copied into the graph, one replay,
     the outputs copied out) and the replay alone per image (the graph's
     device time: CUDA events around 20 replays, its input already in it),
-    with each graph's launches per replay (each kernel once in the batch
-    form's, once per image in the other, or the run fails). The graphs are
-    dropped after each case."""
+    with each graph's launches per replay (``FORM_LAUNCHES``: each kernel
+    once per group in the batch form's, once per image in the other, a
+    resize twice, or the run fails). The graphs are dropped after each
+    case."""
     from imageprocessingtools_tpu_torch import serving
     from imageprocessingtools_tpu_torch.kernels import fused
+    from imageprocessingtools_tpu_torch.pipeline import PipelineConfig
     from imageprocessingtools_tpu_torch.utils import graphs
 
     card0 = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev)
     gen.manual_seed(16)
+
+    def task(name):
+        if name.startswith("fanout "):
+            return tuple(PipelineConfig(**FORM_CONFIGS[f]) for f in name[7:].split(";"))
+        return PipelineConfig(**FORM_CONFIGS[name]) if name in FORM_CONFIGS else name
+
     forms = {"mega": fused.fused_pipeline_mega}
-    forms.update({name: serving._task_fn(name)[0] for name, *_ in BATCH_FORM_CASES
+    forms.update({name: serving._task_fn(task(name))[0] for name, *_ in BATCH_FORM_CASES
                   if name != "mega"})
 
     def without(fn):
@@ -475,24 +578,25 @@ def batch_form_times(torch, dev, card) -> str:
             fail(f"{name} {n}x{h}x{w} is not one group")
         x = torch.randint(0, 256, (n, h, w, 3), generator=gen, device=dev, dtype=torch.uint8)
         outs, cols = [], []
-        for fn in bodies[name]:
+        for fn, per_replay in zip(bodies[name], (
+                FORM_LAUNCHES[name][0],  # per group
+                {k: n * v for k, v in FORM_LAUNCHES[name][1].items()})):  # per image
             run = graphs.batched(fn)
             outs.append(run(x, dev))
             key = (fn, card0, (h, w, 3), torch.uint8, n)
             entry = graphs._batch_graphs[key]
             group_ms = median_ms(torch, lambda: run(x, dev), repeats=3)
             replay_ms = median_ms(torch, entry.captured.replay, repeats=3)
-            made = {wr.__name__: k for wr, k in entry.captured.launches.items()}
+            made = {wr.__name__: k for wr, k in entry.captured.launches.items() if k}
             cols.append(f"{group_ms:.4f} ms, the replay alone {replay_ms:.4f} ms = "
                         f"{replay_ms * 1e3 / n:.2f} us an image, launches {made}")
-            each_time = 1 if fn is bodies[name][0] else n  # once per group, or once per image
-            if not made or any(k != each_time for k in made.values()):
-                fail(f"{name} {n}x{h}x{w}: a replay launches {made}, not each kernel "
-                     f"{each_time} times")
+            if made != per_replay:
+                fail(f"{name} {n}x{h}x{w}: a replay launches {made}, not {per_replay}")
             del entry
             graphs._batch_graphs.pop(key)
-        if not torch.equal(outs[0], outs[1]):
-            fail(f"{name} on {n}x{h}x{w}: the batch form differs from the per-image graph")
+        for a, b in zip(*(o if isinstance(o, tuple) else (o,) for o in outs)):
+            if not torch.equal(a, b):
+                fail(f"{name} on {n}x{h}x{w}: the batch form differs from the per-image graph")
         parts.append(f"{name} {n}x{h}x{w}: batch form {cols[0]}; per image {cols[1]}")
         del x, outs
     return (f"phase 6 batch forms against the per-image graphs, one group each, byte-equal (ms "
@@ -716,15 +820,15 @@ def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files,
                                          *files[:8]])
 
     # --mesh (a batch of shards, one card here) as phase 6: the batch forms
-    # once per group; --spatial one band per file on one card, the presets'
+    # once per group; --spatial one band per file on one card, the tasks'
     # single-image kernels once per file.
     path_counts["serving moved"] = drive(
         "phase 7 serving",
         {"gray_gauss": n_good, "sobel": n_good, "sharpen": n_good,
-         "fused_elementwise": (2 * n_good + 8) + (4 + 8), "histogram": 2 * n_good,
+         "fused_elementwise": (2 * n_good + 8) + (4 + 1), "histogram": 2 * n_good,
          "lut_apply": 2 * n_good, "gray_gauss_batch": 2, "sobel_batch": 2, "sharpen_batch": 2,
-         "histogram_batch": 4, "lut_apply_batch": 4, "rotate": 16,
-         "resize_pass": 2 * (2 * n_good + 2 * 8)},
+         "histogram_batch": 4, "lut_apply_batch": 4, "rotate": 8, "rotate_batch": 1,
+         "resize_pass": 2 * n_good + 2 * 8, "resize_pass_batch": 2 * 2 + 2},
         moved_serving)
     captures = graphs.captures_made
     serve_run("--spatial presets again",
@@ -955,6 +1059,7 @@ def main() -> int:
         **{name: getattr(core, name) for name in
            ("gray_gauss_hist_batch", "gray_gauss_batch", "histogram_batch", "lut_apply_batch")
            + STENCIL3_BATCH},
+        "rotate_batch": rotate.rotate_bicubic_batch, "resize_pass_batch": k9.resize_pass_batch,
     }
     plains = {
         "histogram": core.histogram_plain, "gaussian_blur": core.gaussian_blur_plain,
@@ -1436,26 +1541,27 @@ def main() -> int:
         # Per group of images of one shape (the 4K files and the 1080p ones:
         # two), the presets' batch forms: edge_detect one K6 and one Sobel,
         # enhance one K8, one K4, one K3 and one sharpen, print_ready one K8,
-        # one K4 and one K3, each over the group; thumbnail two K9 per file;
-        # the fan-out (no batch form) one K8 (-gray), two K9 (-w1920) and one
-        # K1 per 4K file.
+        # one K4 and one K3, thumbnail two K9, each over the group; the
+        # fan-out's (the 4K files: one group) one K8 (-gray), two K9 (-w1920)
+        # and one K1.
         n_good = len(files)
         captures = graphs.captures_made
         path_counts["serving"] = drive(
             "phase 6 serving",
             {"gray_gauss_batch": 2, "sobel_batch": 2, "sharpen_batch": 2,
-             "fused_elementwise": 4 + 8, "histogram_batch": 4, "lut_apply_batch": 4, "rotate": 8,
-             "resize_pass": 2 * n_good + 2 * 8},
+             "fused_elementwise": 4 + 1, "histogram_batch": 4, "lut_apply_batch": 4,
+             "rotate_batch": 1, "resize_pass_batch": 2 * 2 + 2},
             serving_runs)
         per_image = {name: path_counts["serving"][name] for name in
-                     ("gray_gauss", "sobel", "sharpen", "histogram", "lut_apply")}
+                     ("gray_gauss", "sobel", "sharpen", "histogram", "lut_apply", "rotate",
+                      "resize_pass")}
         if any(per_image.values()):
-            fail(f"phase 6 serving launched the presets' kernels image by image: {per_image}")
+            fail(f"phase 6 serving launched the tasks' kernels image by image: {per_image}")
         # Each preset graph's own record: every kernel of a batch form once per
-        # replay (one group), none of them per image.
+        # replay (one group; K9 twice), none of them per image.
         presets_one = serving._task_fn(tuple(PRESETS.split(",")))[0]
         per_group = {"gray_gauss_batch": 1, "sobel_batch": 1, "sharpen_batch": 1,
-                     "histogram_batch": 2, "lut_apply_batch": 2}
+                     "histogram_batch": 2, "lut_apply_batch": 2, "resize_pass_batch": 2}
         preset_graphs = [e for k, e in graphs._batch_graphs.items() if k[0] is presets_one]
         if len(preset_graphs) != 2:
             fail(f"serve --preset kept {len(preset_graphs)} graphs, not one per shape (2)")
@@ -1721,6 +1827,12 @@ def main() -> int:
             entry.update(launches=launches[name], max_abs_err=errs[name],
                          **dict(zip(("ms", "plain_ms", "per_image_ms", "device_ms",
                                      "per_image_device_ms"), batch_times[name])))
+        if name == "resize_pass_batch":  # two launches a call, 4K -> 1920; then 4K -> 256
+            key = "resize_pass_batch_4k_to_256"
+            entry.update({f"4k_to_256_{k}": v for k, v in zip(
+                ("ms", "plain_ms", "per_image_ms", "device_ms", "per_image_device_ms"),
+                batch_times[key])}, **{"4k_to_256_bound_ms": batch_bounds[key][0],
+                                       "4k_to_256_bound_by": batch_bounds[key][1]})
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

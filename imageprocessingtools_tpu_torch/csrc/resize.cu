@@ -21,7 +21,16 @@
 // between the two passes of a resize is the C's own. The tap loop is a
 // run-time loop (8 taps at 4K -> 1920, 57 at 4K -> 256, tens of thousands for
 // extreme aspect ratios): nothing is sized by the tap count. Offsets are
-// 64-bit and both grids are one-dimensional, so no 65535 limit applies.
+// 64-bit and both grids of one image are one-dimensional, so no 65535 limit
+// applies to an image.
+//
+// A batch of N images of one shape (jax.vmap's one op over the batch:
+// imageprocessingtools_tpu/serving.py::_jitted_local_vmap over ops/resize.py)
+// is one launch per pass with the same tables: along dim 1 the rows of all N
+// images are one image of N * H rows (rows are independent there); along dim
+// 0 image blockIdx.y of the batch, its source H * row_bytes and its output
+// out_size * row_bytes apart, so N is at most 65535. A single image runs
+// the kBatch = false instance, which has no batch offset.
 //
 // What bounds it on an H100: f64 operations, one product and one sum per
 // byte and tap, each a whole FP64 issue slot (132 SMs x 64 lanes, about 16.7
@@ -107,13 +116,19 @@ template <> struct Bytes<1> { uint8_t v[1]; };
 
 // dim 0. Block b owns bytes [piece * THREADS * V, ...) of output row
 // b / pieces, V of them per thread. kWords: rows and buffers are V-byte
-// aligned, so a tap is one V-byte load.
-template <int V, bool kWords>
+// aligned, so a tap is one V-byte load. kBatch: image blockIdx.y of a batch
+// whose sources are src_image bytes apart and outputs dst_image bytes apart.
+template <int V, bool kWords, bool kBatch>
 __global__ void __launch_bounds__(THREADS)
 pass_rows_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
                  const int* __restrict__ idx, const double* __restrict__ w,
-                 long long row_bytes, int taps, long long pieces) {
+                 long long row_bytes, int taps, long long pieces, long long src_image,
+                 long long dst_image) {
     struct alignas(V) Words : Bytes<V> {};
+    if constexpr (kBatch) {
+        src += blockIdx.y * src_image;
+        dst += blockIdx.y * dst_image;
+    }
     const long long o = blockIdx.x / pieces;
     const long long j = ((blockIdx.x % pieces) * THREADS + threadIdx.x) * V;
     if (j >= row_bytes) return;
@@ -159,21 +174,27 @@ pass_rows_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     }
 }
 
+// n images of in_rows rows each (n > 1: the kBatch instance, image on grid.y).
 template <int V>
 cudaError_t launch_rows(const uint8_t* src, uint8_t* dst, const int* idx, const double* w,
-                        long long row_bytes, long long out_size, int taps, cudaStream_t stream) {
+                        long long row_bytes, long long out_size, int taps, long long n,
+                        long long in_rows, cudaStream_t stream) {
     const long long pieces = (row_bytes + THREADS * V - 1) / (THREADS * V);
     const long long blocks = out_size * pieces;
-    if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+    if (blocks > INT_MAX || n < 1 || n > 65535) return cudaErrorInvalidConfiguration;
+    // Every image's rows start V-byte aligned when the first's do: images
+    // are whole rows apart.
     const bool words = V > 1 && row_bytes % V == 0 && reinterpret_cast<uintptr_t>(src) % V == 0 &&
                        reinterpret_cast<uintptr_t>(dst) % V == 0;
-    if (words) {
-        pass_rows_kernel<V, V != 1><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
-            src, dst, idx, w, row_bytes, taps, pieces);
-    } else {
-        pass_rows_kernel<V, false><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
-            src, dst, idx, w, row_bytes, taps, pieces);
-    }
+    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n));
+    using Kernel = void (*)(const uint8_t*, uint8_t*, const int*, const double*, long long, int,
+                            long long, long long, long long);
+    const Kernel kernels[2][2] = {  // [words][a batch]
+        {pass_rows_kernel<V, false, false>, pass_rows_kernel<V, false, true>},
+        {pass_rows_kernel<V, V != 1, false>, pass_rows_kernel<V, V != 1, true>}};
+    kernels[words][n > 1]<<<grid, THREADS, 0, stream>>>(src, dst, idx, w, row_bytes, taps,
+                                                         pieces, in_rows * row_bytes,
+                                                         out_size * row_bytes);
     return cudaGetLastError();
 }
 
@@ -456,6 +477,39 @@ cudaError_t launch_cols(const uint8_t* src, uint8_t* dst, const int* idx, const 
     return cudaGetLastError();
 }
 
+// One pass over n images src uint8[n][rows, cols, channels], one after
+// another (see ipt_resize_pass).
+int resize_pass(const void* src, void* dst, const void* idx, const void* w, long long n,
+                long long rows, long long cols, int channels, long long out_size, int taps,
+                int dim, int vec, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if ((channels != 1 && channels != 3) || (dim != 0 && dim != 1) || rows < 1 || cols < 1 ||
+        out_size < 1 || taps < 1 || n < 1 ||
+        (dim == 0 && vec != 1 && vec != 2 && vec != 4 && vec != 8)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const auto s = static_cast<const uint8_t*>(src);
+    const auto d = static_cast<uint8_t*>(dst);
+    const auto i = static_cast<const int*>(idx);
+    const auto wt = static_cast<const double*>(w);
+    const auto st = static_cast<cudaStream_t>(stream);
+    if (dim == 1) {  // the batch's rows are one image's
+        const long long all = n * rows;
+        err = channels == 3 ? launch_cols<3>(s, d, i, wt, all, cols, out_size, taps, device, st)
+                            : launch_cols<1>(s, d, i, wt, all, cols, out_size, taps, device, st);
+        return static_cast<int>(err);
+    }
+    const long long row_bytes = cols * channels;
+    switch (vec) {
+        case 8: err = launch_rows<8>(s, d, i, wt, row_bytes, out_size, taps, n, rows, st); break;
+        case 4: err = launch_rows<4>(s, d, i, wt, row_bytes, out_size, taps, n, rows, st); break;
+        case 2: err = launch_rows<2>(s, d, i, wt, row_bytes, out_size, taps, n, rows, st); break;
+        default: err = launch_rows<1>(s, d, i, wt, row_bytes, out_size, taps, n, rows, st); break;
+    }
+    return static_cast<int>(err);
+}
+
 }  // namespace
 
 // One pass over src uint8[rows, cols, channels] (channels 1 or 3) with the
@@ -465,29 +519,18 @@ cudaError_t launch_cols(const uint8_t* src, uint8_t* dst, const int* idx, const 
 extern "C" int ipt_resize_pass(const void* src, void* dst, const void* idx, const void* w,
                                long long rows, long long cols, int channels, long long out_size,
                                int taps, int dim, int vec, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if ((channels != 1 && channels != 3) || (dim != 0 && dim != 1) || rows < 1 || cols < 1 ||
-        out_size < 1 || taps < 1 ||
-        (dim == 0 && vec != 1 && vec != 2 && vec != 4 && vec != 8)) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const auto s = static_cast<const uint8_t*>(src);
-    const auto d = static_cast<uint8_t*>(dst);
-    const auto i = static_cast<const int*>(idx);
-    const auto wt = static_cast<const double*>(w);
-    const auto st = static_cast<cudaStream_t>(stream);
-    if (dim == 1) {
-        err = channels == 3 ? launch_cols<3>(s, d, i, wt, rows, cols, out_size, taps, device, st)
-                            : launch_cols<1>(s, d, i, wt, rows, cols, out_size, taps, device, st);
-        return static_cast<int>(err);
-    }
-    const long long row_bytes = cols * channels;
-    switch (vec) {
-        case 8: err = launch_rows<8>(s, d, i, wt, row_bytes, out_size, taps, st); break;
-        case 4: err = launch_rows<4>(s, d, i, wt, row_bytes, out_size, taps, st); break;
-        case 2: err = launch_rows<2>(s, d, i, wt, row_bytes, out_size, taps, st); break;
-        default: err = launch_rows<1>(s, d, i, wt, row_bytes, out_size, taps, st); break;
-    }
-    return static_cast<int>(err);
+    return resize_pass(src, dst, idx, w, 1, rows, cols, channels, out_size, taps, dim, vec,
+                       device, stream);
+}
+
+// The same pass over each of n images (1 <= n <= 65535) of one shape, one
+// after another in src uint8[n, rows, cols, channels] and dst, with the same
+// tables, in one launch.
+extern "C" int ipt_resize_pass_batch(const void* src, void* dst, const void* idx, const void* w,
+                                     int n, long long rows, long long cols, int channels,
+                                     long long out_size, int taps, int dim, int vec, int device,
+                                     void* stream) {
+    if (n < 1 || n > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    return resize_pass(src, dst, idx, w, n, rows, cols, channels, out_size, taps, dim, vec,
+                       device, stream);
 }

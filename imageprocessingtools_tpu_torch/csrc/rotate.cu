@@ -50,7 +50,14 @@
 //   row's unaligned head and tail go as naturally aligned 1-8 byte pieces;
 // - a launch may take one band of output rows (32-row tiles) from a window
 //   of source rows, for the row bands of parallel/spatial.py: only the
-//   staging's addresses move, so the whole image is the band of all rows.
+//   staging's addresses move, so the whole image is the band of all rows;
+// - a batch of N images of one shape (jax.vmap's one op over the batch:
+//   imageprocessingtools_tpu/serving.py::_jitted_local_vmap, whose rotation
+//   is the XLA form under a tracer) is one launch, image blockIdx.z (so N is
+//   at most 65535), its source and output a whole image apart (64-bit
+//   offsets). All images share the geometry, so they share the plan and the
+//   shared-memory box. A single image and a band run the kBatch = false
+//   instance, which has no batch offset.
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -215,13 +222,18 @@ __device__ __forceinline__ void store_part(uint8_t* a, const uint8_t* s, int lo,
 
 // plan[tile] = {class, lo_x, lo_y, bw | bh << 16}: the tile's class and its
 // source footprint [lo_y, lo_y + bh) x [lo_x, lo_x + bw) (kernels/rotate.py);
-// box_w x box_h is the largest footprint of the launch.
-template <int C>
+// box_w x box_h is the largest footprint of the launch. kBatch: image
+// blockIdx.z of a batch of whole images (src_row0 0, src_rows H).
+template <int C, bool kBatch>
 __global__ void __launch_bounds__(THREADS, 6)
 rotate_kernel(const uint8_t* __restrict__ src, int src_row0, int src_rows,
               uint8_t* __restrict__ dst, int H, int W, int newH, int newW, double cos_t,
               double sin_t, int xc, int yc, int xoff, int yoff, const int4* __restrict__ plan,
               int box_w, int box_h) {
+    if constexpr (kBatch) {
+        src += static_cast<size_t>(blockIdx.z) * src_rows * W * C;
+        dst += static_cast<size_t>(blockIdx.z) * newH * newW * C;
+    }
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ double row_sin[TILE], row_cos[TILE];  // sin*ys, cos*ys per tile row
     constexpr int OUT_W = out_stride(C);
@@ -310,20 +322,43 @@ rotate_kernel(const uint8_t* __restrict__ src, int src_row0, int src_rows,
     }
 }
 
+// n images (n > 1: the kBatch instance, image on grid.z).
 template <int C>
 cudaError_t launch(const uint8_t* src, int src_row0, int src_rows, uint8_t* dst, int H, int W,
                    int newH, int newW, double cos_t, double sin_t, int xc, int yc, int xoff,
-                   int yoff, const int4* plan, int box_w, int box_h, cudaStream_t stream) {
+                   int yoff, const int4* plan, int box_w, int box_h, int n, cudaStream_t stream) {
+    if (n < 1 || n > 65535) return cudaErrorInvalidValue;
     const size_t smem = smem_bytes(box_w, box_h, C);
-    cudaError_t err = cudaFuncSetAttribute(rotate_kernel<C>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const auto kernel = n > 1 ? rotate_kernel<C, true> : rotate_kernel<C, false>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    const dim3 grid((newW + TILE - 1) / TILE, (newH + TILE - 1) / TILE);
-    rotate_kernel<C><<<grid, dim3(BX, BY), smem, stream>>>(
+    const dim3 grid((newW + TILE - 1) / TILE, (newH + TILE - 1) / TILE, n);
+    kernel<<<grid, dim3(BX, BY), smem, stream>>>(
         src, src_row0, src_rows, dst, H, W, newH, newW, cos_t, sin_t, xc, yc, xoff, yoff, plan,
         box_w, box_h);
     return cudaGetLastError();
+}
+
+int rotate(const void* src, int src_row0, int src_rows, void* dst, int H, int W, int C, int newH,
+           int newW, double cos_t, double sin_t, int xc, int yc, int xoff, int yoff,
+           const void* plan, int box_w, int box_h, int n, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const auto* s = static_cast<const uint8_t*>(src);
+    auto* d = static_cast<uint8_t*>(dst);
+    const auto* p = static_cast<const int4*>(plan);
+    const auto st = static_cast<cudaStream_t>(stream);
+    if (C == 3) {
+        err = launch<3>(s, src_row0, src_rows, d, H, W, newH, newW, cos_t, sin_t, xc, yc, xoff,
+                        yoff, p, box_w, box_h, n, st);
+    } else if (C == 1) {
+        err = launch<1>(s, src_row0, src_rows, d, H, W, newH, newW, cos_t, sin_t, xc, yc, xoff,
+                        yoff, p, box_w, box_h, n, st);
+    } else {
+        err = cudaErrorInvalidValue;
+    }
+    return static_cast<int>(err);
 }
 
 }  // namespace
@@ -344,20 +379,18 @@ extern "C" int ipt_rotate(const void* src, int src_row0, int src_rows, void* dst
                           int xc, int yc, int xoff, int yoff,
                           const void* plan, int box_w, int box_h,
                           int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const auto* s = static_cast<const uint8_t*>(src);
-    auto* d = static_cast<uint8_t*>(dst);
-    const auto* p = static_cast<const int4*>(plan);
-    const auto st = static_cast<cudaStream_t>(stream);
-    if (C == 3) {
-        err = launch<3>(s, src_row0, src_rows, d, H, W, newH, newW, cos_t, sin_t, xc, yc, xoff,
-                        yoff, p, box_w, box_h, st);
-    } else if (C == 1) {
-        err = launch<1>(s, src_row0, src_rows, d, H, W, newH, newW, cos_t, sin_t, xc, yc, xoff,
-                        yoff, p, box_w, box_h, st);
-    } else {
-        err = cudaErrorInvalidValue;
-    }
-    return static_cast<int>(err);
+    return rotate(src, src_row0, src_rows, dst, H, W, C, newH, newW, cos_t, sin_t, xc, yc, xoff,
+                  yoff, plan, box_w, box_h, 1, device, stream);
+}
+
+// The rotation of each of n whole images (1 <= n <= 65535) of one shape,
+// one after another in src uint8[n, H, W, C] and dst uint8[n, newH, newW, C],
+// in one launch with the plan of the whole image (as ipt_rotate's with
+// src_row0 0, src_rows H and oy0 0).
+extern "C" int ipt_rotate_batch(const void* src, void* dst, int n, int H, int W, int C,
+                                int newH, int newW, double cos_t, double sin_t, int xc, int yc,
+                                int xoff, int yoff, const void* plan, int box_w, int box_h,
+                                int device, void* stream) {
+    return rotate(src, 0, H, dst, H, W, C, newH, newW, cos_t, sin_t, xc, yc, xoff, yoff, plan,
+                  box_w, box_h, n, device, stream);
 }

@@ -52,4 +52,5 @@ def counted_wrappers() -> tuple:
 
     return (rotate.rotate_bicubic, core.gray_gauss_hist, core.gray_gauss,
             core.fused_elementwise, core.lut_apply, core.histogram, core.gaussian_blur,
-            core.box_blur, core.sharpen, core.sobel, resize.resize_pass) + core.BATCH_WRAPPERS
+            core.box_blur, core.sharpen, core.sobel, resize.resize_pass,
+            rotate.rotate_bicubic_batch, resize.resize_pass_batch) + core.BATCH_WRAPPERS

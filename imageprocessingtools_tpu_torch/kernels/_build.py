@@ -27,6 +27,8 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 from imageprocessingtools_tpu_torch.utils import cache
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -58,6 +60,22 @@ def int_limit(rows: int, row_bytes: int) -> str | None:
     return None
 
 
+def image_channels(name: str, img: torch.Tensor, ndim: int) -> int:
+    """The channels of ``img``, a contiguous uint8 tensor on a CUDA device
+    with ``ndim`` axes (``ndim + 1`` with the channels, 1 or 3): what K1's
+    and K9's launches take. Raises ``TypeError`` on anything else."""
+    if img.device.type != "cuda":
+        raise TypeError(f"{name}: unsupported device {img.device}")
+    if img.dtype != torch.uint8 or img.ndim not in (ndim, ndim + 1) or not img.is_contiguous():
+        raise TypeError(
+            f"{name}: need a contiguous uint8[{'N, ' * (ndim - 2)}H, W(, C)] tensor, got "
+            f"{img.dtype} {tuple(img.shape)} contiguous={img.is_contiguous()}")
+    c = 1 if img.ndim == ndim else img.shape[-1]
+    if c not in (1, 3):
+        raise TypeError(f"{name}: the kernel takes 1 or 3 channels, got {c}")
+    return c
+
+
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C entry points: each returns the launch's cudaGetLastError() as an int.
 _SIGNATURES = {
@@ -65,6 +83,10 @@ _SIGNATURES = {
     # box_w, box_h, device, stream
     "ipt_rotate": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _I, _P, _I, _I, _I,
                    _P],
+    # src, dst, N, H, W, C, newH, newW, cos, sin, xc, yc, xoff, yoff, plan, box_w, box_h,
+    # device, stream
+    "ipt_rotate_batch": [_P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _I, _P, _I, _I,
+                         _I, _P],
     # rgb, out, hist, H, W, device, stream
     "ipt_gray_gauss_hist": [_P, _P, _P, _I, _I, _I, _P],
     # rgb, out, H, W, device, stream
@@ -97,6 +119,9 @@ _SIGNATURES = {
     # per thread), device, stream
     "ipt_resize_pass": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _I,
                         ctypes.c_longlong, _I, _I, _I, _I, _P],
+    # the same with N images first: src, dst, idx, w, N, rows, cols, ...
+    "ipt_resize_pass_batch": [_P, _P, _P, _P, _I, ctypes.c_longlong, ctypes.c_longlong, _I,
+                              ctypes.c_longlong, _I, _I, _I, _I, _P],
     # out (int32[n]), n, device, stream: Sobel's clipped root of 0..n-1 (a test entry)
     "ipt_sobel_out_test": [_P, _I, _I, _P],
 }

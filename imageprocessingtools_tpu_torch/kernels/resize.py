@@ -8,7 +8,9 @@ float32, a budget of 2) and its exact mode is a host loop. The kernel here is
 the tables of ``ops/_exact.py::calc_contributions``, in f64, tap by tap in the
 table's order, every product and sum rounded on its own, so both are
 byte-identical to the C. ``resize_pass`` takes the plain version for a CPU
-tensor and launches the kernel for a CUDA tensor. ``device_passes`` keeps each
+tensor and launches the kernel for a CUDA tensor. ``resize_pass_batch`` is the
+same pass over each image of a batch of one shape in one launch with the same
+tables (``jax.vmap``'s one op over the batch). ``device_passes`` keeps each
 geometry's two tables on the device, so only a geometry's first call uploads
 anything.
 """
@@ -20,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from imageprocessingtools_tpu_torch.kernels import _build
+from imageprocessingtools_tpu_torch.kernels import _build, core
 from imageprocessingtools_tpu_torch.ops import _exact
 from imageprocessingtools_tpu_torch.ops.common import quantize_u8
 from imageprocessingtools_tpu_torch.utils import graphs
@@ -47,26 +49,31 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def pass_vec(img: torch.Tensor, out_size: int, dim: int) -> int:
-    """dim 0's bytes per thread for ``img`` (uint8[H, W(, C)] on a CUDA
-    device): ``rows_vec`` on its card's SMs; 0 for dim 1."""
+def pass_vec(img: torch.Tensor, out_size: int, dim: int, n: int = 1) -> int:
+    """dim 0's bytes per thread for ``n`` images of ``img``'s shape
+    (uint8[H, W(, C)] on a CUDA device) in one launch: ``rows_vec`` of the
+    launch's ``n * out_size`` output rows on its card's SMs; 0 for dim 1."""
     if dim != 0:
         return 0
-    return rows_vec(out_size, img.shape[1] * (img.shape[2] if img.ndim == 3 else 1),
+    return rows_vec(n * out_size, img.shape[1] * (img.shape[2] if img.ndim == 3 else 1),
                     _sm_count(img.device))
 
 
 def launch_limit(rows: int, cols: int, c: int, out_size: int, taps: int, dim: int,
-                 vec: int) -> str | None:
-    """Why one launch of K9 along ``dim`` cannot take uint8[rows, cols, c]
-    to ``out_size`` with ``taps`` taps (``vec`` bytes a thread along dim 0),
-    or None: its grid is one-dimensional and its tap count an int."""
+                 vec: int, n: int = 1) -> str | None:
+    """Why one launch of K9 along ``dim`` cannot take ``n`` images of
+    uint8[rows, cols, c] to ``out_size`` with ``taps`` taps (``vec`` bytes a
+    thread along dim 0), or None: an image's grid is one-dimensional, along
+    dim 0 the image is a grid axis of at most ``core.MAX_BATCH`` (along dim 1
+    the batch's rows are one image's), and the tap count is an int."""
     if dim == 0:
         blocks = out_size * -(-cols * c // (_THREADS * vec))
     else:
-        blocks = -(-out_size // _THREADS) * -(-rows // _ROWS)
+        blocks = -(-out_size // _THREADS) * -(-(n * rows) // _ROWS)
     if blocks > _MAX_BLOCKS:
         return f"{blocks} blocks exceed a one-dimensional grid"
+    if dim == 0 and core.batch_limit(n):
+        return core.batch_limit(n)
     if taps > _build.INT_MAX:
         return f"{taps} taps do not fit a C int"
     return None
@@ -121,6 +128,14 @@ def resize_pass_plain(img: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     return quantize_u8(acc)
 
 
+def resize_pass_batch_plain(imgs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                            dim: int) -> torch.Tensor:
+    """Plain torch form of K9 over a batch: ``resize_pass_plain`` along image
+    axis ``dim`` of each image of uint8[N, H, W(, C)], in one call (every
+    output byte takes the same f64 operations as in the single image's)."""
+    return resize_pass_plain(imgs, idx, w, dim + 1)
+
+
 def launch_args(img: torch.Tensor, out: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                 dim: int, vec: int | None = None) -> tuple:
     """``ipt_resize_pass``'s arguments for one pass of ``img`` (uint8[H, W, C]
@@ -133,6 +148,22 @@ def launch_args(img: torch.Tensor, out: torch.Tensor, idx: torch.Tensor, w: torc
             vec, img.device.index, torch.cuda.current_stream(img.device).cuda_stream)
 
 
+def _checked(name: str, img: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+             ndim: int) -> int:
+    """The channels of ``img`` (``_build.image_channels``), with ``idx``
+    int32[out, taps] and ``w`` float64[out, taps] contiguous on its device;
+    raises on anything else."""
+    c = _build.image_channels(name, img, ndim)
+    if (idx.dtype != torch.int32 or w.dtype != torch.float64 or idx.ndim != 2
+            or idx.shape != w.shape or idx.device != img.device or w.device != img.device
+            or not idx.is_contiguous() or not w.is_contiguous()):
+        raise TypeError(
+            f"{name}: need contiguous idx int32[out, taps] and w float64[out, taps] on "
+            f"{img.device}, got {idx.dtype} {tuple(idx.shape)} on {idx.device} and "
+            f"{w.dtype} {tuple(w.shape)} on {w.device}")
+    return c
+
+
 def resize_pass(img: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, dim: int) -> torch.Tensor:
     """One pass of a separable resize along ``dim`` (0 or 1): K9 on a CUDA
     tensor, the plain version on a CPU tensor. ``img`` is a contiguous
@@ -142,24 +173,9 @@ def resize_pass(img: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, dim: int)
         raise ValueError(f"resize_pass: dim must be 0 or 1, got {dim}")
     if img.device.type == "cpu":
         return resize_pass_plain(img, idx, w, dim)
-    if img.device.type != "cuda":
-        raise TypeError(f"resize_pass: unsupported device {img.device}")
-    if img.dtype != torch.uint8 or img.ndim not in (2, 3) or not img.is_contiguous():
-        raise TypeError(
-            f"resize_pass: need a contiguous uint8[H, W(, C)] tensor, got "
-            f"{img.dtype} {tuple(img.shape)} contiguous={img.is_contiguous()}")
+    c = _checked("resize_pass", img, idx, w, 2)
     squeeze = img.ndim == 2
     rows, cols = img.shape[0], img.shape[1]
-    c = 1 if squeeze else img.shape[2]
-    if c not in (1, 3):
-        raise TypeError(f"resize_pass: the kernel takes 1 or 3 channels, got {c}")
-    if (idx.dtype != torch.int32 or w.dtype != torch.float64 or idx.ndim != 2
-            or idx.shape != w.shape or idx.device != img.device or w.device != img.device
-            or not idx.is_contiguous() or not w.is_contiguous()):
-        raise TypeError(
-            f"resize_pass: need contiguous idx int32[out, taps] and w float64[out, taps] on "
-            f"{img.device}, got {idx.dtype} {tuple(idx.shape)} on {idx.device} and "
-            f"{w.dtype} {tuple(w.shape)} on {w.device}")
     out_size, taps = idx.shape
     out_shape = (out_size, cols, c) if dim == 0 else (rows, out_size, c)
     out = torch.empty(out_shape, dtype=torch.uint8, device=img.device)
@@ -178,4 +194,39 @@ def resize_pass(img: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, dim: int)
     return out[:, :, 0] if squeeze else out
 
 
+def resize_pass_batch(imgs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                      dim: int) -> torch.Tensor:
+    """``resize_pass`` along image axis ``dim`` (0 or 1) of each image of
+    ``imgs``, a contiguous uint8[N, H, W, C] (C 1 or 3) or uint8[N, H, W]:
+    one launch of K9 over the batch with the same tables on a CUDA tensor,
+    the plain batch version on a CPU tensor."""
+    if dim not in (0, 1):
+        raise ValueError(f"resize_pass_batch: dim must be 0 or 1, got {dim}")
+    if imgs.device.type == "cpu":
+        return resize_pass_batch_plain(imgs, idx, w, dim)
+    c = _checked("resize_pass_batch", imgs, idx, w, 3)
+    squeeze = imgs.ndim == 3
+    n, rows, cols = imgs.shape[:3]
+    out_size, taps = idx.shape
+    out_shape = (n, out_size, cols, c) if dim == 0 else (n, rows, out_size, c)
+    out = torch.empty(out_shape, dtype=torch.uint8, device=imgs.device)
+    if out.numel():
+        if taps < 1 or imgs.numel() == 0:
+            raise ValueError(f"resize_pass_batch: no taps or no source for a {out_shape} output")
+        vec = pass_vec(imgs[0], out_size, dim, n)
+        reason = launch_limit(rows, cols, c, out_size, taps, dim, vec, n)
+        if reason:
+            raise _build.TooLarge(
+                f"resize_pass_batch: {n}x{rows}x{cols}x{c} -> {out_shape} with {taps} taps is "
+                f"too large for one launch: {reason}")
+        status = _build.library().ipt_resize_pass_batch(
+            imgs.data_ptr(), out.data_ptr(), idx.data_ptr(), w.data_ptr(), n, rows, cols, c,
+            out_size, taps, dim, vec, imgs.device.index,
+            torch.cuda.current_stream(imgs.device).cuda_stream)
+        _build.check(status, "ipt_resize_pass_batch")
+        resize_pass_batch.launches += 1
+    return out[..., 0] if squeeze else out
+
+
 resize_pass.launches = 0
+resize_pass_batch.launches = 0

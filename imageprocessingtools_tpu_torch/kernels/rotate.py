@@ -6,7 +6,9 @@ compute the reference's f64 arithmetic (``ops/_exact.py::plan_rotation``,
 ``golden/model.py::rotate``) in the same order, so both are byte-identical
 to the C. ``rotate_bicubic`` takes the plain version for a CPU tensor and
 launches the kernel for a CUDA tensor, with the kernel's per-tile plan
-(``tile_plan``) made on the host once per geometry.
+(``tile_plan``) made on the host once per geometry. ``rotate_bicubic_batch``
+rotates each image of a batch of one shape in one launch with the one plan
+(``jax.vmap``'s one op over the batch).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import math
 
 import torch
 
-from imageprocessingtools_tpu_torch.kernels import _build
+from imageprocessingtools_tpu_torch.kernels import _build, core
 from imageprocessingtools_tpu_torch.ops import _exact
 from imageprocessingtools_tpu_torch.utils import graphs
 
@@ -220,16 +222,26 @@ def rotate_plain(img: torch.Tensor, angle_deg: float, height: int | None = None,
     return out[:, :, 0] if squeeze else out
 
 
+def rotate_batch_plain(imgs: torch.Tensor, angle_deg: float) -> torch.Tensor:
+    """Plain torch form of K1 over a batch: ``rotate_plain`` of each whole
+    image of uint8[N, H, W(, C)], stacked."""
+    h, w = imgs.shape[1], imgs.shape[2]
+    new_h, new_w = _geometry(h, w, float(angle_deg))[:2]
+    return core._stacked([rotate_plain(x, angle_deg) for x in imgs],
+                         (new_h, new_w) + tuple(imgs.shape[3:]), torch.uint8, imgs.device)
+
+
 def launch_limit(height: int, width: int, c: int, new_h: int, new_w: int,
-                 rows: int) -> str | None:
-    """Why K1 cannot rotate an image of ``height`` x ``width`` x ``c`` into
-    ``rows`` output rows of ``new_h`` x ``new_w`` in one launch, or None: a
-    2-D grid of TILE-row tiles takes at most ``_MAX_GRID_Y`` rows, the C
-    entry takes dimensions as ints, and a tile's plan row is an int.
-    Offsets into the images are 64-bit, so their size is no limit."""
+                 rows: int, n: int = 1) -> str | None:
+    """Why K1 cannot rotate ``n`` images of ``height`` x ``width`` x ``c``
+    into ``rows`` output rows of ``new_h`` x ``new_w`` each in one launch, or
+    None: a grid of TILE-row tiles takes at most ``_MAX_GRID_Y`` rows and
+    ``core.MAX_BATCH`` images (its z axis), the C entry takes dimensions as
+    ints, and a tile's plan row is an int. Offsets into the images are
+    64-bit, so their size is no limit."""
     if rows > _MAX_GRID_Y:
         return f"{rows} output rows exceed the grid's {_MAX_GRID_Y}"
-    reason = _build.int_limit(max(height, new_h), max(width, new_w) * c)
+    reason = _build.int_limit(max(height, new_h), max(width, new_w) * c) or core.batch_limit(n)
     tiles = -(-rows // TILE) * -(-new_w // TILE)
     if reason is None and tiles > _build.INT_MAX:
         reason = f"{tiles} tiles do not fit a C int"
@@ -244,19 +256,11 @@ def rotate_bicubic(img: torch.Tensor, angle_deg: float, height: int | None = Non
     ``rotate_plain``); by default the whole image."""
     if img.device.type == "cpu":
         return rotate_plain(img, angle_deg, height, src_row0, out_rows)
-    if img.device.type != "cuda":
-        raise TypeError(f"rotate_bicubic: unsupported device {img.device}")
-    if img.dtype != torch.uint8 or img.ndim not in (2, 3) or not img.is_contiguous():
-        raise TypeError(
-            f"rotate_bicubic: need a contiguous uint8[H, W(, C)] tensor, got "
-            f"{img.dtype} {tuple(img.shape)} contiguous={img.is_contiguous()}")
+    c = _build.image_channels("rotate_bicubic", img, 2)
     angle = float(angle_deg)
     h, src_row0, oy0, oy1 = _band(img, angle, height, int(src_row0), out_rows)
     squeeze = img.ndim == 2
     w = img.shape[1]
-    c = 1 if squeeze else img.shape[2]
-    if c not in (1, 3):
-        raise TypeError(f"rotate_bicubic: the kernel takes 1 or 3 channels, got {c}")
     new_h, new_w, cos_t, sin_t, xc, yc, xoff, yoff = _geometry(h, w, angle)
     reason = launch_limit(h, w, c, new_h, new_w, oy1 - oy0)
     if reason:
@@ -275,4 +279,33 @@ def rotate_bicubic(img: torch.Tensor, angle_deg: float, height: int | None = Non
     return out[:, :, 0] if squeeze else out
 
 
+def rotate_bicubic_batch(imgs: torch.Tensor, angle_deg: float) -> torch.Tensor:
+    """``rotate_bicubic`` of each whole image of ``imgs``, a contiguous
+    uint8[N, H, W, C] (C 1 or 3) or uint8[N, H, W]: one launch of K1 over
+    the batch with the one plan on a CUDA tensor, the plain batch version
+    on a CPU tensor. Returns uint8[N, newH, newW(, C)]."""
+    if imgs.device.type == "cpu":
+        return rotate_batch_plain(imgs, angle_deg)
+    c = _build.image_channels("rotate_bicubic_batch", imgs, 3)
+    angle = float(angle_deg)
+    squeeze = imgs.ndim == 3
+    n, h, w = imgs.shape[:3]
+    new_h, new_w, cos_t, sin_t, xc, yc, xoff, yoff = _geometry(h, w, angle)
+    reason = launch_limit(h, w, c, new_h, new_w, new_h, n)
+    if reason:
+        raise _build.TooLarge(
+            f"rotate_bicubic_batch: {n}x{h}x{w}x{c} -> {new_h}x{new_w} is too large: {reason}")
+    out = torch.empty((n, new_h, new_w, c), dtype=torch.uint8, device=imgs.device)
+    if out.numel():
+        plan, box_w, box_h = _device_plan(h, w, angle, imgs.device)
+        status = _build.library().ipt_rotate_batch(
+            imgs.data_ptr(), out.data_ptr(), n, h, w, c, new_h, new_w, cos_t, sin_t, xc, yc,
+            xoff, yoff, plan.data_ptr(), box_w, box_h, imgs.device.index,
+            torch.cuda.current_stream(imgs.device).cuda_stream)
+        _build.check(status, "ipt_rotate_batch")
+        rotate_bicubic_batch.launches += 1
+    return out[..., 0] if squeeze else out
+
+
 rotate_bicubic.launches = 0
+rotate_bicubic_batch.launches = 0

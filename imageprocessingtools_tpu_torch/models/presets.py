@@ -7,12 +7,12 @@ fuses the two stages for the JAX package) and K7 (Sobel), ``enhance``
 through K8 (gray), K4, K3 and K7 (sharpen), ``print_ready`` through K8, K4
 and K3, ``thumbnail`` through K9 (one launch per axis; exact, like the rest).
 
-``edge_detect``, ``enhance`` and ``print_ready`` carry batch forms
-(``utils/graphs.py::batch_form``), the counterpart of ``jax.vmap`` of the
-preset: uint8[N, H, W, 3] -> uint8[N, H, W], each image as the preset
+Every preset, and every ``reference_pipeline`` callable, carries a batch
+form (``utils/graphs.py::batch_form``), the counterpart of ``jax.vmap`` of
+the preset: uint8[N, H, W, 3] -> uint8[N, ...], each image as the preset
 gives it, each kernel launched once over the batch (K6 and K7 Sobel; K8,
-K4, K3 and K7 sharpen; K8, K4 and K3, then the dither). ``thumbnail`` has
-none yet: K9 runs per image.
+K4, K3 and K7 sharpen; K8, K4 and K3, then the dither; K9 twice for
+``thumbnail``; ``pipeline.run_pipeline_batch`` for a reference config).
 """
 
 from __future__ import annotations
@@ -26,17 +26,23 @@ from imageprocessingtools_tpu_torch.codec.ppm import FILETYPE_PBM, FILETYPE_PGM,
 from imageprocessingtools_tpu_torch.kernels import core
 from imageprocessingtools_tpu_torch.ops import _exact
 from imageprocessingtools_tpu_torch.ops.histogram import equalize_histogram_batch
-from imageprocessingtools_tpu_torch.pipeline import PipelineConfig, run_pipeline
+from imageprocessingtools_tpu_torch.pipeline import PipelineConfig, run_pipeline, run_pipeline_batch
 from imageprocessingtools_tpu_torch.utils.graphs import batch_form
 
 THUMBNAIL_WIDTH = 256
 
 
 def reference_pipeline(config: PipelineConfig):
-    """The reference's fixed-order pipeline as a callable on one image."""
+    """The reference's fixed-order pipeline as a callable on one image, with
+    its batch form (``run_pipeline_batch``)."""
 
     def fn(img: torch.Tensor) -> torch.Tensor:
         out, _ = run_pipeline(img, config)
+        return out
+
+    @batch_form(fn)
+    def fn_batch(imgs: torch.Tensor) -> torch.Tensor:
+        out, _ = run_pipeline_batch(imgs, config)
         return out
 
     return fn
@@ -88,6 +94,13 @@ PRESETS = {
     "thumbnail": functools.partial(thumbnail, width=THUMBNAIL_WIDTH),
     "print_ready": print_ready,
 }
+
+@batch_form(PRESETS["thumbnail"])
+def thumbnail_batch(imgs: torch.Tensor) -> torch.Tensor:
+    """``thumbnail`` of each image of uint8[N, H, W, 3]: K9's two passes,
+    each one launch over the batch."""
+    return ops.resize_width_batch(imgs, THUMBNAIL_WIDTH)
+
 
 # Output encoding per preset (serving writes one file per input):
 # 0 = P6 colour, 1 = P5 gray, 2 = P4 bilevel (values {0, 1}, device-packed).

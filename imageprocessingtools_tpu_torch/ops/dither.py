@@ -28,7 +28,9 @@ def mono_dither(img: torch.Tensor) -> torch.Tensor:
     Bit-exact. Leading axes are a batch: each image is dithered on its own
     (the JAX ``mono_dither`` under ``jax.vmap``)."""
     h, w = img.shape[-3], img.shape[-2]
-    avg = img.to(torch.int32).sum(-1) // 3
+    # r + g + b <= 765 in int16, channel by channel: no int32 copy of the
+    # image (a batch's temporaries grow with the batch).
+    avg = (img[..., 0].to(torch.int16) + img[..., 1] + img[..., 2]) // 3
     table = _thresholds(img.device)
     ys = torch.arange(h, device=img.device) % 4
     xs = torch.arange(w, device=img.device) % 4

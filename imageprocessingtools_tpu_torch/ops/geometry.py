@@ -6,6 +6,10 @@ Counterpart of ``imageprocessingtools_tpu/ops/geometry.py``. Flips and
 f64 in the reference's order and so byte-identical to the C at every size:
 the JAX package's double-f32 geometry, +-1 budget, host audit and
 ``strict=`` fallback have no counterpart here.
+
+The ``*_batch`` forms take uint8[N, H, W(, C)] and do the same to each image,
+as ``jax.vmap`` of the JAX package's op: the permutations over axes 1 and 2,
+and any other angle one launch of K1 over the batch.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from imageprocessingtools_tpu_torch.kernels.rotate import rotate_bicubic
+from imageprocessingtools_tpu_torch.kernels.rotate import rotate_bicubic, rotate_bicubic_batch
 
 
 def flip_vertical(img: torch.Tensor) -> torch.Tensor:
@@ -57,6 +61,32 @@ def rotate(img: torch.Tensor, angle_deg: float) -> torch.Tensor:
     if angle == 270.0:
         return rotate270(img)
     return rotate_bicubic(img.contiguous(), angle)
+
+
+def flip_vertical_batch(imgs: torch.Tensor) -> torch.Tensor:
+    """``flip_vertical`` of each image of uint8[N, H, W(, C)]."""
+    return torch.flip(imgs, dims=(1,))
+
+
+def flip_horizontal_batch(imgs: torch.Tensor) -> torch.Tensor:
+    """``flip_horizontal`` of each image of uint8[N, H, W(, C)]."""
+    return torch.flip(imgs, dims=(2,))
+
+
+def rotate_batch(imgs: torch.Tensor, angle_deg: float) -> torch.Tensor:
+    """``rotate`` of each image of uint8[N, H, W(, C)]: 0/90/180/270 as
+    permutations of axes 1 and 2, any other angle one launch of K1 over the
+    batch on a CUDA tensor (its plain batch version on a CPU tensor)."""
+    angle = float(angle_deg)
+    if angle == 0.0:
+        return imgs
+    if angle == 90.0:
+        return torch.flip(imgs.transpose(1, 2), dims=(2,)).contiguous()
+    if angle == 180.0:
+        return torch.flip(imgs, dims=(1, 2))
+    if angle == 270.0:
+        return torch.flip(imgs.transpose(1, 2), dims=(1,)).contiguous()
+    return rotate_bicubic_batch(imgs.contiguous(), angle)
 
 
 def rotate_exact(img, angle_deg: float) -> np.ndarray:

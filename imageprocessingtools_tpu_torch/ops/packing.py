@@ -20,8 +20,8 @@ _WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
 
 @functools.cache
 def _weights(device: torch.device) -> torch.Tensor:
-    """int32[8] MSB-first bit weights on ``device``, made once per device."""
-    return torch.tensor(_WEIGHTS, dtype=torch.int32, device=device)
+    """uint8[8] MSB-first bit weights on ``device``, made once per device."""
+    return torch.tensor(_WEIGHTS, dtype=torch.uint8, device=device)
 
 
 def pack_bits_device(bits: torch.Tensor) -> torch.Tensor:
@@ -31,6 +31,7 @@ def pack_bits_device(bits: torch.Tensor) -> torch.Tensor:
     pad = row_bytes * 8 - w
     if pad:
         bits = torch.nn.functional.pad(bits, (0, pad))
-    weights = _weights(bits.device)
-    grouped = bits.reshape(bits.shape[:-1] + (row_bytes, 8)).to(torch.int32)
-    return (grouped * weights).sum(-1).to(torch.uint8)
+    # A bit times its weight and the sum of a byte's eight fit a byte, so
+    # the packing runs in uint8: no wider copy of the bits.
+    grouped = bits.reshape(bits.shape[:-1] + (row_bytes, 8))
+    return (grouped * _weights(bits.device)).sum(-1, dtype=torch.uint8)

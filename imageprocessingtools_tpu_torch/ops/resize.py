@@ -8,6 +8,10 @@ the reference's uint8 requantization between the passes
 (``ppmx-edward.c:1102-1120``). Every geometry takes this one path and every
 result is byte-identical to the C, so the port has no inexact op and no
 budget. The tables stay on the device per geometry; nothing leaves it.
+``resize_width_batch`` and ``resize_batch`` resize each image of a batch of
+one shape with one launch per pass for the whole batch
+(``kernels/resize.py::resize_pass_batch``), as ``jax.vmap`` of the JAX
+package's resize is one op over the batch.
 
 The JAX package multiplies by dense float32 weight matrices instead, because
 the TPU has a matrix unit and neither f64 nor a fast gather; that form is kept
@@ -33,6 +37,15 @@ def _apply(img: torch.Tensor, target) -> torch.Tensor:
     return out
 
 
+def _apply_batch(imgs: torch.Tensor, target) -> torch.Tensor:
+    """``_apply`` of each image of uint8[N, H, W(, C)]: the same passes, each
+    one launch over the batch, the same uint8 image between them."""
+    out = imgs.contiguous()
+    for dim, idx, w in _k9.device_passes(imgs.shape[1], imgs.shape[2], target, imgs.device):
+        out = _k9.resize_pass_batch(out, idx, w, dim)
+    return out
+
+
 def resize_width(img: torch.Tensor, new_width: int) -> torch.Tensor:
     """Resize to ``new_width``; height = trunc(H * new_width / W) (B6).
 
@@ -49,11 +62,13 @@ def resize_width_exact(img: torch.Tensor, new_width: int) -> torch.Tensor:
     return resize_width(img, new_width)
 
 
-def resize(img: torch.Tensor, new_height: int, new_width: int) -> torch.Tensor:
-    """Library extension: resize to an explicit (new_height, new_width), with
-    the same taps, pass order and exact sums as ``resize_width``. Outputs
-    beyond the resource caps raise up front (a clear extension message, not
-    the ``-wN`` parity surface)."""
+def resize_width_batch(imgs: torch.Tensor, new_width: int) -> torch.Tensor:
+    """``resize_width`` of each image of uint8[N, H, W, C] or uint8[N, H, W],
+    each pass one launch over the batch."""
+    return _apply_batch(imgs, int(new_width))
+
+
+def _explicit_target(new_height: int, new_width: int) -> tuple:
     new_height, new_width = int(new_height), int(new_width)
     if new_height < 1 or new_width < 1:
         raise ValueError("invalid option for new width\n")
@@ -65,7 +80,21 @@ def resize(img: torch.Tensor, new_height: int, new_width: int) -> torch.Tensor:
             f"resize output {new_height}x{new_width} exceeds the supported "
             f"bound (dim <= 2^26, pixels <= 2^31)"
         )
-    return _apply(img, (new_height, new_width))
+    return new_height, new_width
+
+
+def resize(img: torch.Tensor, new_height: int, new_width: int) -> torch.Tensor:
+    """Library extension: resize to an explicit (new_height, new_width), with
+    the same taps, pass order and exact sums as ``resize_width``. Outputs
+    beyond the resource caps raise up front (a clear extension message, not
+    the ``-wN`` parity surface)."""
+    return _apply(img, _explicit_target(new_height, new_width))
+
+
+def resize_batch(imgs: torch.Tensor, new_height: int, new_width: int) -> torch.Tensor:
+    """``resize`` of each image of uint8[N, H, W, C] or uint8[N, H, W], each
+    pass one launch over the batch."""
+    return _apply_batch(imgs, _explicit_target(new_height, new_width))
 
 
 @functools.lru_cache(maxsize=8)

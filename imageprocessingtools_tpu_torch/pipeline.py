@@ -9,6 +9,10 @@ Intentional divergence (bug B1, as in the JAX package): in the reference, a
 flip combined with -gray/-mono clobbers the gray/mono result with the color
 buffer's red channel (``ppmx-edward.c:896`` aliasing + the guard at
 ``:1147-1155``). This pipeline composes: flips apply to the gray/mono output.
+
+``run_pipeline_batch`` is ``jax.vmap(run_pipeline)``: the same order over a
+batch of one shape, each stage one op over the batch (K9, K1 and K8 launched
+once per stage for the whole batch on a card).
 """
 
 from __future__ import annotations
@@ -82,4 +86,26 @@ def run_pipeline(img, config: PipelineConfig) -> tuple[torch.Tensor, int]:
         out = ops.flip_vertical(out)
     if config.flip_h:
         out = ops.flip_horizontal(out)
+    return out, config.file_type
+
+
+def run_pipeline_batch(imgs, config: PipelineConfig) -> tuple[torch.Tensor, int]:
+    """``run_pipeline`` of each image of uint8[N, H, W, 3] (numpy or torch),
+    in the same fixed order through the ops' batch forms; returns
+    (uint8[N, ...], file_type). Raises as ``run_pipeline`` does."""
+    if not config.any_op:
+        raise ValueError("Error: no data to write\n")
+    out = torch.as_tensor(imgs).to(get_device())
+    if config.new_width is not None:
+        out = ops.resize_width_batch(out, int(config.new_width))
+    if config.angle is not None:
+        out = ops.rotate_batch(out, float(config.angle))
+    if config.gray:
+        out = ops.grayscale(out)
+    if config.mono:
+        out = ops.mono_dither(out)
+    if config.flip_v:
+        out = ops.flip_vertical_batch(out)
+    if config.flip_h:
+        out = ops.flip_horizontal_batch(out)
     return out, config.file_type

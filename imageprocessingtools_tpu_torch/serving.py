@@ -18,12 +18,11 @@ group of G images (``utils.graphs.batched``), each group's host images
 copied straight into the graph's input. As in JAX, the task callables are
 cached (``_pipeline_fn``, ``_preset_pipeline_fn``, ``_fanout_pipeline_fn``),
 so one chunk's graphs are found again by the next chunk of that shape.
-Where ``jax.vmap`` makes one kernel over the batch, a task callable carries
-a batch form (``utils/graphs.py::batch_form``): a preset's that has one
-(edge_detect, enhance, print_ready, with P4 packing), and a fan-out's where
-any element has one (each element in its batch form where it has one, the
-rest per image, in one graph per group). The reference configs and
-``thumbnail`` run per image.
+As ``jax.vmap`` makes one op over the batch, every task callable carries a
+batch form (``utils/graphs.py::batch_form``): a reference config's
+(``pipeline.run_pipeline_batch``), each preset's, and a fan-out's (each
+element in its batch form, in one graph per group), P4 rows packed on the
+device; each kernel of a task launches once per group of images.
 
 ``process_file_spatial`` takes one giant image in row bands over a mesh
 (``parallel/spatial.py``), decoded once and uploaded once for every fan-out
@@ -49,50 +48,50 @@ from imageprocessingtools_tpu_torch.models import (
     PRESET_FILE_TYPES,
     get_preset,
     preset_output_shape,
+    reference_pipeline,
 )
 from imageprocessingtools_tpu_torch.ops import _exact
 from imageprocessingtools_tpu_torch.ops.packing import pack_bits_device
 from imageprocessingtools_tpu_torch.parallel import spatial
 from imageprocessingtools_tpu_torch.parallel.batch import batch_apply, default_mesh
-from imageprocessingtools_tpu_torch.pipeline import PipelineConfig, run_pipeline
+from imageprocessingtools_tpu_torch.pipeline import PipelineConfig
 from imageprocessingtools_tpu_torch.utils import graphs
+
+
+def _task(fn, pack: bool, name: str):
+    """``fn`` (an image -> uint8[H, W(, C)]) and its batch form, P4 rows
+    packed on the device where ``pack``, as one serving task named ``name``."""
+
+    def finish(out):
+        return pack_bits_device(out) if pack else out
+
+    def one(img):
+        return finish(fn(img))
+
+    form = graphs.batch_form_of(fn)
+    graphs.batch_form(one)(lambda imgs: finish(form(imgs)))
+    one.__qualname__ = f"task {name}"
+    return one
 
 
 @functools.lru_cache(maxsize=64)
 def _pipeline_fn(config: PipelineConfig):
-    """Single-image fn for a reference config; mono output is packed to P4
+    """Single-image fn for a reference config (``models.reference_pipeline``,
+    whose batch form is ``run_pipeline_batch``); mono output is packed to P4
     rows on the device. One callable per config (a frozen dataclass), so
     that the graphs captured for it are found again."""
-
-    def one(img):
-        out, _ = run_pipeline(img, config)
-        if config.mono:
-            out = pack_bits_device(out)
-        return out
-
-    one.__qualname__ = f"task {config_tag(config) if config.any_op else config}"
-    return one
+    return _task(reference_pipeline(config), config.mono,
+                 config_tag(config) if config.any_op else config)
 
 
 @functools.lru_cache(maxsize=64)
 def _preset_pipeline_fn(name: str):
     """(single-image fn, file_type) for a models/ preset name. PBM presets
     pack bits on the device like the reference mono path. The fn carries the
-    preset's batch form where it has one. Cached, as ``_pipeline_fn`` is."""
+    preset's batch form. Cached, as ``_pipeline_fn`` is."""
     fn = get_preset(name)  # raises ValueError for unknown names
     file_type = PRESET_FILE_TYPES[name]
-
-    def finish(out):
-        return pack_bits_device(out) if file_type == FILETYPE_PBM else out
-
-    def one(img):
-        return finish(fn(img))
-
-    form = graphs.batch_form_of(fn)
-    if form is not None:
-        graphs.batch_form(one)(lambda imgs: finish(form(imgs)))
-    one.__qualname__ = f"task {name}"
-    return one, file_type
+    return _task(fn, file_type == FILETYPE_PBM, name), file_type
 
 
 def config_tag(item) -> str:
@@ -144,8 +143,7 @@ def _fanout_pipeline_fn(items: tuple):
     def one(img):
         return tuple(fn(img) for fn in fns)
 
-    if any(graphs.batch_form_of(fn) is not None for fn in fns):
-        graphs.batch_form(one)(lambda imgs: tuple(graphs.over_group(fn, imgs) for fn in fns))
+    graphs.batch_form(one)(lambda imgs: tuple(graphs.over_group(fn, imgs) for fn in fns))
     one.__qualname__ = f"task {';'.join(tags)}"
     return one, file_types
 

@@ -43,9 +43,10 @@ which one replay runs on the card with no host work between its launches.
   has a batch form (below), that form on the whole group, whose kernels
   launch once per group (``jax.vmap``'s batching rule: one kernel over the
   batch) and whose outputs are stacked already (one copy out per output);
-  else ``fn`` on each image in turn, one launch per image and kernel (an
-  arbitrary ``batch_apply`` function, ``thumbnail``, the reference
-  configs), stacked out. On a CPU device the same group body runs eagerly
+  else ``fn`` on each image in turn, one launch per image and kernel, stacked
+  out. Every serving task and fan-out element has a batch form; only a
+  function without one (the staged flagship, an arbitrary ``batch_apply``
+  function) runs per image. On a CPU device the same group body runs eagerly
   (a batch form through the kernels' plain batch versions);
   ``eager_batch`` is the per-image loop, the plain form of this dispatch.
 - ``batch_form(single)``: declares the decorated function the batch form of

@@ -186,7 +186,9 @@ def test_equalize_histogram_batch_equalizes_each_image_alone():
 # ---------------------------------------------------------------------------
 
 _TASKS = {"mega": None, "edge_detect": "edge_detect", "enhance": "enhance",
-          "print_ready": "print_ready",
+          "print_ready": "print_ready", "thumbnail": "thumbnail",
+          "-w16 -r30 -gray": PipelineConfig(new_width=16, angle=30.0, gray=True),
+          "-r135 -mono -fh": PipelineConfig(angle=135.0, mono=True, flip_h=True),
           "fanout": ("edge_detect", "thumbnail", PipelineConfig(gray=True), "print_ready")}
 
 
@@ -216,9 +218,7 @@ def test_batched_with_a_batch_form_equals_the_per_image_loop(label, monkeypatch)
     monkeypatch.setattr(one, "batch_form", lambda x: seen.append(x.shape[0]) or form(x))
     got = graphs.batched(one)(imgs, CPU)
     assert seen == [2, 2, 1]
-    # only a fan-out element without a batch form (thumbnail, -gray) runs per image
-    assert all(graphs.batch_form_of(fn) is None for fn in calls)
-    assert len(calls) == (2 * 3 if label == "fanout" else 0)
+    assert len(calls) == 0  # no task and no fan-out element runs per image
     got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
     assert len(got) == len(want)
     for g, w in zip(got, want):
@@ -226,11 +226,20 @@ def test_batched_with_a_batch_form_equals_the_per_image_loop(label, monkeypatch)
 
 
 def test_the_tasks_without_a_batch_form_keep_the_per_image_loop():
-    assert graphs.batch_form_of(models.PRESETS["thumbnail"]) is None
-    assert graphs.batch_form_of(serving._task_fn("thumbnail")[0]) is None
-    assert graphs.batch_form_of(serving._task_fn(PipelineConfig(gray=True))[0]) is None
-    assert graphs.batch_form_of(serving._task_fn(("thumbnail", PipelineConfig(mono=True)))[0]) \
-        is None
+    """Every serving task and fan-out has a batch form, and so does each
+    fan-out element; only the staged flagship keeps the per-image loop."""
+    assert graphs.batch_form_of(models.PRESETS["thumbnail"]) is presets.thumbnail_batch
+    for name in models.PRESETS:
+        assert graphs.batch_form_of(models.get_preset(name)) is not None, name
+        assert graphs.batch_form_of(serving._task_fn(name)[0]) is not None, name
+    configs = [PipelineConfig(gray=True), PipelineConfig(new_width=8, angle=30.0, mono=True),
+               PipelineConfig(angle=90.0, flip_v=True)]
+    for config in configs:
+        assert graphs.batch_form_of(serving._task_fn(config)[0]) is not None, config
+        assert graphs.batch_form_of(models.reference_pipeline(config)) is not None, config
+    fanout = ("thumbnail", PipelineConfig(mono=True), "edge_detect")
+    assert graphs.batch_form_of(serving._task_fn(fanout)[0]) is not None
+    assert all(graphs.batch_form_of(serving._task_fn(item)[0]) is not None for item in fanout)
     assert graphs.batch_form_of(fused.fused_pipeline_staged) is None
 
 

@@ -155,5 +155,5 @@ def test_counted_wrappers_are_every_launch_counter():
                 for fn in vars(importlib.import_module(
                     f"imageprocessingtools_tpu_torch.kernels.{name}")).values()
                 if callable(fn) and hasattr(fn, "launches")}
-    assert len(counters) == 18  # 11 single-image wrappers and 7 batched ones
+    assert len(counters) == 20  # 11 single-image wrappers and 9 batched ones
     assert set(kernels.counted_wrappers()) == counters

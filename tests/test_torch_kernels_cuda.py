@@ -813,22 +813,99 @@ def test_batch_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         core.histogram_batch(gray.transpose(1, 2))
 
 
+# K9 and K1 over a batch: the main paths' geometries at a smaller size
+# (4K -> 1920: a half; 4K -> 256: a fifteenth; 1080p -> 3840: a double), odd
+# widths, a batch of one, more images than the card has SMs, and views 5 and
+# 11 bytes into their buffers (their rows off every word boundary).
+_RESIZE_BATCHES = [((3, 540, 960, 3), 480, 0), ((2, 540, 960, 3), 64, 0),
+                   ((2, 270, 480, 3), 960, 0), ((4, 540, 960), 480, 0), ((1, 37, 53, 3), 16, 0),
+                   ((3, 37, 53, 3), 90, 5), ((200, 16, 40, 3), 24, 0), ((3, 29, 130), 77, 11),
+                   ((5, 64, 64, 3), (31, 100), 5), ((2, 2160, 3840, 3), 1920, 0)]
+
+
+@pytest.mark.parametrize("shape,target,offset", _RESIZE_BATCHES, ids=str)
+def test_resize_pass_batch_kernel_matches_plain_and_the_single_kernel(cuda, shape, target,
+                                                                      offset):
+    imgs = _on_card(_image(shape, seed=sum(shape)), cuda, offset)
+    tables = k9.device_passes(shape[1], shape[2], target, cuda)
+    out, before = imgs, k9.resize_pass_batch.launches
+    for dim, idx, w in tables:
+        src, out = out, k9.resize_pass_batch(out, idx, w, dim)
+        torch.cuda.synchronize()
+        assert torch.equal(out, k9.resize_pass_batch_plain(src, idx, w, dim))
+        for i in (0, shape[0] // 2, shape[0] - 1):
+            assert torch.equal(out[i], k9.resize_pass(src[i].contiguous(), idx, w, dim))
+    assert k9.resize_pass_batch.launches == before + 2
+    again = (resize_ops.resize_batch(imgs, *target) if isinstance(target, tuple)
+             else resize_ops.resize_width_batch(imgs, target))
+    assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("angle", [30.0, 135.0, 45.0, 0.5, 271.0])
+@pytest.mark.parametrize("shape,offset", [((3, 257, 509, 3), 0), ((1, 37, 53, 3), 0),
+                                          ((4, 61, 97), 0), ((3, 257, 509, 3), 5),
+                                          ((70, 48, 64, 3), 11), ((2, 1080, 1920, 3), 0)],
+                         ids=str)
+def test_rotate_batch_kernel_matches_plain_and_the_single_kernel(cuda, shape, offset, angle):
+    imgs = _on_card(_image(shape, seed=sum(shape)), cuda, offset)
+    before = (rotate.rotate_bicubic_batch.launches, rotate.rotate_bicubic.launches)
+    out = rotate.rotate_bicubic_batch(imgs, angle)
+    torch.cuda.synchronize()
+    assert (rotate.rotate_bicubic_batch.launches,
+            rotate.rotate_bicubic.launches) == (before[0] + 1, before[1])
+    assert torch.equal(out, rotate.rotate_batch_plain(imgs, angle))
+    for i in (0, shape[0] // 2, shape[0] - 1):
+        assert torch.equal(out[i], rotate.rotate_bicubic(imgs[i].contiguous(), angle))
+
+
+def test_k1_and_k9_batch_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    imgs = _image((2, 8, 10, 3), seed=1).to(cuda)
+    (dim, idx, w), _ = k9.device_passes(8, 10, 4, cuda)
+    for bad in (imgs.transpose(1, 2), imgs[..., :2].contiguous(), imgs[0, 0]):
+        with pytest.raises(TypeError):
+            rotate.rotate_bicubic_batch(bad, 30.0)
+        with pytest.raises(TypeError):
+            k9.resize_pass_batch(bad, idx, w, dim)
+    with pytest.raises(TypeError):
+        k9.resize_pass_batch(imgs, idx.cpu(), w, dim)
+    with pytest.raises(ValueError):
+        k9.resize_pass_batch(imgs, idx, w, 2)
+
+
+def _batch_form_task(label):
+    from imageprocessingtools_tpu_torch import serving
+    from imageprocessingtools_tpu_torch.pipeline import PipelineConfig
+
+    if label == "mega":
+        return fused.fused_pipeline_mega
+    tasks = {"-w480 -r30 -gray": PipelineConfig(new_width=480, angle=30.0, gray=True),
+             "-r135 -mono -fh": PipelineConfig(angle=135.0, mono=True, flip_h=True),
+             "fanout thumbnail;-w480;-r30": ("thumbnail", PipelineConfig(new_width=480),
+                                             PipelineConfig(angle=30.0))}
+    return serving._task_fn(tasks.get(label, label))[0]
+
+
 @pytest.mark.parametrize("label, launches", [
     ("mega", {"gray_gauss_hist_batch": 1, "lut_apply_batch": 1}),
     ("edge_detect", {"gray_gauss_batch": 1, "sobel_batch": 1}),
     ("enhance", {"fused_elementwise": 1, "histogram_batch": 1, "lut_apply_batch": 1,
                  "sharpen_batch": 1}),
     ("print_ready", {"fused_elementwise": 1, "histogram_batch": 1, "lut_apply_batch": 1}),
+    ("thumbnail", {"resize_pass_batch": 2}),
+    ("-w480 -r30 -gray", {"resize_pass_batch": 2, "rotate_bicubic_batch": 1,
+                          "fused_elementwise": 1}),
+    ("-r135 -mono -fh", {"rotate_bicubic_batch": 1}),
+    ("fanout thumbnail;-w480;-r30", {"resize_pass_batch": 4, "rotate_bicubic_batch": 1}),
 ])
 def test_a_batch_form_launches_each_kernel_once_per_group_under_capture(cuda, label, launches):
     """Five 540x960 images in groups of 2, 2 and 1: each replay credits one
-    launch of each kernel of the batch form and none of a single-image one,
-    and the outputs equal the per-image loop's. The graphs are dropped
-    after."""
-    from imageprocessingtools_tpu_torch import kernels, serving
+    launch of each kernel of the batch form (a resize's two passes each) and
+    none of a single-image one, and the outputs equal the per-image loop's.
+    The graphs are dropped after."""
+    from imageprocessingtools_tpu_torch import kernels
     from imageprocessingtools_tpu_torch.utils import graphs
 
-    one = fused.fused_pipeline_mega if label == "mega" else serving._task_fn(label)[0]
+    one = _batch_form_task(label)
     shape = (540, 960, 3)
     imgs = _host_batch(5, shape, seed=70)
     run = graphs.batched(one)
@@ -847,7 +924,9 @@ def test_a_batch_form_launches_each_kernel_once_per_group_under_capture(cuda, la
     made = {name: w.launches - before[name] for name, w in wrappers.items()
             if w.launches != before[name]}
     assert made == {name: 3 * n for name, n in launches.items()}  # three replays
-    assert torch.equal(got, graphs.eager_batch(one, torch.from_numpy(imgs).to(cuda)))
+    want = graphs.eager_batch(one, torch.from_numpy(imgs).to(cuda))
+    for g, e in zip(*(x if isinstance(x, tuple) else (x,) for x in (got, want))):
+        assert torch.equal(g, e)
 
 
 # ---------------------------------------------------------------------------
