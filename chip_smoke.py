@@ -87,9 +87,9 @@ in order, printing one line per phase:
    edge_detect in 4 bands traced eager, compiled and eager over bands that
    are separate copies (device us, and of it the window joins,
    ``torch.cat``'s kernels) beside the unsharded form (the flagship mega is
-   traced by ``utils.profiling.trace_to`` with 20 calls in an ``annotate``
-   region, read with ``profile_device.device_events``, and the trace must
-   hold the region and 20 times one call's device events, or the run
+   traced by ``utils.profiling.trace_to`` with 20 calls in a ``span``,
+   read with ``profile_device.device_events``, and the trace must hold
+   the span and 20 times one call's device events, or the run
    fails); the band graphs' bytes and capture seconds; uint8[16384, 16384,
    3] of numpy noise, the fused pipeline and edge_detect compiled in 4
    bands against the unsharded compiled path (``kernels.fused_gray_gauss_
@@ -722,7 +722,7 @@ def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files,
     # eager over bands that are separate copies (each window then joined by
     # torch.cat, as before bands were views); the unsharded form beside
     # them. The unsharded fused pipeline is the flagship mega: it is traced
-    # with utils.profiling (trace_to, an annotate region).
+    # with utils.profiling (trace_to, a span).
     timed = {"fused": lambda: fused.fused_pipeline_mega(src),
              "edge_detect": lambda: core.sobel(core.gray_gauss(src))}
     copies = [spatial.Band(b.row0, b.data.clone()) for b in spatial.shard_rows(src, mesh4)]
@@ -890,14 +890,14 @@ def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files,
 
 def traced_us(torch, label: str, fn, reps: int, trace_dir: str) -> tuple[float, int]:
     """(device us per call of ``fn``, device events): ``reps`` calls traced by
-    ``utils.profiling.trace_to`` inside an ``annotate(label)`` region, their
+    ``utils.profiling.trace_to`` inside a ``span(label)``, their
     device events (``profile_device.device_events``) summed over ``reps``.
-    The trace file must hold the region, and ``reps`` times the events of
+    The trace file must hold the span, and ``reps`` times the events of
     one traced call (``profile_device.lost_events``); a trace without device
     events or with lost ones is taken again, up to ``profile_device.ATTEMPTS``
     times, and then the run fails. ``fn``'s outputs are not kept."""
     from imageprocessingtools_tpu_torch.profile_device import ATTEMPTS, device_events, lost_events
-    from imageprocessingtools_tpu_torch.utils.profiling import annotate, trace_to
+    from imageprocessingtools_tpu_torch.utils.profiling import span, trace_to
 
     fn()  # warm-up: the first launches
     torch.cuda.synchronize()
@@ -906,14 +906,14 @@ def traced_us(torch, label: str, fn, reps: int, trace_dir: str) -> tuple[float, 
         with trace_to(trace_dir) as one:
             fn()
         with trace_to(trace_dir) as prof:
-            with annotate(label):
+            with span(label):
                 for _ in range(reps):
                     fn()
         with open(prof.chrome_trace) as f:
             trace = json.load(f)
         trace = trace["traceEvents"] if isinstance(trace, dict) else trace
-        if not any(e.get("name") == label and e.get("cat") == "user_annotation" for e in trace):
-            fail(f"the trace of {label!r} ({prof.chrome_trace}) does not hold its annotate region")
+        if not any(e.get("name") == label and e.get("cat") == "ipt_span" for e in trace):
+            fail(f"the trace of {label!r} ({prof.chrome_trace}) does not hold its span")
         try:
             per_call = collections.Counter(e["name"] for e in device_events(one))
             events = device_events(prof)
@@ -1748,8 +1748,8 @@ def main() -> int:
           f"and a one-element fetch); ms per call eager {flagship_ms['mega']:.4f}, compiled "
           f"{flagship_ms['compiled mega']:.4f}; device us per call eager {mega_us:.2f} "
           f"({mega_events} device events), compiled {graph_us:.2f} ({graph_events} events, "
-          f"copy-in and clone included) (phase 7: trace_to, {REPS} calls on its 4K image in an "
-          f"annotate region)")
+          f"copy-in and clone included) (phase 7: trace_to, {REPS} calls on its 4K image in a "
+          f"span)")
     if not 0.8 <= loop_ratio <= 2.5:
         fail(f"device_loop_rate of mega is {loop_ratio:.3f} x its traced device time, "
              f"outside [0.8, 2.5]")

@@ -24,7 +24,7 @@ import torch
 
 from imageprocessingtools_tpu_torch.device import get_device
 from imageprocessingtools_tpu_torch.kernels.fused import fused_pipeline_mega
-from imageprocessingtools_tpu_torch.utils import graphs
+from imageprocessingtools_tpu_torch.utils import graphs, profiling
 
 
 def _indexed(device) -> torch.device:
@@ -67,25 +67,28 @@ def batch_apply(fn, images, mesh: tuple | None = None):
     (``gather`` joins them). On a CUDA device every group of images is one
     replay of a captured graph (``graphs.batched``), the images copied from
     where they lie into the graph's input; a ``fn`` that cannot be captured
-    raises ``graphs.CaptureError``. The outputs are fresh tensors.
+    raises ``graphs.CaptureError``. The outputs are fresh tensors. The call
+    is one ``batch.apply`` span (``utils.profiling``).
     """
-    batch = torch.as_tensor(images)
-    if batch.shape[0] == 0:
-        raise ValueError("batch_apply: empty batch")
-    run = graphs.batched(fn)
-    if mesh is None:
-        return run(batch, _indexed(get_device()))
-    mesh = default_mesh(mesh)
-    n = len(mesh)
-    if batch.shape[0] % n:
-        raise ValueError(
-            f"batch size {batch.shape[0]} not divisible by the mesh's {n} devices; pad the batch")
-    size = batch.shape[0] // n
-    shards = []
-    for k, dev in enumerate(mesh):
-        with on_device(dev):
-            shards.append(run(batch[k * size:(k + 1) * size], dev))
-    return shards
+    with profiling.span("batch.apply"):
+        batch = torch.as_tensor(images)
+        if batch.shape[0] == 0:
+            raise ValueError("batch_apply: empty batch")
+        run = graphs.batched(fn)
+        if mesh is None:
+            return run(batch, _indexed(get_device()))
+        mesh = default_mesh(mesh)
+        n = len(mesh)
+        if batch.shape[0] % n:
+            raise ValueError(
+                f"batch size {batch.shape[0]} not divisible by the mesh's {n} devices; "
+                "pad the batch")
+        size = batch.shape[0] // n
+        shards = []
+        for k, dev in enumerate(mesh):
+            with on_device(dev):
+                shards.append(run(batch[k * size:(k + 1) * size], dev))
+        return shards
 
 
 def gather(shards: list, device="cpu"):

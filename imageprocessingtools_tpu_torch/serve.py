@@ -45,7 +45,10 @@ Serve options (extensions, hence the ``--`` prefix space):
 Exit codes/messages follow the single-image CLI: errors print to stdout,
 exit 255 (quirk B3); success prints one summary line to stderr, which
 counts the files processed in this run (resumed files separately), and
-exits 0.
+exits 0. Under ``IPT_STRUCTURED_LOG=1`` the ``serve_ok`` JSON line on stderr
+also gives what the run added to ``utils.graphs``' counters:
+``graphs_captured``, ``graphs_evicted``, ``graph_replays`` and
+``upload_bytes`` (all 0 on the CPU, where nothing is captured).
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ from imageprocessingtools_tpu_torch.codec.ppm import PPMError
 from imageprocessingtools_tpu_torch.models import PRESETS
 from imageprocessingtools_tpu_torch.ops import _exact
 from imageprocessingtools_tpu_torch.parallel.batch import default_mesh
-from imageprocessingtools_tpu_torch.utils import log
+from imageprocessingtools_tpu_torch.utils import graphs, log
 
 
 def _report_skipped(failures: dict) -> None:
@@ -208,6 +211,7 @@ def main(argv: list[str] | None = None) -> int:
         files = todo
 
     failures: dict = {}
+    counts = graphs.counts()
     t0 = time.perf_counter()
     try:
         mesh = default_mesh() if serve_opts["mesh"] or serve_opts["spatial"] else None
@@ -258,7 +262,8 @@ def main(argv: list[str] | None = None) -> int:
     wall = time.perf_counter() - t0
     _report_skipped(failures)
     log.emit("serve_ok", n_files=len(outs), skipped=n_skipped,
-             failed=len(failures), wall_s=round(wall, 3))
+             failed=len(failures), wall_s=round(wall, 3),
+             **{name: n - counts[name] for name, n in graphs.counts().items()})
     existing = (
         f".<tag>{serve_opts['suffix']}" if isinstance(config, tuple)
         else serve_opts["suffix"]

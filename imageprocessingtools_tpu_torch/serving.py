@@ -41,6 +41,7 @@ import queue
 import threading
 
 import numpy as np
+import torch
 
 from imageprocessingtools_tpu_torch.codec import native, ppm
 from imageprocessingtools_tpu_torch.codec.ppm import FILETYPE_PBM, FILETYPE_PGM
@@ -55,7 +56,7 @@ from imageprocessingtools_tpu_torch.ops.packing import pack_bits_device
 from imageprocessingtools_tpu_torch.parallel import spatial
 from imageprocessingtools_tpu_torch.parallel.batch import batch_apply, default_mesh
 from imageprocessingtools_tpu_torch.pipeline import PipelineConfig
-from imageprocessingtools_tpu_torch.utils import graphs
+from imageprocessingtools_tpu_torch.utils import graphs, profiling
 
 
 def _task(fn, pack: bool, name: str):
@@ -301,8 +302,18 @@ def _encode_chunk(idxs, out_np, file_type, unpacked, paths, metas, suffix,
         out_paths[i] = files[j]
 
 
+def _download(t: torch.Tensor) -> np.ndarray:
+    """One output to host numpy: on a card, the wait for its stream
+    (``serving.wait_device``), then the copy (``serving.download``)."""
+    if t.is_cuda:
+        with profiling.span("serving.wait_device"):
+            torch.cuda.current_stream(t.device).synchronize()
+    with profiling.span("serving.download"):
+        return t.cpu().numpy()
+
+
 def _to_host(out):
-    """Device output(s) to host numpy; the copy waits for the device.
+    """Device output(s) to host numpy, each after its card's work.
     Fan-out outputs are a tuple; a mesh's outputs are a list of shards,
     joined here on the host."""
     if isinstance(out, list):
@@ -313,8 +324,8 @@ def _to_host(out):
             return tuple(np.concatenate([s[k] for s in shards]) for k in range(len(shards[0])))
         return np.concatenate(shards)
     if isinstance(out, tuple):
-        return tuple(o.cpu().numpy() for o in out)
-    return out.cpu().numpy()
+        return tuple(_download(o) for o in out)
+    return _download(out)
 
 
 def _read_and_decode(paths, idxs, expected_hw, on_error="raise",
@@ -378,6 +389,14 @@ def process_files(
     ``"raise"`` keeps the reference's fail-fast semantics.
 
     ``mesh``: split each chunk over these devices (``process_batch``).
+
+    Spans (``utils.profiling``), each with the index of its chunk in its
+    bucket as ``id``: ``serving.read_decode`` (the reader's decode),
+    ``serving.wait_decode`` (the main thread's wait for it),
+    ``serving.device`` (the chunk's ``process_batch`` and ``_to_host``, with
+    ``serving.wait_device`` and ``serving.download`` inside),
+    ``serving.wait_encode`` (the wait for room in the writer's queue) and
+    ``serving.encode`` (the writer's encode).
     """
     if on_error not in ("raise", "skip"):
         raise ValueError(f"on_error must be 'raise' or 'skip', got {on_error!r}")
@@ -417,6 +436,12 @@ def process_files(
         [[None] * len(fanout_names) for _ in paths]
         if fanout_names is not None else [None] * len(paths)
     )
+
+    def on_device(k, batch):
+        with profiling.span("serving.device", k):
+            out, file_type = process_batch(batch, config, mesh)
+            return _to_host(out), file_type
+
     for (h, w), all_idxs in buckets.items():
         # Pre-pack spatial dims (resize/rotate may change them before mono).
         if fanout_names is not None:
@@ -430,15 +455,17 @@ def process_files(
             for k in range(0, len(all_idxs), max_batch)
         ]
         if not overlap or len(chunks) == 1:
-            for idxs in chunks:
-                kept, batch = _read_and_decode(
-                    paths, idxs, (h, w), on_error, idx_failures)
+            for k, idxs in enumerate(chunks):
+                with profiling.span("serving.read_decode", k):
+                    kept, batch = _read_and_decode(
+                        paths, idxs, (h, w), on_error, idx_failures)
                 if not kept:
                     continue
-                out, file_type = process_batch(batch, config, mesh)
-                _encode_chunk(kept, _to_host(out), file_type, unpacked,
-                              paths, metas, suffix, out_paths,
-                              names=fanout_tags)
+                host, file_type = on_device(k, batch)
+                with profiling.span("serving.encode", k):
+                    _encode_chunk(kept, host, file_type, unpacked,
+                                  paths, metas, suffix, out_paths,
+                                  names=fanout_tags)
             continue
 
         decode_q: queue.Queue = queue.Queue(maxsize=2)
@@ -447,13 +474,14 @@ def process_files(
 
         def reader():
             try:
-                for idxs in chunks:
+                for k, idxs in enumerate(chunks):
                     if errors:
                         return
-                    kept, batch = _read_and_decode(
-                        paths, idxs, (h, w), on_error, idx_failures)
+                    with profiling.span("serving.read_decode", k):
+                        kept, batch = _read_and_decode(
+                            paths, idxs, (h, w), on_error, idx_failures)
                     if kept:
-                        decode_q.put((kept, batch))
+                        decode_q.put((k, kept, batch))
             except BaseException as e:  # surfaced in the main thread
                 errors.append(e)
             finally:
@@ -465,8 +493,10 @@ def process_files(
                     item = encode_q.get()
                     if item is None:
                         return
-                    _encode_chunk(*item, paths, metas, suffix, out_paths,
-                                  names=fanout_tags)
+                    k, *chunk = item
+                    with profiling.span("serving.encode", k):
+                        _encode_chunk(*chunk, paths, metas, suffix, out_paths,
+                                      names=fanout_tags)
             except BaseException as e:  # surfaced in the main thread
                 errors.append(e)
 
@@ -489,12 +519,17 @@ def process_files(
 
         try:
             while True:
-                item = decode_q.get()
+                with profiling.span("serving.wait_decode") as waited:
+                    item = decode_q.get()
+                    if item is not None:
+                        waited.id = item[0]
                 if item is None:
                     break
-                idxs, batch = item
-                out, file_type = process_batch(batch, config, mesh)
-                if not put_to_writer((idxs, _to_host(out), file_type, unpacked)):
+                k, idxs, batch = item
+                host, file_type = on_device(k, batch)
+                with profiling.span("serving.wait_encode", k):
+                    sent = put_to_writer((k, idxs, host, file_type, unpacked))
+                if not sent:
                     break
         except BaseException as e:
             errors.append(e)

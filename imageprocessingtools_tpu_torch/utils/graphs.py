@@ -72,6 +72,16 @@ card. The LRU is for one thread: serving replays from its main thread only.
 Launch counts (each wrapper's ``.launches``): the warm-up's launches count,
 as they run. A capture launches nothing, so the counts it added are taken
 back and credited once per replay instead.
+
+Counters (``counts()``; always on): graphs captured, graphs the byte bound
+dropped, replays, and bytes copied from the host into a graph's input.
+Spans (``utils.profiling.span``, recorded only inside a recording), on
+``replayed``'s one path: ``graphs.capture``, ``graphs.evict`` (the bound's
+drops, each waiting for its graph's last call, and the emptied cache),
+``graphs.upload`` (the copy of a host input into the graph's) or
+``graphs.copy_in`` (of an input on a card), ``graphs.replay``; in
+``batched``, ``graphs.group`` around each group and ``graphs.copy_out``
+around its outputs' copy out of the graph.
 """
 
 from __future__ import annotations
@@ -85,6 +95,8 @@ import warnings
 import weakref
 
 import torch
+
+from imageprocessingtools_tpu_torch.utils import profiling
 
 GRAPH_BYTES_BOUND = 8 << 30  # bytes of all graphs kept together (a single larger one stays)
 GROUP_INPUT_BYTES = 256 << 20  # a ``batched`` group's input bytes at most (unless it is one image)
@@ -271,6 +283,15 @@ class _Entry:
 # lives as long as the cache that owns it (a ``Graphed`` may be dropped).
 _held: collections.OrderedDict = collections.OrderedDict()
 captures_made = 0  # graphs captured and kept in this process, for reports
+evictions_made = 0  # graphs dropped by the byte bound
+replays_made = 0  # replays of kept graphs
+upload_bytes = 0  # bytes copied from the host into graphs' inputs
+
+
+def counts() -> dict:
+    """The counters, as ``serve``'s ``serve_ok`` line names their deltas."""
+    return {"graphs_captured": captures_made, "graphs_evicted": evictions_made,
+            "graph_replays": replays_made, "upload_bytes": upload_bytes}
 
 
 def _live() -> list:
@@ -295,18 +316,21 @@ def evictions(sizes: list, bound: int) -> int:
 def _keep(entry: _Entry) -> None:
     """Count a new graph against ``GRAPH_BYTES_BOUND``, dropping the least
     recently used ones (once their last call has finished) past it."""
-    global captures_made
+    global captures_made, evictions_made
     captures_made += 1
     _held[id(entry)] = weakref.ref(entry)
     live = _live()
     k = evictions([e.nbytes for e in live], GRAPH_BYTES_BOUND)
-    for old in live[:k]:
-        del _held[id(old)]
-        old.done.synchronize()
-        owner = old.owner() if old.owner is not None else None
-        if owner is not None:
-            owner.pop(old.key, None)
-    if k:
+    if not k:
+        return
+    evictions_made += k
+    with profiling.span("graphs.evict"):
+        for old in live[:k]:
+            del _held[id(old)]
+            old.done.synchronize()
+            owner = old.owner() if old.owner is not None else None
+            if owner is not None:
+                owner.pop(old.key, None)
         torch.cuda.empty_cache()  # the dropped graphs' pools go back to the card
 
 
@@ -332,19 +356,26 @@ def held() -> list:
 
 def _capture_entry(fn, x: torch.Tensor, key: tuple, cache, name: str) -> _Entry:
     """A graph of ``fn`` on a copy of ``x`` made on ``x``'s device."""
-    t0 = time.perf_counter()
-    static_in = torch.empty_like(x, device=torch.cuda.current_device())
-    static_in.copy_(x)
-    return _Entry(static_in, capture(fn, static_in), key, weakref.ref(cache), name,
-                  time.perf_counter() - t0)
+    with profiling.span("graphs.capture"):
+        t0 = time.perf_counter()
+        static_in = torch.empty_like(x, device=torch.cuda.current_device())
+        static_in.copy_(x)
+        return _Entry(static_in, capture(fn, static_in), key, weakref.ref(cache), name,
+                      time.perf_counter() - t0)
 
 
 def _replay(entry: _Entry, x: torch.Tensor):
     """``x`` copied into the graph's input (after the graph's last call),
     one replay; the static output, valid until the entry's next call."""
+    global replays_made, upload_bytes
     torch.cuda.current_stream().wait_event(entry.done)
-    entry.static_in.copy_(x)
-    entry.captured.replay()
+    if not x.is_cuda:
+        upload_bytes += x.nbytes
+    with profiling.span("graphs.copy_in" if x.is_cuda else "graphs.upload"):
+        entry.static_in.copy_(x)
+    replays_made += 1
+    with profiling.span("graphs.replay"):
+        entry.captured.replay()
     return entry.captured.out
 
 
@@ -525,10 +556,12 @@ class Batched:
         group = group_size(batch[0].numel() * batch.element_size())
         with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
             for start, count in spans(n, group):
-                with self._group(batch[start:start + count], device) as outs:
+                with profiling.span("graphs.group"), \
+                        self._group(batch[start:start + count], device) as outs:
                     if out is None:
                         out = _empty_for(outs, n)
-                    _put(outs, out, start)
+                    with profiling.span("graphs.copy_out"):
+                        _put(outs, out, start)
         return out
 
 

@@ -17,7 +17,9 @@ machine without JAX:
 
 from __future__ import annotations
 
+import collections
 import importlib
+import json
 
 import numpy as np
 import pytest
@@ -1019,17 +1021,22 @@ def test_device_loop_rate_on_the_card(cuda, body):
 
 def test_trace_to_holds_the_card_events(cuda, tmp_path):
     from imageprocessingtools_tpu_torch.profile_device import busy_us, device_events
-    from imageprocessingtools_tpu_torch.utils.profiling import annotate, trace_to
+    from imageprocessingtools_tpu_torch.utils.profiling import span, trace_to
 
     gray = _image((256, 512), seed=9).to(cuda)
     with trace_to(str(tmp_path)) as prof:
-        with annotate("ipt-card-test"):
+        with span("ipt-card-test"):
             core.sobel(gray)
     events = device_events(prof)
     assert any(e["cat"] == "kernel" and "stencil3" in e["name"] for e in events)
     assert busy_us(events) > 0
     with open(prof.chrome_trace) as f:
-        assert '"ipt-card-test"' in f.read()
+        trace = json.load(f)
+    spans = [e for e in trace["traceEvents"] if e.get("cat") == "ipt_span"]
+    assert [e["name"] for e in spans] == ["ipt-card-test"]
+    # the kernel was launched inside the span, on the trace's one clock
+    (sobel,) = [e for e in events if "stencil3" in e["name"]]
+    assert spans[0]["ts"] <= sobel["ts"]
 
 
 # ---------------------------------------------------------------------------
@@ -1154,8 +1161,6 @@ def test_graph_cache_frees_its_graphs(cuda, monkeypatch):
     """Six graphs of equal pixel counts under a byte bound that holds four:
     the graphs kept stay within the bound, the memory the card holds for
     them with it, and dropping the callable frees them all."""
-    import collections
-
     from imageprocessingtools_tpu_torch.utils import graphs
 
     monkeypatch.setattr(graphs, "_held", collections.OrderedDict())  # other tests' graphs aside
@@ -1179,6 +1184,61 @@ def test_graph_cache_frees_its_graphs(cuda, monkeypatch):
     del g, kept
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated(cuda) - base <= 0.05 * bound
+
+
+def _delta(before: dict) -> dict:
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    return {k: v - before[k] for k, v in graphs.counts().items()}
+
+
+def test_batched_counts_its_capture_replays_and_uploads(cuda, monkeypatch):
+    """One batched call from the host in two groups: one capture, a replay
+    and an upload of each group's bytes, each under its span; from the card,
+    copies in and nothing uploaded."""
+    from imageprocessingtools_tpu_torch.utils import graphs, profiling
+
+    imgs = _image((4, 96, 160, 3), seed=91).numpy()  # a shape no other test captures
+    monkeypatch.setattr(graphs, "GROUP_INPUT_BYTES", 2 * imgs[0].nbytes)
+    run = graphs.batched(fused.fused_pipeline_mega)
+    before = graphs.counts()
+    with profiling.recording() as rec:
+        out = run(imgs, cuda)
+    assert _delta(before) == {"graphs_captured": 1, "graphs_evicted": 0, "graph_replays": 2,
+                              "upload_bytes": imgs.nbytes}
+    names = collections.Counter(s.name for s in rec.spans)
+    assert names == {"graphs.group": 2, "graphs.capture": 1, "graphs.upload": 2,
+                     "graphs.replay": 2, "graphs.copy_out": 2}
+    on_card = torch.from_numpy(imgs).to(cuda)
+    before = graphs.counts()
+    with profiling.recording() as rec:
+        again = run(on_card, cuda)
+    assert _delta(before) == {"graphs_captured": 0, "graphs_evicted": 0, "graph_replays": 2,
+                              "upload_bytes": 0}
+    names = collections.Counter(s.name for s in rec.spans)
+    assert names == {"graphs.group": 2, "graphs.copy_in": 2, "graphs.replay": 2,
+                     "graphs.copy_out": 2}
+    want = torch.stack([fused.fused_pipeline_mega(on_card[i]) for i in range(4)])
+    assert torch.equal(out, want) and torch.equal(again, want)
+
+
+def test_graph_evictions_are_counted_under_a_span(cuda, monkeypatch):
+    """Under a byte bound that no graph fits, each capture drops the graph
+    before it: three captures, two evictions, each in a ``graphs.evict``
+    span."""
+    from imageprocessingtools_tpu_torch.utils import graphs, profiling
+
+    monkeypatch.setattr(graphs, "_held", collections.OrderedDict())  # other tests' graphs aside
+    monkeypatch.setattr(graphs, "GRAPH_BYTES_BOUND", 1)
+    g = graphs.graphed(fused.fused_pipeline_mega)
+    before = graphs.counts()
+    with profiling.recording() as rec:
+        for i, shape in enumerate([(64, 96, 3), (72, 96, 3), (80, 96, 3)]):
+            g(_image(shape, seed=i).to(cuda))
+    assert _delta(before) == {"graphs_captured": 3, "graphs_evicted": 2, "graph_replays": 3,
+                              "upload_bytes": 0}
+    assert len(g._graphs) == 1
+    assert [s.name for s in rec.spans].count("graphs.evict") == 2
 
 
 # ---------------------------------------------------------------------------

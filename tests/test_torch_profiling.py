@@ -1,21 +1,34 @@
 """The port's tracing (``utils/profiling.py``) on the CPU.
 
-``trace_to`` must write a Chrome trace that holds each ``annotate`` region by
-name, in both of ``annotate``'s forms, also when the block raises, and hand
+``span`` must cost one check and record nothing while nothing records, and
+inside ``recording()`` keep each span's name, request id, parent, thread
+and times, from any thread, up to a cap. ``trace_to`` must write a Chrome
+trace that holds each span of its block, from any thread, on the trace's
+own clock, also when the block raises, and hand
 ``profile_device.device_events`` the same run's trace. Device events need
-the card: ``chip_smoke.py`` phase 5 reads them from a traced run there.
+the card: ``chip_smoke.py`` phase 7 reads them from a traced run there.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
+import time
 
+import numpy as np
 import pytest
 import torch
 
 from imageprocessingtools_tpu_torch import profile_device
-from imageprocessingtools_tpu_torch.utils.profiling import annotate, trace_to
+from imageprocessingtools_tpu_torch.parallel.batch import batch_apply
+from imageprocessingtools_tpu_torch.utils import profiling
+from imageprocessingtools_tpu_torch.utils.profiling import recording, span, trace_to
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    monkeypatch.setenv("IPT_DEVICE", "cpu")
 
 
 def _work():
@@ -31,31 +44,42 @@ def _trace(log_dir) -> list[dict]:
     return trace["traceEvents"] if isinstance(trace, dict) else trace
 
 
-def _annotated(events, name: str) -> list[dict]:
-    return [e for e in events if e.get("name") == name and e.get("cat") == "user_annotation"]
+def _spans(events, name: str) -> list[dict]:
+    return [e for e in events if e.get("name") == name and e.get("cat") == "ipt_span"]
 
 
-@pytest.mark.parametrize("form", ["context", "decorator"])
+@pytest.mark.parametrize("form", ["context", "thread"])
 def test_trace_to_writes_a_chrome_trace_with_the_annotation(tmp_path, form):
+    """A span of the block is in the trace, on the tid of the thread that
+    opened it: the profiler's own thread or another one."""
     name = f"ipt-test-{form}"
+    tids = []
+
+    def spanned():
+        tids.append(threading.get_native_id())
+        with span(name):
+            _work()
+
     with trace_to(str(tmp_path)) as prof:
         if form == "context":
-            with annotate(name):
-                _work()
+            spanned()
         else:
-            annotate(name)(_work)()
-    events = _trace(tmp_path)
-    assert len(_annotated(events, name)) == 1
+            t = threading.Thread(target=spanned)
+            t.start()
+            t.join(timeout=30)
+            assert not t.is_alive()
+    found = _spans(_trace(tmp_path), name)
+    assert len(found) == 1 and found[0]["tid"] == tids[0]
     assert prof.chrome_trace == str(next(tmp_path.glob("trace-*.json")))
 
 
 def test_trace_to_writes_the_trace_when_the_block_raises(tmp_path):
     with pytest.raises(ValueError, match="inside"):
         with trace_to(str(tmp_path)):
-            with annotate("ipt-test-raised"):
+            with span("ipt-test-raised"):
                 _work()
                 raise ValueError("inside the traced block")
-    assert len(_annotated(_trace(tmp_path), "ipt-test-raised")) == 1
+    assert len(_spans(_trace(tmp_path), "ipt-test-raised")) == 1
 
 
 def test_device_events_read_the_written_trace(tmp_path):
@@ -65,3 +89,119 @@ def test_device_events_read_the_written_trace(tmp_path):
         _work()
     with pytest.raises(RuntimeError, match="no device event"):
         profile_device.device_events(prof)
+
+
+def test_trace_to_puts_spans_on_the_trace_clock(tmp_path):
+    """A span and a ``record_function`` region around the same 5 ms sleep
+    start within 0.2 ms of each other in the exported trace."""
+    with trace_to(str(tmp_path)):
+        with span("ipt-test-sleep"), torch.profiler.record_function("ipt-test-region"):
+            time.sleep(0.005)
+    events = _trace(tmp_path)
+    (s,) = _spans(events, "ipt-test-sleep")
+    (r,) = [e for e in events if e.get("name") == "ipt-test-region"]
+    assert abs(s["ts"] - r["ts"]) < 200
+    assert s["dur"] >= 5000 and s["args"]["parent"] is None
+
+
+def test_span_without_a_recording_is_the_shared_no_op(monkeypatch):
+    """While nothing records, ``span`` returns one shared object and reads no
+    clock, also at the port's span sites (a batch on the CPU)."""
+
+    def no_clock():
+        raise AssertionError("a span read the clock")
+
+    monkeypatch.setattr(profiling.time, "perf_counter_ns", no_clock)
+    assert span("a") is span("b", id=3) is profiling.NO_SPAN
+    with span("a") as s:
+        s.id = 7  # kept nowhere
+    assert s.id is None
+    images = np.arange(2 * 4 * 6 * 3, dtype=np.uint8).reshape(2, 4, 6, 3)
+    assert batch_apply(lambda x: x[..., 0] + 1, images).shape == (2, 4, 6)
+
+
+def test_recording_keeps_names_parents_and_ids():
+    with recording() as rec:
+        with span("outer") as outer:
+            with span("inner"):
+                pass
+            with span("given", id="req-9"):
+                with span("deep"):
+                    pass
+        with span("second", id=41):
+            pass
+        with span("third"):
+            pass
+    got = {s.name: s for s in rec.spans}
+    assert [s.name for s in rec.spans] == ["inner", "deep", "given", "outer", "second", "third"]
+    assert got["inner"].parent == got["given"].parent == got["outer"].seq == outer.seq
+    assert got["deep"].parent == got["given"].seq and got["outer"].parent is None
+    assert got["inner"].id == got["outer"].id  # inherited
+    assert got["given"].id == got["deep"].id == "req-9"
+    assert got["second"].id == 41
+    assert got["third"].id != got["outer"].id  # a fresh number for a root
+    assert all(s.start <= s.end and s.thread == threading.get_native_id() for s in rec.spans)
+    assert got["outer"].start <= got["inner"].start <= got["inner"].end <= got["outer"].end
+    assert rec.dropped == 0 and profiling._recording is None
+    assert span("after") is profiling.NO_SPAN
+
+
+def test_recording_takes_spans_from_every_thread():
+    """Three threads, each with its own span open around a child: one span
+    a thread, parents never across threads."""
+    barrier = threading.Barrier(3)
+
+    def body(k):
+        with span("worker", id=k):
+            barrier.wait(timeout=30)
+            with span("child"):
+                pass
+
+    with recording() as rec:
+        threads = [threading.Thread(target=body, args=(k,)) for k in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+    workers = {s.id: s for s in rec.spans if s.name == "worker"}
+    children = [s for s in rec.spans if s.name == "child"]
+    assert sorted(workers) == [0, 1, 2] and len(children) == 3
+    assert len({s.thread for s in workers.values()}) == 3
+    for c in children:
+        assert workers[c.id].seq == c.parent and workers[c.id].thread == c.thread
+
+
+def test_recording_counts_spans_past_its_cap(monkeypatch):
+    monkeypatch.setattr(profiling, "CAP", 5)
+    with recording() as rec:
+        for k in range(12):
+            with span("s", id=k):
+                pass
+    assert [s.id for s in rec.spans] == [0, 1, 2, 3, 4] and rec.dropped == 7
+
+
+def test_recording_inside_a_recording_raises():
+    with recording() as rec:
+        with pytest.raises(RuntimeError, match="underway"):
+            with recording():
+                pass
+        with span("still"):
+            pass
+    assert [s.name for s in rec.spans] == ["still"]
+    with recording() as again:  # the first one ended
+        pass
+    assert again.spans == []
+
+
+def test_batch_apply_records_its_stages():
+    """On the CPU one group: ``batch.apply`` around ``graphs.group`` around
+    ``graphs.copy_out``."""
+    images = np.zeros((3, 4, 6, 3), dtype=np.uint8)
+    with recording() as rec:
+        batch_apply(lambda x: x[..., 0], images)
+    by = {s.name: s for s in rec.spans}
+    assert sorted(by) == ["batch.apply", "graphs.copy_out", "graphs.group"]
+    assert by["graphs.group"].parent == by["batch.apply"].seq
+    assert by["graphs.copy_out"].parent == by["graphs.group"].seq
+    assert len({s.id for s in rec.spans}) == 1

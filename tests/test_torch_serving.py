@@ -14,6 +14,8 @@ identical headers.
 
 from __future__ import annotations
 
+import collections
+import json
 import os
 import re
 from pathlib import Path
@@ -30,7 +32,7 @@ from imageprocessingtools_tpu_torch import serve, serving
 from imageprocessingtools_tpu_torch.codec import native, ppm
 from imageprocessingtools_tpu_torch.ops.packing import pack_bits_device
 from imageprocessingtools_tpu_torch.pipeline import PipelineConfig
-from imageprocessingtools_tpu_torch.utils import cache
+from imageprocessingtools_tpu_torch.utils import cache, profiling
 from tests.conftest import make_gradient, make_image
 
 TWO_BUCKETS = [(16, 24), (24, 32), (16, 24)]
@@ -337,6 +339,52 @@ def test_process_files_writer_error_no_deadlock(tmp_path, monkeypatch):
     monkeypatch.setattr(serving, "_encode_chunk", flaky)
     with pytest.raises(OSError, match="No space left"):
         serving.process_files(paths, PipelineConfig(gray=True), suffix=".wd", max_batch=2)
+
+
+def test_process_files_spans_carry_each_chunk_id_across_threads(tmp_path):
+    """With the reader and writer overlapped over four chunks, each chunk's
+    decode (reader), wait and dispatch (main thread) and encode (writer)
+    carry that chunk's index as their id; the files written are the bytes of
+    a run that records nothing."""
+    paths = _write_inputs(tmp_path, [(8, 16)] * 7)
+    plain = serving.process_files(paths, "edge_detect", suffix=".plain", max_batch=2)
+    with profiling.recording() as rec:
+        traced = serving.process_files(paths, "edge_detect", suffix=".traced", max_batch=2)
+    for a, b in zip(plain, traced):
+        assert open(a, "rb").read() == open(b, "rb").read()
+    assert len(traced) == 7
+    by_name = collections.defaultdict(dict)
+    for s in rec.spans:
+        by_name[s.name][s.id] = s
+    for name in ("serving.read_decode", "serving.device", "batch.apply", "serving.download",
+                 "serving.wait_encode", "serving.encode"):
+        assert sorted(by_name[name]) == [0, 1, 2, 3], name
+    # and a fifth wait, for the reader's end, under a fresh id
+    assert len(by_name["serving.wait_decode"]) == 5
+    assert set(by_name["serving.wait_decode"]) >= {0, 1, 2, 3}
+    for k in range(4):
+        threads = {by_name[n][k].thread for n in
+                   ("serving.read_decode", "serving.wait_decode", "serving.encode")}
+        assert len(threads) == 3
+        assert by_name["batch.apply"][k].parent == by_name["serving.device"][k].seq
+        assert by_name["serving.read_decode"][k].end <= by_name["serving.wait_decode"][k].end
+        assert by_name["serving.device"][k].end <= by_name["serving.encode"][k].start
+    assert rec.dropped == 0
+
+
+def test_serve_ok_line_carries_the_graph_counters(tmp_path, capsys, monkeypatch):
+    """``serve_ok`` gives what the run added to the graph counters: 0 each on
+    the CPU, where no graph is captured."""
+    monkeypatch.setenv("IPT_STRUCTURED_LOG", "1")
+    paths = _write_inputs(tmp_path, [(8, 16)] * 3)
+    assert serve.main(["--preset", "thumbnail", *paths]) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().err.splitlines()
+             if line.startswith("{")]
+    (ok,) = [line for line in lines if line["event"] == "serve_ok"]
+    assert ok["n_files"] == 3
+    assert {k: ok[k] for k in ("graphs_captured", "graphs_evicted", "graph_replays",
+                               "upload_bytes")} == dict.fromkeys(
+        ("graphs_captured", "graphs_evicted", "graph_replays", "upload_bytes"), 0)
 
 
 @pytest.mark.parametrize("config,shape", [
