@@ -28,6 +28,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -101,12 +103,11 @@ extern "C" int ipt_fused_elementwise(const void* rgb, void* out, const void* tab
     auto* dst = static_cast<uint8_t*>(out);
     const auto* lut = static_cast<const uint8_t*>(table);
     const auto s = static_cast<cudaStream_t>(stream);
-    if (lut != nullptr) {
-        elementwise_kernel<true><<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(
-            src, dst, lut, n, n_vec);
-    } else {
-        elementwise_kernel<false><<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(
-            src, dst, nullptr, n, n_vec);
-    }
-    return static_cast<int>(cudaGetLastError());
+    const int a = aligned ? 16 : 1;  // n_vec and the grid were chosen by both addresses
+    return static_cast<int>(
+        lut != nullptr
+            ? ipt::launch(elementwise_kernel<true>, static_cast<unsigned>(blocks), THREADS, 0, s,
+                          {a, a}, src, dst, lut, n, n_vec)
+            : ipt::launch(elementwise_kernel<false>, static_cast<unsigned>(blocks), THREADS, 0, s,
+                          {a, a}, src, dst, nullptr, n, n_vec));
 }

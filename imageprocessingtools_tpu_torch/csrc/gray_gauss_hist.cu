@@ -70,6 +70,7 @@
 
 #include "bulk_copy.cuh"
 #include "gauss_tile.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -308,10 +309,11 @@ int launch_kernel(const uint8_t* rgb, uint8_t* out, int* hist, int N, int H, int
     if (N < 1 || tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
     const long long resident = static_cast<long long>(max(per_sm, 1)) * sms;
     const int grid = static_cast<int>(tiles < resident ? tiles : resident);
-    kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(rgb, out, hist, H, W, tiles_x,
-                                                  static_cast<int>(per_image),
-                                                  static_cast<int>(tiles));
-    return static_cast<int>(cudaGetLastError());
+    // The aligned instance was chosen by rgb's 16 bytes and out's 8.
+    return static_cast<int>(ipt::launch(kernel, grid, THREADS, SMEM_BYTES, stream,
+                                        {kAligned ? 16 : 1, kAligned ? 8 : 1}, rgb, out, hist, H,
+                                        W, tiles_x, static_cast<int>(per_image),
+                                        static_cast<int>(tiles)));
 }
 
 template <bool kHistogram>

@@ -65,6 +65,8 @@
 #include <mutex>
 #include <utility>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int THREADS = 1024;
@@ -195,12 +197,11 @@ int launch(const void* values, void* hist, int N, long long n, int device, void*
     const auto s = static_cast<cudaStream_t>(stream);
     const auto* v = static_cast<const uint8_t*>(values);
     auto* h = static_cast<int*>(hist);
-    if (N == 1) {
-        histogram_kernel<false><<<grid, THREADS, 0, s>>>(v, h, words, n);
-    } else {
-        histogram_kernel<true><<<grid, THREADS, 0, s>>>(v, h, words, n);
-    }
-    return static_cast<int>(cudaGetLastError());
+    // The kernel counts an unaligned head by itself: no address chose it.
+    return static_cast<int>(N == 1 ? ipt::launch(histogram_kernel<false>, grid, THREADS, 0, s, {},
+                                                 v, h, words, n)
+                                   : ipt::launch(histogram_kernel<true>, grid, THREADS, 0, s, {},
+                                                 v, h, words, n));
 }
 
 }  // namespace

@@ -24,6 +24,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -75,11 +77,11 @@ int launch(const void* values, void* out, const void* luts, int N, long long n, 
     long long blocks = (n / 16 + THREADS - 1) / THREADS;
     if (blocks < 1) blocks = 1;
     if (blocks > 65535) blocks = 65535;
-    lut_apply_kernel<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(N)), THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(values), static_cast<uint8_t*>(out),
-        static_cast<const uint8_t*>(luts), n);
-    return static_cast<int>(cudaGetLastError());
+    // The kernel picks its words by each image's addresses itself.
+    return static_cast<int>(ipt::launch(
+        lut_apply_kernel, dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(N)), THREADS,
+        0, static_cast<cudaStream_t>(stream), {}, static_cast<const uint8_t*>(values),
+        static_cast<uint8_t*>(out), static_cast<const uint8_t*>(luts), n));
 }
 
 }  // namespace
@@ -99,4 +101,74 @@ extern "C" int ipt_lut_apply_batch(const void* values, void* out, const void* lu
 // Shared by every entry point's wrapper to word its errors.
 extern "C" const char* ipt_error_string(int status) {
     return cudaGetErrorString(static_cast<cudaError_t>(status));
+}
+
+// A CUDA graph's notes and bindings (csrc/launch.cuh, utils/graphs.py), shared
+// by every kernel's file.
+
+// The id of the capture underway on `stream` into *id, or 0 if none.
+extern "C" int ipt_capture_id(void* stream, unsigned long long* id) {
+    cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+    *id = 0;
+    const auto s = static_cast<cudaStream_t>(stream);
+    const cudaError_t err = cudaStreamGetCaptureInfo(s, &status, id);
+    if (status != cudaStreamCaptureStatusActive) *id = 0;
+    return static_cast<int>(err);
+}
+
+// The number of notes of capture `id` into *count.
+extern "C" int ipt_capture_note_count(unsigned long long id, int* count) {
+    std::lock_guard<std::mutex> lock(ipt::notes().mu);
+    *count = 0;
+    for (const ipt::Note& n : ipt::notes().all) *count += n.capture == id;
+    return 0;
+}
+
+// Up to `max` notes of capture `id` into out, in launch order; drops every
+// note of that capture and of the captures before it (an abandoned
+// capture's too).
+extern "C" int ipt_capture_notes_take(unsigned long long id, ipt::Note* out, int max) {
+    std::lock_guard<std::mutex> lock(ipt::notes().mu);
+    std::vector<ipt::Note>& all = ipt::notes().all;
+    int k = 0;
+    std::vector<ipt::Note> later;
+    for (const ipt::Note& n : all) {
+        if (n.capture == id && k < max) out[k++] = n;
+        if (n.capture > id) later.push_back(n);
+    }
+    all.swap(later);
+    return 0;
+}
+
+// Point arguments of kernel nodes of the instantiated graph `exec` at new
+// addresses: entry i sets argument index[i] (of nargs[i]) of node nodes[i]
+// to ptrs[i], with every other argument as captured. A node's entries are
+// consecutive. Launches of `exec` already enqueued keep what they had.
+extern "C" int ipt_graph_bind(void* exec, int count, const unsigned long long* nodes,
+                              const int* nargs, const int* index, const unsigned long long* ptrs) {
+    constexpr int MAX_ARGS = 64;
+    for (int i = 0; i < count;) {
+        const auto node = reinterpret_cast<cudaGraphNode_t>(nodes[i]);
+        if (nargs[i] > MAX_ARGS) return static_cast<int>(cudaErrorInvalidValue);
+        cudaKernelNodeParams p;
+        cudaError_t err = cudaGraphKernelNodeGetParams(node, &p);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        void* args[MAX_ARGS];
+        void* values[MAX_ARGS];
+        for (int a = 0; a < nargs[i]; ++a) args[a] = p.kernelParams[a];
+        int j = i;
+        for (; j < count && nodes[j] == nodes[i]; ++j) {
+            if (index[j] < 0 || index[j] >= nargs[i]) {
+                return static_cast<int>(cudaErrorInvalidValue);
+            }
+            values[j - i] = reinterpret_cast<void*>(ptrs[j]);
+            args[index[j]] = &values[j - i];
+        }
+        p.kernelParams = args;
+        p.extra = nullptr;
+        err = cudaGraphExecKernelNodeSetParams(static_cast<cudaGraphExec_t>(exec), node, &p);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        i = j;
+    }
+    return 0;
 }

@@ -70,6 +70,8 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
@@ -192,10 +194,9 @@ cudaError_t launch_rows(const uint8_t* src, uint8_t* dst, const int* idx, const 
     const Kernel kernels[2][2] = {  // [words][a batch]
         {pass_rows_kernel<V, false, false>, pass_rows_kernel<V, false, true>},
         {pass_rows_kernel<V, V != 1, false>, pass_rows_kernel<V, V != 1, true>}};
-    kernels[words][n > 1]<<<grid, THREADS, 0, stream>>>(src, dst, idx, w, row_bytes, taps,
-                                                         pieces, in_rows * row_bytes,
-                                                         out_size * row_bytes);
-    return cudaGetLastError();
+    const int a = words ? V : 1;  // the word instance was chosen by both addresses
+    return ipt::launch(kernels[words][n > 1], grid, THREADS, 0, stream, {a, a}, src, dst, idx, w,
+                       row_bytes, taps, pieces, in_rows * row_bytes, out_size * row_bytes);
 }
 
 // Bytes of shared memory per staged row of seg_bytes image bytes: up to 15
@@ -471,10 +472,10 @@ cudaError_t launch_cols(const uint8_t* src, uint8_t* dst, const int* idx, const 
     const long long strip_rows = (steps + strips - 1) / strips * ROWS;
     strips = (rows + strip_rows - 1) / strip_rows;
     if (blocks_x * strips > INT_MAX) return cudaErrorInvalidConfiguration;
-    kernel<<<static_cast<unsigned>(blocks_x * strips), THREADS, smem, stream>>>(
-        src, dst, idx, w, rows, cols, out_size, taps, blocks_x, strip_rows, chunk_taps,
-        static_cast<int>(seg_stride), static_cast<int>(n_stages));
-    return cudaGetLastError();
+    // The kernel stages rows from their aligned chunks by itself.
+    return ipt::launch(kernel, static_cast<unsigned>(blocks_x * strips), THREADS, smem, stream, {},
+                       src, dst, idx, w, rows, cols, out_size, taps, blocks_x, strip_rows,
+                       chunk_taps, static_cast<int>(seg_stride), static_cast<int>(n_stages));
 }
 
 // One pass over n images src uint8[n][rows, cols, channels], one after

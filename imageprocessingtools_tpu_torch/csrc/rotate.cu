@@ -63,6 +63,8 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int TILE = 32;      // output tile side, pixels
@@ -334,10 +336,9 @@ cudaError_t launch(const uint8_t* src, int src_row0, int src_rows, uint8_t* dst,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const dim3 grid((newW + TILE - 1) / TILE, (newH + TILE - 1) / TILE, n);
-    kernel<<<grid, dim3(BX, BY), smem, stream>>>(
-        src, src_row0, src_rows, dst, H, W, newH, newW, cos_t, sin_t, xc, yc, xoff, yoff, plan,
-        box_w, box_h);
-    return cudaGetLastError();
+    // The kernel reads and writes by its rows' aligned chunks by itself.
+    return ipt::launch(kernel, grid, dim3(BX, BY), smem, stream, {}, src, src_row0, src_rows, dst,
+                       H, W, newH, newW, cos_t, sin_t, xc, yc, xoff, yoff, plan, box_w, box_h);
 }
 
 int rotate(const void* src, int src_row0, int src_rows, void* dst, int H, int W, int C, int newH,

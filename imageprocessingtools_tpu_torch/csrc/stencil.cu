@@ -56,6 +56,7 @@
 
 #include "bulk_copy.cuh"
 #include "gauss_tile.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -215,8 +216,10 @@ int launch_gaussian_blur(const uint8_t* src, uint8_t* out, int H, int W, int dev
     const int tiles_x = (W + G_TILE_W - 1) / G_TILE_W;
     const int tiles = tiles_x * ((H + G_TILE_H - 1) / G_TILE_H);
     const int grid = min(tiles, max(per_sm, 1) * sms);
-    kernel<<<grid, G_THREADS, G_SMEM_BYTES, stream>>>(src, out, H, W, tiles_x, tiles);
-    return static_cast<int>(cudaGetLastError());
+    // The aligned instance was chosen by src's 16 bytes and out's 8.
+    return static_cast<int>(ipt::launch(kernel, grid, G_THREADS, G_SMEM_BYTES, stream,
+                                        {kAligned ? 16 : 1, kAligned ? 8 : 1}, src, out, H, W,
+                                        tiles_x, tiles));
 }
 
 // ---- K7 -------------------------------------------------------------------
@@ -407,8 +410,9 @@ int launch_stencil3(const void* src, void* out, int N, int H, int W, int device,
     const Kernel kernels[2][2] = {  // [aligned][a batch]
         {stencil3_kernel<Op, false, false>, stencil3_kernel<Op, false, true>},
         {stencil3_kernel<Op, true, false>, stencil3_kernel<Op, true, true>}};
-    kernels[aligned][N > 1]<<<grid, block, 0, s>>>(in, o, H, W);
-    return static_cast<int>(cudaGetLastError());
+    const int a = aligned ? 16 : 1;  // the instance was chosen by both addresses
+    return static_cast<int>(ipt::launch(kernels[aligned][N > 1], grid, block, 0, s, {a, a}, in, o,
+                                        H, W));
 }
 
 constexpr int THREADS = 256;  // of the test kernel below
@@ -468,7 +472,7 @@ extern "C" int ipt_sobel_batch(const void* src, void* out, int N, int H, int W, 
 extern "C" int ipt_sobel_out_test(void* out, int n, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    sobel_out_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<int*>(out), n);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(ipt::launch(sobel_out_kernel, (n + THREADS - 1) / THREADS, THREADS, 0,
+                                        static_cast<cudaStream_t>(stream), {},
+                                        static_cast<int*>(out), n));
 }

@@ -124,6 +124,16 @@ _SIGNATURES = {
                               ctypes.c_longlong, _I, _I, _I, _I, _P],
     # out (int32[n]), n, device, stream: Sobel's clipped root of 0..n-1 (a test entry)
     "ipt_sobel_out_test": [_P, _I, _I, _P],
+    # CUDA graphs' notes and bindings (csrc/launch.cuh, utils/graphs.py):
+    # stream, the id of its capture underway (out)
+    "ipt_capture_id": [_P, ctypes.POINTER(ctypes.c_ulonglong)],
+    # capture id, its notes (out)
+    "ipt_capture_note_count": [ctypes.c_ulonglong, ctypes.POINTER(_I)],
+    # capture id, notes (out), at most this many
+    "ipt_capture_notes_take": [ctypes.c_ulonglong, _P, _I],
+    # instantiated graph, entries, then per entry: node, its kernel's arguments, the
+    # argument's index, the address it takes
+    "ipt_graph_bind": [_P, _I, _P, _P, _P, _P],
 }
 
 

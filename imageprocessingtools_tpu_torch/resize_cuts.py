@@ -170,7 +170,8 @@ def build(cuts: list[str]) -> ctypes.CDLL:
     source = out_dir / f"resize_{stem}.cu"
     source.write_text(cut_source(SOURCE.read_text(), cuts))
     out = out_dir / f"libipt_resize_{stem}.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out), str(source)]
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared", "-o", str(out),
+           str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{proc.stderr}")

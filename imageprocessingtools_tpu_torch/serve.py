@@ -47,8 +47,12 @@ exit 255 (quirk B3); success prints one summary line to stderr, which
 counts the files processed in this run (resumed files separately), and
 exits 0. Under ``IPT_STRUCTURED_LOG=1`` the ``serve_ok`` JSON line on stderr
 also gives what the run added to ``utils.graphs``' counters:
-``graphs_captured``, ``graphs_evicted``, ``graph_replays`` and
-``upload_bytes`` (all 0 on the CPU, where nothing is captured).
+``graphs_captured``, ``graphs_evicted``, ``graph_replays``,
+``upload_bytes`` (bytes copied from the host into graphs' inputs),
+``inputs_bound`` and ``outputs_bound`` (replays that read their input and
+wrote their output where they lie on the card, which files read from the
+host never do) and ``copy_in_bytes`` (bytes copied card to card into
+graphs' inputs); all 0 on the CPU, where nothing is captured.
 """
 
 from __future__ import annotations

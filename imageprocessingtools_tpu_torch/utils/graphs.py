@@ -26,20 +26,23 @@ which one replay runs on the card with no host work between its launches.
   evicts.
 - ``graphed(fn)``: ``fn`` (one tensor -> a tensor or a tuple of tensors) as
   a compiled callable. On a CPU tensor it calls ``fn``. On a CUDA tensor it
-  keeps one graph per ``graph_key`` (device, shape, dtype, strides), copies
-  the argument into the graph's input buffer, replays it and returns a
-  clone of its output: a JAX executable returns a fresh array, and a caller
-  that keeps one output must not see the next call overwrite it.
+  keeps one graph per ``graph_key`` (device, shape, dtype, strides), takes
+  the argument as inputs are taken (below), replays the graph and returns a
+  fresh output: one tensor the graph wrote where it lies where the output
+  can be bound, else a clone of the graph's own. A JAX executable returns
+  a fresh array, and a caller that keeps one output must not see the next
+  call overwrite it.
 - ``batched(fn)``: ``fn`` over a leading dimension, the counterpart of
   ``jax.jit(jax.vmap(fn))`` (``imageprocessingtools_tpu/serving.py:147-149``,
   ``parallel/batch.py:53-92``). N images of one shape run in groups of G
   (``group_size``: as many as ``GROUP_INPUT_BYTES`` of input hold, at most
   ``GROUP_IMAGES``; ``spans``): on a CUDA device, one graph per (fn,
-  device, image shape, dtype, images in the group); the images are copied
-  from where they lie (the host, for serving) straight into the graph's
-  static input, and the batch is ⌊N/G⌋ replays of the G-image graph and one
-  replay of the remainder's, each group's outputs copied out of the graph
-  into fresh tensors. A group is ``over_group(fn, group)``: where ``fn``
+  device, image shape, dtype, images in the group); the batch is ⌊N/G⌋
+  replays of the G-image graph and one replay of the remainder's, each
+  group's images taken as inputs are taken (below), into fresh outputs made
+  before the first replay: a group whose output can be bound is written
+  into its rows of them, else its outputs are copied out of the graph.
+  A group is ``over_group(fn, group)``: where ``fn``
   has a batch form (below), that form on the whole group, whose kernels
   launch once per group (``jax.vmap``'s batching rule: one kernel over the
   batch) and whose outputs are stacked already (one copy out per output);
@@ -58,7 +61,28 @@ which one replay runs on the card with no host work between its launches.
 - ``replayed(cache, key, fn, x, name)``: the one path of all three forms
   (``graphed``, ``batched`` and the band pipelines of
   ``parallel/spatial.py``): the graph kept for ``key``, captured on a miss,
-  ``x`` copied in, one replay, its static output inside the block.
+  ``x`` taken in, one replay, its static output inside the block.
+
+How inputs are taken. Every port kernel is launched through
+``csrc/launch.cuh``, which under capture notes each pointer argument with
+its kernel node and the alignment its host code chose the kernel by; a
+capture keeps its ``cudaGraph_t`` (so that the nodes stay valid), those
+notes, and the storages that torch ops took while it ran. From these,
+``input_site`` and ``output_site`` say where a caller's buffer may take the
+place of the graph's own: the input where only noted port kernels read it
+(no torch op, no memcpy node, no output inside it); the output where it is
+one tensor, its storage whole, that one noted argument holds from its first
+byte and no torch op takes (K3's batch, K9's H pass; not a tuple, a
+per-image list or print_ready's packed bits). On each replay ``bindable``
+(a pure function of the tensor's device, shape, strides and address, and
+the site) decides: an input on the graph's card, of its shape, contiguous,
+at an address that meets every noted alignment, is bound, and so is the
+output rows of a call whose input is on the card (``_Binder``: one
+``cudaGraphExecKernelNodeSetParams`` a noted node, where the addresses
+differ from what the graph holds; launches already enqueued keep theirs).
+Anything else, and every host input, is copied into the graph's input (a
+fallback points the kernels back at the graph's own buffers first), and its
+outputs copied out. There is no switch: what the code observes decides.
 
 Memory: each graph holds a pool of its own. Every graph that ``graphed``,
 ``batched`` and the band pipelines keep is in one LRU (``held``) with its
@@ -74,27 +98,36 @@ as they run. A capture launches nothing, so the counts it added are taken
 back and credited once per replay instead.
 
 Counters (``counts()``; always on): graphs captured, graphs the byte bound
-dropped, replays, and bytes copied from the host into a graph's input.
-Spans (``utils.profiling.span``, recorded only inside a recording), on
+dropped, replays, bytes copied from the host into a graph's input
+(``upload_bytes``), replays whose input and whose output were bound
+(``inputs_bound``, ``outputs_bound``), and bytes copied card to card into a
+graph's input (``copy_in_bytes``, the fallback). Spans
+(``utils.profiling.span``, recorded only inside a recording), on
 ``replayed``'s one path: ``graphs.capture``, ``graphs.evict`` (the bound's
 drops, each waiting for its graph's last call, and the emptied cache),
-``graphs.upload`` (the copy of a host input into the graph's) or
-``graphs.copy_in`` (of an input on a card), ``graphs.replay``; in
-``batched``, ``graphs.group`` around each group and ``graphs.copy_out``
-around its outputs' copy out of the graph.
+``graphs.bind`` (a call that binds its input or output), ``graphs.upload``
+(the copy of a host input into the graph's) or ``graphs.copy_in`` (of an
+unbound input on a card), ``graphs.replay``; in ``batched``,
+``graphs.group`` around each group and ``graphs.copy_out`` around the copy
+of outputs that were not bound out of the graph.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import time
 import warnings
 import weakref
+from typing import NamedTuple
 
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from imageprocessingtools_tpu_torch.utils import profiling
 
@@ -118,19 +151,85 @@ def _counted() -> tuple:
     return kernels.counted_wrappers()
 
 
+def _library():
+    """The port's kernel library (``kernels/_build.py``)."""
+    from imageprocessingtools_tpu_torch.kernels import _build
+
+    return _build
+
+
+class Note(NamedTuple):
+    """One pointer argument of a port kernel launched under capture
+    (``csrc/launch.cuh``): its kernel node (0 where the capture could not
+    tell it), the kernel's argument count, the argument's index and value,
+    and the alignment in bytes that the host code chose the kernel by (1
+    where the address chose nothing)."""
+
+    node: int
+    nargs: int
+    index: int
+    ptr: int
+    align: int
+
+
+class _CNote(ctypes.Structure):
+    _fields_ = [("capture", ctypes.c_ulonglong), ("node", ctypes.c_ulonglong),
+                ("nargs", ctypes.c_int), ("index", ctypes.c_int), ("ptr", ctypes.c_ulonglong),
+                ("align", ctypes.c_int)]
+
+
+class _Touches(TorchDispatchMode):
+    """While a function is captured: the card storages that torch ops other
+    than views take, to read or to write. With the port kernels' notes, they
+    say what touches a graph's input and output."""
+
+    @classmethod
+    def _should_skip_dynamo(cls) -> bool:
+        # Else torch wraps __torch_dispatch__ to disable torch.compile in it,
+        # and the first capture imports torch._dynamo (9 s on the card's host).
+        return False
+
+    def __init__(self):
+        super().__init__()
+        self._seen = {}  # a storage's weak reference -> its (address, bytes)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if not getattr(func, "is_view", False):
+            for t in pytree.tree_leaves((args, kwargs)):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    self._seen.setdefault(StorageWeakRef(t.untyped_storage()), _storage(t))
+        return func(*args, **kwargs)
+
+    def ranges(self) -> tuple:
+        """(address, bytes) of each storage taken that is still alive: the
+        bytes of one freed since may hold a later buffer that no op took."""
+        return tuple(r for ref, r in self._seen.items() if not ref.expired())
+
+
+def _storage(t: torch.Tensor) -> tuple:
+    """(address, bytes) of ``t``'s whole storage."""
+    s = t.untyped_storage()
+    return s.data_ptr(), s.nbytes()
+
+
 @dataclasses.dataclass
 class Captured:
     """One captured graph: ``out`` is its static output (what ``fn``
     returned, rewritten by every replay), ``launches`` the launches of
     each counted wrapper that one replay makes, ``pool_bytes`` what the
     allocator reserved for it during the capture, ``holds`` the tables made
-    outside the capture that it reads."""
+    outside the capture that it reads, ``notes`` the pointer arguments of
+    the port kernels it launches and ``touched`` the storages that torch ops
+    in it take (``_Touches``)."""
 
     graph: torch.cuda.CUDAGraph
     out: object
     launches: dict
     pool_bytes: int = 0
     holds: list = dataclasses.field(default_factory=list)
+    notes: tuple = ()
+    touched: tuple = ()
 
     def replay(self) -> None:
         """Run the graph once on the current stream."""
@@ -205,21 +304,28 @@ def capture(fn, *args) -> Captured:
             torch.cuda.synchronize()
             wrappers = _counted()
             before = [w.launches for w in wrappers]
-            graph = torch.cuda.CUDAGraph()
+            lib = _library().library()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)  # its nodes stay, for bindings
             reserved = torch.cuda.memory_reserved(device)
+            capture_id = ctypes.c_ulonglong()
             try:
                 with torch.cuda.stream(stream):
                     graph.capture_begin()
                     try:
-                        out = fn(*args)
+                        lib.ipt_capture_id(stream.cuda_stream, ctypes.byref(capture_id))
+                        with _Touches() as touches:
+                            out = fn(*args)
+                        touched = touches.ranges()
                     except BaseException:
                         _abandon(graph)
                         raise
                     graph.capture_end()
+                graph.instantiate()
             except BaseException as e:
                 for w, n in zip(wrappers, before):
                     w.launches = n  # nothing of the capture ran
                 _fail(fn, e)
+            notes = _take_notes(lib, capture_id.value)
             torch.cuda.current_stream().wait_stream(stream)
             launches = {}
             for w, n in zip(wrappers, before):
@@ -229,7 +335,16 @@ def capture(fn, *args) -> Captured:
             pool_bytes = torch.cuda.memory_reserved(device) - reserved
     finally:
         _holds = outer
-    return Captured(graph, out, launches, pool_bytes, holds)
+    return Captured(graph, out, launches, pool_bytes, holds, notes, touched)
+
+
+def _take_notes(lib, capture_id: int) -> tuple:
+    """The notes of capture ``capture_id``, taken out of the library's."""
+    count = ctypes.c_int()
+    lib.ipt_capture_note_count(capture_id, ctypes.byref(count))
+    buf = (_CNote * count.value)()
+    lib.ipt_capture_notes_take(capture_id, buf, count.value)
+    return tuple(Note(n.node, n.nargs, n.index, n.ptr, n.align) for n in buf)
 
 
 def _abandon(graph: torch.cuda.CUDAGraph) -> None:
@@ -257,6 +372,145 @@ def _clone(out):
     return type(out)(_clone(o) for o in out)
 
 
+class Buffer(NamedTuple):
+    """Where a tensor lies: its device, shape, strides, address and bytes."""
+
+    device: torch.device
+    shape: tuple
+    strides: tuple
+    ptr: int
+    nbytes: int
+
+    @classmethod
+    def of(cls, t: torch.Tensor) -> Buffer:
+        return cls(t.device, tuple(t.shape), tuple(t.stride()), t.data_ptr(), t.nbytes)
+
+
+class Binding(NamedTuple):
+    """A kernel argument that holds a graph's input or output: its node, the
+    kernel's argument count, the argument's index, its byte offset into the
+    buffer, and the alignment that its launch was chosen by."""
+
+    node: int
+    nargs: int
+    index: int
+    offset: int
+    align: int
+
+
+class Site(NamedTuple):
+    """A graph's input or output where a caller's buffer may take the place
+    of the graph's own: the buffer's device, shape and strides, and the
+    kernel arguments that hold it."""
+
+    device: torch.device
+    shape: tuple
+    strides: tuple
+    bindings: tuple
+
+
+def _dense(shape: tuple, strides: tuple) -> bool:
+    """Whether ``strides`` are the contiguous ones of ``shape`` (a pure
+    function; a dimension of one element may have any stride)."""
+    step = 1
+    for n, stride in zip(reversed(shape), reversed(strides)):
+        if n != 1 and stride != step:
+            return False
+        step *= n
+    return True
+
+
+def _overlaps(ranges, ptr: int, nbytes: int) -> bool:
+    """Whether any (address, bytes) of ``ranges`` shares a byte with
+    [ptr, ptr + nbytes)."""
+    return any(lo < ptr + nbytes and ptr < lo + size for lo, size in ranges)
+
+
+def _held_by(notes, buf: Buffer) -> list:
+    return [n for n in notes if buf.ptr <= n.ptr < buf.ptr + buf.nbytes]
+
+
+def input_site(static: Buffer, notes, touched, outs) -> Site | None:
+    """A graph's input ``static`` as a ``Site``, or None where a caller's
+    buffer cannot take its place: where no port kernel reads it, a torch op
+    takes it (``touched``: (address, bytes) of the storages that torch ops
+    took during the capture; a memcpy node comes from one too), a launch
+    whose node is unknown reads it, or an output lies in it (``outs``:
+    (address, bytes) of each output's storage). ``notes``: the capture's.
+    A port kernel never writes its input, so a bound input is only read (a
+    pure function)."""
+    refs = _held_by(notes, static)
+    if (not refs or not _dense(static.shape, static.strides) or any(n.node == 0 for n in refs)
+            or _overlaps((*touched, *outs), static.ptr, static.nbytes)):
+        return None
+    return Site(static.device, static.shape, static.strides,
+                tuple(Binding(n.node, n.nargs, n.index, n.ptr - static.ptr, n.align)
+                      for n in refs))
+
+
+def output_site(out: Buffer | None, notes, touched, static_in: Buffer) -> Site | None:
+    """A graph's output ``out`` as a ``Site``, or None where a caller's buffer
+    cannot take its place: ``out`` is None (a tuple, a list, or a view of
+    part of a storage), or it is not the one recorded kernel argument's
+    buffer from its first byte on, a torch op takes it, or it lies in the
+    input (a pure function)."""
+    if out is None or not _dense(out.shape, out.strides):
+        return None
+    refs = _held_by(notes, out)
+    if (len(refs) != 1 or refs[0].ptr != out.ptr or refs[0].node == 0
+            or _overlaps((*touched, (static_in.ptr, static_in.nbytes)), out.ptr, out.nbytes)):
+        return None
+    n = refs[0]
+    return Site(out.device, out.shape, out.strides,
+                (Binding(n.node, n.nargs, n.index, 0, n.align),))
+
+
+def bindable(x: Buffer, site: Site | None) -> bool:
+    """Whether ``x`` may take the place of a graph's buffer at ``site`` (None:
+    nowhere) for one replay: on the graph's card, of its shape, contiguous,
+    and at an address that meets every alignment that a launch holding it was
+    chosen by (a pure function)."""
+    return (site is not None and x.device == site.device and x.shape == site.shape
+            and _dense(x.shape, x.strides)
+            and all((x.ptr + b.offset) % b.align == 0 for b in site.bindings))
+
+
+class _Binder:
+    """The kernel arguments of one instantiated graph that hold its input or
+    output, grouped by node, and the addresses the graph holds there now."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, inputs: Site | None, outputs: Site | None,
+                 own_in: int, own_out: int):
+        order = sorted([(False, b) for b in (inputs.bindings if inputs else ())]
+                       + [(True, b) for b in (outputs.bindings if outputs else ())],
+                       key=lambda rb: rb[1].node)
+        n = self.n = len(order)
+        self.exec = graph.raw_cuda_graph_exec()
+        self.nodes = (ctypes.c_ulonglong * n)(*(b.node for _, b in order))
+        self.nargs = (ctypes.c_int * n)(*(b.nargs for _, b in order))
+        self.index = (ctypes.c_int * n)(*(b.index for _, b in order))
+        self.roles = [(is_out, b.offset) for is_out, b in order]
+        self.own = (own_in, own_out)
+        self.now = self._at(None, None)
+
+    def _at(self, src: int | None, dst: int | None) -> list:
+        src = self.own[0] if src is None else src
+        dst = self.own[1] if dst is None else dst
+        return [(dst if is_out else src) + offset for is_out, offset in self.roles]
+
+    def point(self, src: int | None, dst: int | None) -> None:
+        """Point the graph's input arguments at ``src`` and its output's at
+        ``dst`` (None: the graph's own buffer) where they differ from what
+        the graph holds; launches already enqueued keep what they had."""
+        want = self._at(src, dst)
+        if want != self.now:
+            build = _library()
+            build.check(build.library().ipt_graph_bind(
+                self.exec, self.n, self.nodes, self.nargs, self.index,
+                (ctypes.c_ulonglong * self.n)(*want)), "ipt_graph_bind")
+            self.now = want
+
+
 @dataclasses.dataclass(eq=False)
 class _Entry:
     """A kept graph, its input buffer, and an event recorded after its last
@@ -264,7 +518,9 @@ class _Entry:
     (a weak reference, so that a dropped cache frees its graphs at once) and
     ``key``: the cache that holds it, so that the byte bound can drop it
     there; ``name``: its function's; ``seconds``: its capture's, the warm-up
-    included."""
+    included; ``inputs`` and ``outputs``: where a caller's buffer may take
+    the place of its input and output (``input_site``, ``output_site``),
+    which ``binder`` points its kernels at."""
 
     static_in: torch.Tensor
     captured: Captured
@@ -273,6 +529,9 @@ class _Entry:
     name: str = ""
     seconds: float = 0.0
     done: torch.cuda.Event = dataclasses.field(default_factory=torch.cuda.Event)
+    inputs: Site | None = None
+    outputs: Site | None = None
+    binder: _Binder | None = None
 
     @property
     def nbytes(self) -> int:
@@ -286,12 +545,17 @@ captures_made = 0  # graphs captured and kept in this process, for reports
 evictions_made = 0  # graphs dropped by the byte bound
 replays_made = 0  # replays of kept graphs
 upload_bytes = 0  # bytes copied from the host into graphs' inputs
+inputs_bound = 0  # replays that read the caller's input where it lay
+outputs_bound = 0  # replays that wrote the caller's output where it lies
+copy_in_bytes = 0  # bytes copied card to card into graphs' inputs
 
 
 def counts() -> dict:
     """The counters, as ``serve``'s ``serve_ok`` line names their deltas."""
     return {"graphs_captured": captures_made, "graphs_evicted": evictions_made,
-            "graph_replays": replays_made, "upload_bytes": upload_bytes}
+            "graph_replays": replays_made, "upload_bytes": upload_bytes,
+            "inputs_bound": inputs_bound, "outputs_bound": outputs_bound,
+            "copy_in_bytes": copy_in_bytes}
 
 
 def _live() -> list:
@@ -354,43 +618,91 @@ def held() -> list:
              "capture_s": e.seconds} for e in _live()]
 
 
+def _whole(out) -> Buffer | None:
+    """``out`` where it is one tensor that is its storage's every byte."""
+    if not isinstance(out, torch.Tensor) or _storage(out) != (out.data_ptr(), out.nbytes):
+        return None
+    return Buffer.of(out)
+
+
 def _capture_entry(fn, x: torch.Tensor, key: tuple, cache, name: str) -> _Entry:
-    """A graph of ``fn`` on a copy of ``x`` made on ``x``'s device."""
+    """A graph of ``fn`` on a copy of ``x`` made on ``x``'s device, with the
+    sites where a caller's buffers may take the place of its own."""
     with profiling.span("graphs.capture"):
         t0 = time.perf_counter()
         static_in = torch.empty_like(x, device=torch.cuda.current_device())
         static_in.copy_(x)
-        return _Entry(static_in, capture(fn, static_in), key, weakref.ref(cache), name,
-                      time.perf_counter() - t0)
+        captured = capture(fn, static_in)
+        own = Buffer.of(static_in)
+        outs = [_storage(t) for t in pytree.tree_leaves(captured.out)
+                if isinstance(t, torch.Tensor)]
+        inputs = input_site(own, captured.notes, captured.touched, outs)
+        outputs = output_site(_whole(captured.out), captured.notes, captured.touched, own)
+        binder = None
+        if inputs is not None or outputs is not None:
+            binder = _Binder(captured.graph, inputs, outputs, own.ptr,
+                             captured.out.data_ptr() if outputs is not None else 0)
+        return _Entry(static_in, captured, key, weakref.ref(cache), name,
+                      time.perf_counter() - t0, inputs=inputs, outputs=outputs, binder=binder)
 
 
-def _replay(entry: _Entry, x: torch.Tensor):
-    """``x`` copied into the graph's input (after the graph's last call),
-    one replay; the static output, valid until the entry's next call."""
-    global replays_made, upload_bytes
-    torch.cuda.current_stream().wait_event(entry.done)
-    if not x.is_cuda:
-        upload_bytes += x.nbytes
-    with profiling.span("graphs.copy_in" if x.is_cuda else "graphs.upload"):
-        entry.static_in.copy_(x)
+def _replay(entry: _Entry, x: torch.Tensor, into: torch.Tensor | None):
+    """One replay (after the graph's last call) on ``x``: bound into the
+    graph's kernels where it is on the card and ``bindable``, else copied
+    into the graph's input; with ``into`` (a tensor shaped as the graph's
+    output), the output written there where ``x`` is on the card and
+    ``into`` is ``bindable``. Returns the static output, valid until the
+    entry's next call, and whether the output went to ``into`` instead."""
+    global replays_made, upload_bytes, copy_in_bytes, inputs_bound, outputs_bound
+    stream = torch.cuda.current_stream()
+    stream.wait_event(entry.done)
+    binder, bind_in, bind_out = entry.binder, False, False
+    if binder is not None and x.is_cuda:
+        bind_in = bindable(Buffer.of(x), entry.inputs)
+        bind_out = into is not None and bindable(Buffer.of(into), entry.outputs)
+    if bind_in or bind_out:
+        with profiling.span("graphs.bind"):
+            binder.point(x.data_ptr() if bind_in else None, into.data_ptr() if bind_out else None)
+    elif binder is not None:
+        binder.point(None, None)  # back to the graph's own buffers, if a call moved them
+    if bind_in:
+        inputs_bound += 1
+        if stream.stream_id != 0:  # the replay may read x after its caller frees it
+            x.record_stream(stream)
+    else:
+        if x.is_cuda:
+            copy_in_bytes += x.nbytes
+        else:
+            upload_bytes += x.nbytes
+        with profiling.span("graphs.copy_in" if x.is_cuda else "graphs.upload"):
+            entry.static_in.copy_(x)
+    outputs_bound += bind_out
     replays_made += 1
     with profiling.span("graphs.replay"):
         entry.captured.replay()
-    return entry.captured.out
+    return entry.captured.out, bind_out
+
+
+@contextlib.contextmanager
+def _replaying(entry: _Entry, x: torch.Tensor, into: torch.Tensor | None = None):
+    """``_replay`` inside the block; calls on other streams wait for its end."""
+    try:
+        yield _replay(entry, x, into)
+    finally:
+        entry.done.record()
 
 
 @contextlib.contextmanager
 def replayed(cache, key, fn, x: torch.Tensor, name: str):
     """One replay of the graph of ``fn`` that ``cache`` keeps for ``key``
     (captured on a copy of ``x`` made on the current card on a miss, and
-    counted against the byte bound), ``x`` copied into its input first: its
-    static output inside the block, which the graph's next call rewrites.
-    Calls on other streams wait for the block's end."""
+    counted against the byte bound) on ``x`` (bound or copied in, as
+    ``_replay`` takes it): its static output inside the block, which the
+    graph's next call rewrites. Calls on other streams wait for the block's
+    end."""
     entry = _find(cache, key, lambda: _capture_entry(fn, x, key, cache, name))
-    try:
-        yield _replay(entry, x)
-    finally:
-        entry.done.record()
+    with _replaying(entry, x) as (out, _):
+        yield out
 
 
 class Graphed:
@@ -405,9 +717,13 @@ class Graphed:
     def __call__(self, x: torch.Tensor):
         if x.device.type != "cuda" or capturing():
             return self.fn(x)  # inside a capture, the outer graph captures the body
-        with torch.cuda.device(x.device), replayed(self._graphs, graph_key(x), self.fn, x,
-                                                   self.__name__) as out:
-            return _clone(out)
+        key = graph_key(x)
+        with torch.cuda.device(x.device):
+            entry = _find(self._graphs, key,
+                          lambda: _capture_entry(self.fn, x, key, self._graphs, self.__name__))
+            into = None if entry.outputs is None else _fresh(entry.captured.out)
+            with _replaying(entry, x, into) as (out, wrote):
+                return into if wrote else _clone(out)
 
 
 def graphed(fn) -> Graphed:
@@ -491,6 +807,11 @@ def _empty_batch(one, n: int) -> object:
     return torch.empty((n,) + tuple(one.shape), dtype=one.dtype, device=one.device)
 
 
+def _fresh(t: torch.Tensor) -> torch.Tensor:
+    """An empty contiguous tensor of ``t``'s shape, dtype and device."""
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+
+
 def _empty_for(group, n: int) -> object:
     """Empty tensors for ``n`` images shaped as one group's outputs
     (``over_group``'s: a stack, a per-image list, or a tuple of these)."""
@@ -530,23 +851,39 @@ class Batched:
         body.__qualname__ = self.__name__
         self._body = body
 
-    def _group(self, part: torch.Tensor, device: torch.device):
-        """A context giving one group's outputs (``over_group``'s): on a
-        CUDA device the graph's static outputs after a replay
-        (``replayed``), on a CPU device the group body's, run eagerly."""
+    def _group(self, part: torch.Tensor, device: torch.device, out, n: int, start: int):
+        """One group's outputs into rows ``start`` on of ``out`` (made for
+        ``n`` images at the first group, ``_empty_for``), which it returns.
+        On a CUDA device one replay of the group's graph: a bound output
+        written where it lies, else the graph's static outputs copied out; on
+        a CPU device the group body run eagerly, its outputs copied."""
         if device.type != "cuda":
-            return contextlib.nullcontext(self._body(part.to(device)))
+            outs = self._body(part.to(device))
+            out = _empty_for(outs, n) if out is None else out
+            with profiling.span("graphs.copy_out"):
+                _put(outs, out, start)
+            return out
         key = (self.fn, device, tuple(part.shape[1:]), part.dtype, part.shape[0])
-        return replayed(_batch_graphs, key, self._body, part, self.__name__)
+        entry = _find(_batch_graphs, key,
+                      lambda: _capture_entry(self._body, part, key, _batch_graphs, self.__name__))
+        out = _empty_for(entry.captured.out, n) if out is None else out
+        into = out[start:start + part.shape[0]] if isinstance(out, torch.Tensor) else None
+        with _replaying(entry, part, into) as (outs, wrote):
+            if not wrote:
+                with profiling.span("graphs.copy_out"):
+                    _put(outs, out, start)
+        return out
 
     def __call__(self, images, device):
         """``fn`` on every image of ``images`` (uint8[N, ...]: numpy, or a
         tensor on any device) on ``device``: its outputs stacked (a tuple of
         stacks for tuple outputs), fresh tensors on ``device`` that no later
         call rewrites, as a JAX executable returns fresh arrays. On a card
-        each group's outputs are copied out of the graph into the fresh
-        tensors before its graph's next replay (a batch form's stacks in one
-        copy each, per-image outputs stacked); serving downloads these
+        the fresh tensors are made before the first group's replay; a group
+        whose output the graph writes where it lies (``output_site``) writes
+        its rows of them, else its outputs are copied out of the graph
+        before its graph's next replay (a batch form's stacks in one copy
+        each, per-image outputs stacked); serving downloads these
         (``serving._to_host``)."""
         batch = torch.as_tensor(images)
         device = torch.device(device)
@@ -556,12 +893,8 @@ class Batched:
         group = group_size(batch[0].numel() * batch.element_size())
         with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
             for start, count in spans(n, group):
-                with profiling.span("graphs.group"), \
-                        self._group(batch[start:start + count], device) as outs:
-                    if out is None:
-                        out = _empty_for(outs, n)
-                    with profiling.span("graphs.copy_out"):
-                        _put(outs, out, start)
+                with profiling.span("graphs.group"):
+                    out = self._group(batch[start:start + count], device, out, n, start)
         return out
 
 

@@ -157,3 +157,135 @@ def test_counted_wrappers_are_every_launch_counter():
                 if callable(fn) and hasattr(fn, "launches")}
     assert len(counters) == 20  # 11 single-image wrappers and 9 batched ones
     assert set(kernels.counted_wrappers()) == counters
+
+
+# ---------------------------------------------------------------------------
+# Bindings (graphs.input_site, output_site, bindable): which replays may read
+# a caller's input and write a caller's output where they lie. Pure host
+# logic over a capture's notes; the bound replays run on the card
+# (tests/test_torch_kernels_cuda.py).
+# ---------------------------------------------------------------------------
+
+_CARD = torch.device("cuda", 0)
+_SHAPE = (2, 4, 16, 3)  # 384 bytes
+_IN = graphs.Buffer(_CARD, _SHAPE, (192, 48, 3, 1), 0x10000, 384)
+_OUT = graphs.Buffer(_CARD, _SHAPE[:3], (64, 16, 1), 0x20000, 128)
+# K2 reads the input (chosen aligned: 16 bytes), K3 writes the output; a
+# table of K3's lies elsewhere.
+_NOTES = (graphs.Note(node=0xA, nargs=8, index=0, ptr=_IN.ptr, align=16),
+          graphs.Note(node=0xA, nargs=8, index=1, ptr=0x30000, align=8),
+          graphs.Note(node=0xB, nargs=4, index=0, ptr=0x30000, align=1),
+          graphs.Note(node=0xB, nargs=4, index=1, ptr=_OUT.ptr, align=1),
+          graphs.Note(node=0xB, nargs=4, index=2, ptr=0x40000, align=1))
+_TOUCHED = ((0x50000, 1024),)  # the LUTs' torch ops
+
+
+def _sites(notes=_NOTES, touched=_TOUCHED, out=_OUT):
+    outs = [] if out is None else [(out.ptr, out.nbytes)]
+    return (graphs.input_site(_IN, notes, touched, outs),
+            graphs.output_site(out, notes, touched, _IN))
+
+
+def _at(ptr, device=_CARD, shape=_SHAPE, strides=(192, 48, 3, 1)):
+    return graphs.Buffer(device, shape, strides, ptr, 384)
+
+
+@pytest.mark.parametrize("case,x,sites,bound", [
+    ("bound", _at(0x90000), _sites(), True),
+    ("another card", _at(0x90000, device=torch.device("cuda", 1)), _sites(), False),
+    ("a host input", _at(0x90000, device=torch.device("cpu")), _sites(), False),
+    ("non-contiguous", _at(0x90000, strides=(384, 48, 3, 1)), _sites(), False),
+    ("off the captured alignment", _at(0x90001), _sites(), False),
+    ("another shape", _at(0x90000, shape=(2, 4, 16, 1)), _sites(), False),
+    ("a torch op reads the input", _at(0x90000), _sites(touched=((_IN.ptr, 384),)), False),
+    ("a launch of no known node reads it", _at(0x90000),
+     _sites(notes=(_NOTES[0]._replace(node=0),) + _NOTES[1:]), False),
+])
+def test_bindable_input(case, x, sites, bound):
+    assert graphs.bindable(x, sites[0]) is bound
+
+
+def test_a_bound_input_keeps_each_argument_at_its_offset():
+    notes = _NOTES + (graphs.Note(node=0xC, nargs=3, index=0, ptr=_IN.ptr + 192, align=4),)
+    site, _ = _sites(notes=notes)
+    assert [(b.node, b.index, b.offset, b.align) for b in site.bindings] == [
+        (0xA, 0, 0, 16), (0xC, 0, 192, 4)]
+    assert graphs.bindable(_at(0x90004), site) is False  # 16-byte K2 on 0x90004
+    no_k2 = (_NOTES[0]._replace(align=1),) + notes[1:]
+    assert graphs.bindable(_at(0x90004), _sites(notes=no_k2)[0]) is True
+    assert graphs.bindable(_at(0x90002), _sites(notes=no_k2)[0]) is False  # 4 bytes at +192
+
+
+@pytest.mark.parametrize("case,notes,touched,out,bound", [
+    ("one kernel writes it whole", _NOTES, _TOUCHED, _OUT, True),
+    ("a tuple, a list or part of a storage", _NOTES, _TOUCHED, None, False),
+    ("a torch op takes it", _NOTES, ((_OUT.ptr + 64, 8),), _OUT, False),
+    ("two kernels hold it", _NOTES + (graphs.Note(0xC, 2, 0, _OUT.ptr + 64, 1),), _TOUCHED,
+     _OUT, False),
+    ("its kernel holds it from its middle", (graphs.Note(0xB, 4, 1, _OUT.ptr + 8, 1),),
+     _TOUCHED, _OUT, False),
+    ("no kernel writes it", _NOTES[:3], _TOUCHED, _OUT, False),
+])
+def test_bindable_output(case, notes, touched, out, bound):
+    _, site = _sites(notes=notes, touched=touched, out=out)
+    into = graphs.Buffer(_CARD, _OUT.shape, _OUT.strides, 0xA0000, 128)
+    assert graphs.bindable(into, site) is bound
+
+
+def test_an_output_in_the_input_binds_neither():
+    """An output that is a view of the input: the input cannot be read from
+    the caller's buffer (the static output would not be written), and the
+    output is no kernel's."""
+    view = graphs.Buffer(_CARD, _SHAPE, (192, 48, 3, 1), _IN.ptr, 384)
+    notes = _NOTES[:1]
+    assert graphs.input_site(_IN, notes, (), [(_IN.ptr, 384)]) is None
+    assert graphs.output_site(view, notes, (), _IN) is None
+
+
+def test_touches_names_what_torch_ops_take_and_not_views(monkeypatch):
+    """``_Touches`` records each storage that a torch op other than a view
+    takes, and gives those still alive (a freed one's bytes may hold a later
+    buffer). Only card storages matter; here CPU tensors stand in for them."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    x = torch.zeros((2, 3, 4), dtype=torch.uint8)
+    with graphs._Touches() as touches:
+        x[0].view(-1)
+        assert touches.ranges() == ()
+        y = x + 1
+        (y * 2).sum()
+    assert set(touches.ranges()) == {graphs._storage(x), graphs._storage(y)}
+    del y
+    assert touches.ranges() == (graphs._storage(x),)
+    assert graphs._dense((2, 3, 4), (12, 4, 1)) and graphs._dense((1, 3, 4), (99, 4, 1))
+    assert not graphs._dense((2, 3, 4), (24, 4, 1)) and not graphs._dense((3, 4), (1, 3))
+
+
+def test_every_kernel_launch_is_noted():
+    """Every port kernel is launched through ``ipt::launch``
+    (``csrc/launch.cuh``), which notes its pointer arguments under capture:
+    a kernel launched with ``<<<...>>>`` would read a graph's input unseen."""
+    csrc = Path(graphs.__file__).resolve().parent.parent / "csrc"
+    sources = sorted(csrc.glob("*.cu"))
+    assert len(sources) == 7
+    for src in sources:
+        text = src.read_text()
+        assert "<<<" not in text, src.name
+        assert '#include "launch.cuh"' in text, src.name
+
+
+def test_the_capture_watch_imports_nothing():
+    """``_Touches`` in a fresh process imports no module (torch wraps a
+    dispatch mode's handler to disable torch.compile unless told not to, and
+    that imports torch._dynamo: seconds of every first capture)."""
+    import subprocess
+    import sys
+
+    code = ("import sys, torch\n"
+            "from imageprocessingtools_tpu_torch.utils import graphs\n"
+            "before = set(sys.modules)\n"
+            "with graphs._Touches():\n"
+            "    torch.zeros(3) + 1\n"
+            "print(sorted(set(sys.modules) - before))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, cwd=Path(graphs.__file__).resolve().parents[2])
+    assert out.stdout.strip() == "[]"

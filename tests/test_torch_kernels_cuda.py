@@ -1194,8 +1194,10 @@ def _delta(before: dict) -> dict:
 
 def test_batched_counts_its_capture_replays_and_uploads(cuda, monkeypatch):
     """One batched call from the host in two groups: one capture, a replay
-    and an upload of each group's bytes, each under its span; from the card,
-    copies in and nothing uploaded."""
+    and an upload of each group's bytes, each under its span, and each
+    group's outputs copied out; from the card, each group's input and output
+    bound into the graph's kernels (one ``graphs.bind`` span a group),
+    nothing uploaded or copied."""
     from imageprocessingtools_tpu_torch.utils import graphs, profiling
 
     imgs = _image((4, 96, 160, 3), seed=91).numpy()  # a shape no other test captures
@@ -1205,7 +1207,8 @@ def test_batched_counts_its_capture_replays_and_uploads(cuda, monkeypatch):
     with profiling.recording() as rec:
         out = run(imgs, cuda)
     assert _delta(before) == {"graphs_captured": 1, "graphs_evicted": 0, "graph_replays": 2,
-                              "upload_bytes": imgs.nbytes}
+                              "upload_bytes": imgs.nbytes, "inputs_bound": 0,
+                              "outputs_bound": 0, "copy_in_bytes": 0}
     names = collections.Counter(s.name for s in rec.spans)
     assert names == {"graphs.group": 2, "graphs.capture": 1, "graphs.upload": 2,
                      "graphs.replay": 2, "graphs.copy_out": 2}
@@ -1214,10 +1217,10 @@ def test_batched_counts_its_capture_replays_and_uploads(cuda, monkeypatch):
     with profiling.recording() as rec:
         again = run(on_card, cuda)
     assert _delta(before) == {"graphs_captured": 0, "graphs_evicted": 0, "graph_replays": 2,
-                              "upload_bytes": 0}
+                              "upload_bytes": 0, "inputs_bound": 2, "outputs_bound": 2,
+                              "copy_in_bytes": 0}
     names = collections.Counter(s.name for s in rec.spans)
-    assert names == {"graphs.group": 2, "graphs.copy_in": 2, "graphs.replay": 2,
-                     "graphs.copy_out": 2}
+    assert names == {"graphs.group": 2, "graphs.bind": 2, "graphs.replay": 2}
     want = torch.stack([fused.fused_pipeline_mega(on_card[i]) for i in range(4)])
     assert torch.equal(out, want) and torch.equal(again, want)
 
@@ -1236,9 +1239,160 @@ def test_graph_evictions_are_counted_under_a_span(cuda, monkeypatch):
         for i, shape in enumerate([(64, 96, 3), (72, 96, 3), (80, 96, 3)]):
             g(_image(shape, seed=i).to(cuda))
     assert _delta(before) == {"graphs_captured": 3, "graphs_evicted": 2, "graph_replays": 3,
-                              "upload_bytes": 0}
+                              "upload_bytes": 0, "inputs_bound": 3, "outputs_bound": 3,
+                              "copy_in_bytes": 0}
     assert len(g._graphs) == 1
     assert [s.name for s in rec.spans].count("graphs.evict") == 2
+
+
+# ---------------------------------------------------------------------------
+# Bound inputs and outputs (utils/graphs.py::bindable): a group on the card is
+# read and written where it lies, byte-equal to the per-image forms.
+# ---------------------------------------------------------------------------
+
+def _bound_tasks():
+    """name -> (the batched callable's fn, the per-image form)."""
+    from imageprocessingtools_tpu_torch import serving
+    from imageprocessingtools_tpu_torch.models import presets
+
+    thumbnail, _ = serving._task_fn("thumbnail")
+    return {"flagship": (fused.fused_pipeline_mega, fused.fused_pipeline_mega),
+            "thumbnail": (thumbnail, presets.PRESETS["thumbnail"])}
+
+
+def _per_image(single, batch):
+    return torch.stack([single(batch[i]) for i in range(batch.shape[0])])
+
+
+def _misaligned(x):
+    """A copy of ``x`` one byte past a 16-byte boundary."""
+    buf = torch.empty(x.nbytes + 1, dtype=torch.uint8, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("task", ["flagship", "thumbnail"])
+def test_bound_groups_equal_the_per_image_forms(cuda, monkeypatch, task):
+    """Groups that are views of one batch on the card: every replay reads
+    its group and writes its rows of the output where they lie (no copy in,
+    no copy out), byte-equal to the per-image form."""
+    from imageprocessingtools_tpu_torch.utils import graphs, profiling
+
+    fn, single = _bound_tasks()[task]
+    batch = _image((5, 270, 480, 3), seed=97).to(cuda)
+    monkeypatch.setattr(graphs, "GROUP_INPUT_BYTES", 2 * batch[0].nbytes)  # groups of 2, 2, 1
+    run = graphs.batched(fn)
+    run(batch, cuda)  # the captures
+    before = graphs.counts()
+    with profiling.recording() as rec:
+        out = run(batch, cuda)
+    assert _delta(before) == {"graphs_captured": 0, "graphs_evicted": 0, "graph_replays": 3,
+                              "upload_bytes": 0, "inputs_bound": 3, "outputs_bound": 3,
+                              "copy_in_bytes": 0}
+    names = collections.Counter(s.name for s in rec.spans)
+    assert names == {"graphs.group": 3, "graphs.bind": 3, "graphs.replay": 3}
+    assert torch.equal(out, _per_image(single, batch))
+
+
+def test_bound_then_copied_then_bound_on_one_graph(cuda):
+    """One graph: an aligned group is bound, a view one byte off the
+    alignment K2 was captured with is copied in, and the next aligned group
+    is bound again; every output byte-equal to the per-image form."""
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    run = graphs.batched(fused.fused_pipeline_mega)
+    xs = [_image((3, 128, 256, 3), seed=s).to(cuda) for s in (71, 72, 73)]
+    run(xs[0], cuda)  # the capture
+    captures = graphs.captures_made
+    inputs = [xs[0], _misaligned(xs[1]), xs[2]]
+    for x, bound in zip(inputs, (True, False, True)):
+        before = graphs.counts()
+        out = run(x, cuda)
+        delta = _delta(before)
+        assert delta["inputs_bound"] == bound and delta["outputs_bound"] == 1
+        assert delta["copy_in_bytes"] == (0 if bound else x.nbytes)
+        assert torch.equal(out, _per_image(fused.fused_pipeline_mega, x))
+    assert graphs.captures_made == captures
+
+
+def test_bound_input_freed_and_reallocated_between_calls(cuda):
+    """A bound input dropped after its call and another allocated (most
+    likely where it lay): each call reads its own input's bytes."""
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    run = graphs.batched(fused.fused_pipeline_mega)
+    outs, wants = [], []
+    for seed in (81, 82, 83):
+        x = _image((2, 96, 320, 3), seed=seed).to(cuda)
+        outs.append(run(x, cuda))
+        wants.append(_per_image(fused.fused_pipeline_mega, x))
+        del x
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, w) for o, w in zip(outs, wants))
+    assert not torch.equal(outs[0], outs[1])
+
+
+def test_bound_call_on_a_second_stream(cuda):
+    """A bound call on a side stream: the input made on the default stream
+    is read there, and the graph's next call on the default stream waits."""
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    run = graphs.batched(fused.fused_pipeline_mega)
+    x = _image((2, 112, 224, 3), seed=85).to(cuda)
+    want = _per_image(fused.fused_pipeline_mega, x)
+    run(x, cuda)  # the capture, on the default stream
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = graphs.counts()
+    with torch.cuda.stream(side):
+        out = run(x, cuda)
+        y = _image((2, 112, 224, 3), seed=86).to(cuda)
+        out_y = run(y, cuda)
+    torch.cuda.current_stream().wait_stream(side)
+    again = run(x, cuda)
+    torch.cuda.synchronize()
+    assert _delta(before)["inputs_bound"] == 3
+    assert torch.equal(out, want) and torch.equal(again, want)
+    assert torch.equal(out_y, _per_image(fused.fused_pipeline_mega, y))
+
+
+def test_print_ready_binds_its_input_and_keeps_its_copy_out(cuda):
+    """print_ready's output is packed by torch ops: its input is bound, its
+    output copied out of the graph; byte-equal to the per-image form."""
+    from imageprocessingtools_tpu_torch import serving
+    from imageprocessingtools_tpu_torch.utils import graphs, profiling
+
+    one, _ = serving._task_fn("print_ready")
+    run = graphs.batched(one)
+    x = _image((3, 120, 200, 3), seed=87).to(cuda)
+    run(x, cuda)  # the capture
+    before = graphs.counts()
+    with profiling.recording() as rec:
+        out = run(x, cuda)
+    delta = _delta(before)
+    assert delta["inputs_bound"] == 1 and delta["outputs_bound"] == 0
+    assert collections.Counter(s.name for s in rec.spans)["graphs.copy_out"] == 1
+    assert torch.equal(out, graphs.eager_batch(one, x))
+
+
+def test_graphed_flagship_binds_a_fresh_output(cuda):
+    """``graphed`` on a card tensor: the input bound, the output written
+    into a fresh tensor (never the graph's), as a clone of it would be."""
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    g = graphs.graphed(fused.fused_pipeline_mega)
+    x, y = (_image((150, 256, 3), seed=s).to(cuda) for s in (88, 89))
+    g(x)  # the capture
+    before = graphs.counts()
+    outs = [g(x), g(y), g(_misaligned(x))]
+    delta = _delta(before)
+    assert delta["inputs_bound"] == 2 and delta["outputs_bound"] == 3
+    static = g._graphs[graphs.graph_key(x)].captured.out
+    assert all(o.data_ptr() != static.data_ptr() for o in outs)
+    want = fused.fused_pipeline_mega(x)
+    assert torch.equal(outs[0], want) and torch.equal(outs[2], want)
+    assert torch.equal(outs[1], fused.fused_pipeline_mega(y))
 
 
 # ---------------------------------------------------------------------------

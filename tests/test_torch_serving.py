@@ -387,6 +387,20 @@ def test_serve_ok_line_carries_the_graph_counters(tmp_path, capsys, monkeypatch)
         ("graphs_captured", "graphs_evicted", "graph_replays", "upload_bytes"), 0)
 
 
+def test_serve_ok_line_carries_the_binding_counters(tmp_path, capsys, monkeypatch):
+    """``serve_ok`` carries the bindings' counters too: replays that read
+    their input and wrote their output where they lie, and bytes copied card
+    to card into a graph; 0 each on the CPU."""
+    monkeypatch.setenv("IPT_STRUCTURED_LOG", "1")
+    paths = _write_inputs(tmp_path, [(8, 16)] * 2)
+    assert serve.main(["--preset", "edge_detect", *paths]) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().err.splitlines()
+             if line.startswith("{")]
+    (ok,) = [line for line in lines if line["event"] == "serve_ok"]
+    assert {k: ok[k] for k in ("inputs_bound", "outputs_bound", "copy_in_bytes")} == dict.fromkeys(
+        ("inputs_bound", "outputs_bound", "copy_in_bytes"), 0)
+
+
 @pytest.mark.parametrize("config,shape", [
     ("thumbnail", (59, 256, 3)),
     ("edge_detect", (7, 30)),
