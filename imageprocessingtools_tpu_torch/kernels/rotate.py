@@ -6,7 +6,8 @@ compute the reference's f64 arithmetic (``ops/_exact.py::plan_rotation``,
 ``golden/model.py::rotate``) in the same order, so both are byte-identical
 to the C. ``rotate_bicubic`` takes the plain version for a CPU tensor and
 launches the kernel for a CUDA tensor, with the kernel's per-tile plan
-(``tile_plan``) made on the host once per geometry. ``rotate_bicubic_batch``
+(``tile_plan``) made on the host once per geometry (a ``rotate.plan`` span,
+counted in ``plans_made``). ``rotate_bicubic_batch``
 rotates each image of a batch of one shape in one launch with the one plan
 (``jax.vmap``'s one op over the batch).
 """
@@ -20,7 +21,7 @@ import torch
 
 from imageprocessingtools_tpu_torch.kernels import _build, core
 from imageprocessingtools_tpu_torch.ops import _exact
-from imageprocessingtools_tpu_torch.utils import graphs
+from imageprocessingtools_tpu_torch.utils import graphs, profiling
 
 TILE = 32  # the kernel's output tile side (csrc/rotate.cu)
 _MAX_GRID_Y = 65535 * TILE  # output rows per launch: grid.y tiles of TILE rows
@@ -102,9 +103,17 @@ def tile_plan(height: int, width: int, angle: float):
     return plan.to(torch.int32), box_w, box_h
 
 
+plans_made = 0  # host tile plans made (always on): one per geometry, again after eviction
+
+
 @functools.lru_cache(maxsize=32)
 def _host_plan(height: int, width: int, angle: float):
-    return tile_plan(height, width, angle)
+    """``tile_plan``, made once per geometry: each one made is counted
+    (``plans_made``) and recorded as a ``rotate.plan`` span."""
+    global plans_made
+    plans_made += 1
+    with profiling.span("rotate.plan"):
+        return tile_plan(height, width, angle)
 
 
 @graphs.device_table(maxsize=32)

@@ -65,10 +65,13 @@ def batch_apply(fn, images, mesh: tuple | None = None):
     N must divide into ``len(mesh)`` equal shards; shard k runs on
     ``mesh[k]``, and the result is the list of the shards' stacks, in order
     (``gather`` joins them). On a CUDA device every group of images is one
-    replay of a captured graph (``graphs.batched``), the images copied from
-    where they lie into the graph's input; a ``fn`` that cannot be captured
-    raises ``graphs.CaptureError``. The outputs are fresh tensors. The call
-    is one ``batch.apply`` span (``utils.profiling``).
+    replay of a captured graph (``graphs.batched``): a group on the card is
+    bound into the graph's kernels where it lies, and its output written in
+    place, where ``graphs.bindable`` allows; anything else, and every group
+    from the host, is copied into the graph's input and its outputs copied
+    out. A ``fn`` that cannot be captured raises ``graphs.CaptureError``. The
+    outputs are fresh tensors. The call is one ``batch.apply`` span
+    (``utils.profiling``).
     """
     with profiling.span("batch.apply"):
         batch = torch.as_tensor(images)

@@ -12,7 +12,8 @@ buffer's red channel (``ppmx-edward.c:896`` aliasing + the guard at
 
 ``run_pipeline_batch`` is ``jax.vmap(run_pipeline)``: the same order over a
 batch of one shape, each stage one op over the batch (K9, K1 and K8 launched
-once per stage for the whole batch on a card).
+once per stage for the whole batch on a card) and one ``pipeline.<stage>``
+span.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from imageprocessingtools_tpu_torch import ops
 from imageprocessingtools_tpu_torch.codec.ppm import FILETYPE_PBM, FILETYPE_PGM, FILETYPE_PPM
 from imageprocessingtools_tpu_torch.device import get_device
+from imageprocessingtools_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,20 +94,28 @@ def run_pipeline(img, config: PipelineConfig) -> tuple[torch.Tensor, int]:
 def run_pipeline_batch(imgs, config: PipelineConfig) -> tuple[torch.Tensor, int]:
     """``run_pipeline`` of each image of uint8[N, H, W, 3] (numpy or torch),
     in the same fixed order through the ops' batch forms; returns
-    (uint8[N, ...], file_type). Raises as ``run_pipeline`` does."""
+    (uint8[N, ...], file_type). Raises as ``run_pipeline`` does. Each stage
+    is a ``pipeline.<stage>`` span (``utils.profiling``): on a card it runs
+    when a graph of the task is captured, not when it is replayed."""
     if not config.any_op:
         raise ValueError("Error: no data to write\n")
     out = torch.as_tensor(imgs).to(get_device())
     if config.new_width is not None:
-        out = ops.resize_width_batch(out, int(config.new_width))
+        with span("pipeline.resize"):
+            out = ops.resize_width_batch(out, int(config.new_width))
     if config.angle is not None:
-        out = ops.rotate_batch(out, float(config.angle))
+        with span("pipeline.rotate"):
+            out = ops.rotate_batch(out, float(config.angle))
     if config.gray:
-        out = ops.grayscale(out)
+        with span("pipeline.gray"):
+            out = ops.grayscale(out)
     if config.mono:
-        out = ops.mono_dither(out)
+        with span("pipeline.mono"):
+            out = ops.mono_dither(out)
     if config.flip_v:
-        out = ops.flip_vertical_batch(out)
+        with span("pipeline.flip_v"):
+            out = ops.flip_vertical_batch(out)
     if config.flip_h:
-        out = ops.flip_horizontal_batch(out)
+        with span("pipeline.flip_h"):
+            out = ops.flip_horizontal_batch(out)
     return out, config.file_type

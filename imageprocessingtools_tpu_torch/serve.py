@@ -51,8 +51,11 @@ also gives what the run added to ``utils.graphs``' counters:
 ``upload_bytes`` (bytes copied from the host into graphs' inputs),
 ``inputs_bound`` and ``outputs_bound`` (replays that read their input and
 wrote their output where they lie on the card, which files read from the
-host never do) and ``copy_in_bytes`` (bytes copied card to card into
-graphs' inputs); all 0 on the CPU, where nothing is captured.
+host never do), ``copy_in_bytes`` (bytes copied card to card into
+graphs' inputs), all 0 on the CPU, where nothing is captured; and what
+it added to ``kernels/rotate.py``'s ``plans_made``, as ``rotate_plans_made``
+(K1's host tile plans made, one per rotation geometry, which the CPU's
+plain rotation also makes to check its rows).
 """
 
 from __future__ import annotations
@@ -67,10 +70,16 @@ from imageprocessingtools_tpu_torch import serving
 from imageprocessingtools_tpu_torch.cli import _CliError, _parse_args
 from imageprocessingtools_tpu_torch.codec import native
 from imageprocessingtools_tpu_torch.codec.ppm import PPMError
+from imageprocessingtools_tpu_torch.kernels import rotate
 from imageprocessingtools_tpu_torch.models import PRESETS
 from imageprocessingtools_tpu_torch.ops import _exact
 from imageprocessingtools_tpu_torch.parallel.batch import default_mesh
 from imageprocessingtools_tpu_torch.utils import graphs, log
+
+
+def _counts() -> dict:
+    """The always-on counters that ``serve_ok`` reports the run's share of."""
+    return {**graphs.counts(), "rotate_plans_made": rotate.plans_made}
 
 
 def _report_skipped(failures: dict) -> None:
@@ -215,7 +224,7 @@ def main(argv: list[str] | None = None) -> int:
         files = todo
 
     failures: dict = {}
-    counts = graphs.counts()
+    counts = _counts()
     t0 = time.perf_counter()
     try:
         mesh = default_mesh() if serve_opts["mesh"] or serve_opts["spatial"] else None
@@ -267,7 +276,7 @@ def main(argv: list[str] | None = None) -> int:
     _report_skipped(failures)
     log.emit("serve_ok", n_files=len(outs), skipped=n_skipped,
              failed=len(failures), wall_s=round(wall, 3),
-             **{name: n - counts[name] for name, n in graphs.counts().items()})
+             **{name: n - counts[name] for name, n in _counts().items()})
     existing = (
         f".<tag>{serve_opts['suffix']}" if isinstance(config, tuple)
         else serve_opts["suffix"]

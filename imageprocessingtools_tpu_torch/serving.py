@@ -196,7 +196,9 @@ def process_batch(images, config: PipelineConfig | str | tuple, mesh: tuple | No
     mesh is padded by repeating its last image, and the padding is sliced
     off every fan-out element's output. On a card each group of images is
     one graph replay (``parallel.batch_apply``); the outputs are fresh
-    tensors, copied out of the graph.
+    tensors. A group already on the card is read where it lies and its
+    output written there where ``utils.graphs.bindable`` allows; a group
+    from the host is copied into the graph and its outputs copied out.
     """
     one, file_type = _task_fn(config)
     if mesh is None:

@@ -72,8 +72,11 @@ notes, and the storages that torch ops took while it ran. From these,
 place of the graph's own: the input where only noted port kernels read it
 (no torch op, no memcpy node, no output inside it); the output where it is
 one tensor, its storage whole, that one noted argument holds from its first
-byte and no torch op takes (K3's batch, K9's H pass; not a tuple, a
-per-image list or print_ready's packed bits). On each replay ``bindable``
+byte and no torch op takes (K3's batch, K9's H pass, K8 after K1; not a
+tuple, a per-image list or print_ready's packed bits). Notes taken before
+the capture made the output's storage do not count: the graph's pool may
+give the output an earlier stage's freed buffer, which those launches
+wrote, and nothing reads it after them. On each replay ``bindable``
 (a pure function of the tensor's device, shape, strides and address, and
 the site) decides: an input on the graph's card, of its shape, contiguous,
 at an address that meets every noted alignment, is bound, and so is the
@@ -180,8 +183,10 @@ class _CNote(ctypes.Structure):
 
 class _Touches(TorchDispatchMode):
     """While a function is captured: the card storages that torch ops other
-    than views take, to read or to write. With the port kernels' notes, they
-    say what touches a graph's input and output."""
+    than views take, to read or to write, and for each storage an op made
+    (one that is none of its arguments': an allocation) how many port kernel
+    notes the capture held then (``noted()``). With the port kernels' notes,
+    they say what touches a graph's input and output."""
 
     @classmethod
     def _should_skip_dynamo(cls) -> bool:
@@ -189,22 +194,38 @@ class _Touches(TorchDispatchMode):
         # and the first capture imports torch._dynamo (9 s on the card's host).
         return False
 
-    def __init__(self):
+    def __init__(self, noted=lambda: 0):
         super().__init__()
         self._seen = {}  # a storage's weak reference -> its (address, bytes)
+        self._made = {}  # a storage's weak reference -> (its address, notes before it)
+        self._noted = noted
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        result = func(*args, **kwargs)
         if not getattr(func, "is_view", False):
+            taken = set()
             for t in pytree.tree_leaves((args, kwargs)):
                 if isinstance(t, torch.Tensor) and t.is_cuda:
-                    self._seen.setdefault(StorageWeakRef(t.untyped_storage()), _storage(t))
-        return func(*args, **kwargs)
+                    ref = StorageWeakRef(t.untyped_storage())
+                    taken.add(ref)
+                    self._seen.setdefault(ref, _storage(t))
+            for t in pytree.tree_leaves(result):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    ref = StorageWeakRef(t.untyped_storage())
+                    if ref not in taken and ref not in self._made:
+                        self._made[ref] = (_storage(t)[0], self._noted())
+        return result
 
     def ranges(self) -> tuple:
         """(address, bytes) of each storage taken that is still alive: the
         bytes of one freed since may hold a later buffer that no op took."""
         return tuple(r for ref, r in self._seen.items() if not ref.expired())
+
+    def made(self) -> dict:
+        """address -> the notes taken before the storage there was made, for
+        each storage made that is still alive."""
+        return dict(r for ref, r in self._made.items() if not ref.expired())
 
 
 def _storage(t: torch.Tensor) -> tuple:
@@ -220,8 +241,9 @@ class Captured:
     each counted wrapper that one replay makes, ``pool_bytes`` what the
     allocator reserved for it during the capture, ``holds`` the tables made
     outside the capture that it reads, ``notes`` the pointer arguments of
-    the port kernels it launches and ``touched`` the storages that torch ops
-    in it take (``_Touches``)."""
+    the port kernels it launches, ``touched`` the storages that torch ops
+    in it take and ``made`` the notes taken before each storage it made
+    (``_Touches``)."""
 
     graph: torch.cuda.CUDAGraph
     out: object
@@ -230,6 +252,7 @@ class Captured:
     holds: list = dataclasses.field(default_factory=list)
     notes: tuple = ()
     touched: tuple = ()
+    made: dict = dataclasses.field(default_factory=dict)
 
     def replay(self) -> None:
         """Run the graph once on the current stream."""
@@ -313,9 +336,10 @@ def capture(fn, *args) -> Captured:
                     graph.capture_begin()
                     try:
                         lib.ipt_capture_id(stream.cuda_stream, ctypes.byref(capture_id))
-                        with _Touches() as touches:
+                        with _Touches(functools.partial(_note_count, lib, capture_id.value)) \
+                                as touches:
                             out = fn(*args)
-                        touched = touches.ranges()
+                        touched, made = touches.ranges(), touches.made()
                     except BaseException:
                         _abandon(graph)
                         raise
@@ -335,15 +359,21 @@ def capture(fn, *args) -> Captured:
             pool_bytes = torch.cuda.memory_reserved(device) - reserved
     finally:
         _holds = outer
-    return Captured(graph, out, launches, pool_bytes, holds, notes, touched)
+    return Captured(graph, out, launches, pool_bytes, holds, notes, touched, made)
+
+
+def _note_count(lib, capture_id: int) -> int:
+    """How many notes capture ``capture_id`` holds so far."""
+    count = ctypes.c_int()
+    lib.ipt_capture_note_count(capture_id, ctypes.byref(count))
+    return count.value
 
 
 def _take_notes(lib, capture_id: int) -> tuple:
     """The notes of capture ``capture_id``, taken out of the library's."""
-    count = ctypes.c_int()
-    lib.ipt_capture_note_count(capture_id, ctypes.byref(count))
-    buf = (_CNote * count.value)()
-    lib.ipt_capture_notes_take(capture_id, buf, count.value)
+    count = _note_count(lib, capture_id)
+    buf = (_CNote * count)()
+    lib.ipt_capture_notes_take(capture_id, buf, count)
     return tuple(Note(n.node, n.nargs, n.index, n.ptr, n.align) for n in buf)
 
 
@@ -448,15 +478,19 @@ def input_site(static: Buffer, notes, touched, outs) -> Site | None:
                       for n in refs))
 
 
-def output_site(out: Buffer | None, notes, touched, static_in: Buffer) -> Site | None:
+def output_site(out: Buffer | None, notes, touched, static_in: Buffer,
+                first: int = 0) -> Site | None:
     """A graph's output ``out`` as a ``Site``, or None where a caller's buffer
     cannot take its place: ``out`` is None (a tuple, a list, or a view of
     part of a storage), or it is not the one recorded kernel argument's
     buffer from its first byte on, a torch op takes it, or it lies in the
-    input (a pure function)."""
+    input (a pure function). The ``first`` notes were taken before the
+    capture made ``out``'s storage: they point into bytes freed before it
+    (an earlier stage's buffer, which the graph's pool gave to the output)
+    and hold nothing of it."""
     if out is None or not _dense(out.shape, out.strides):
         return None
-    refs = _held_by(notes, out)
+    refs = _held_by(notes[first:], out)
     if (len(refs) != 1 or refs[0].ptr != out.ptr or refs[0].node == 0
             or _overlaps((*touched, (static_in.ptr, static_in.nbytes)), out.ptr, out.nbytes)):
         return None
@@ -637,7 +671,9 @@ def _capture_entry(fn, x: torch.Tensor, key: tuple, cache, name: str) -> _Entry:
         outs = [_storage(t) for t in pytree.tree_leaves(captured.out)
                 if isinstance(t, torch.Tensor)]
         inputs = input_site(own, captured.notes, captured.touched, outs)
-        outputs = output_site(_whole(captured.out), captured.notes, captured.touched, own)
+        whole = _whole(captured.out)
+        outputs = output_site(whole, captured.notes, captured.touched, own,
+                              captured.made.get(whole.ptr, 0) if whole is not None else 0)
         binder = None
         if inputs is not None or outputs is not None:
             binder = _Binder(captured.graph, inputs, outputs, own.ptr,

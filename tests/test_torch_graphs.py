@@ -232,6 +232,38 @@ def test_bindable_output(case, notes, touched, out, bound):
     assert graphs.bindable(into, site) is bound
 
 
+def test_notes_before_the_output_was_made_are_not_its():
+    """An earlier stage's buffer that the graph's pool gave to the output
+    later: the notes taken before the output's storage was made point into
+    freed bytes, so the output still binds; a note after it does not."""
+    stale = (graphs.Note(0x9, 3, 1, _OUT.ptr, 16), graphs.Note(0x9, 3, 0, _OUT.ptr + 64, 1))
+    notes = stale + _NOTES
+    into = graphs.Buffer(_CARD, _OUT.shape, _OUT.strides, 0xA0000, 128)
+    assert graphs.output_site(_OUT, notes, _TOUCHED, _IN) is None
+    site = graphs.output_site(_OUT, notes, _TOUCHED, _IN, first=len(stale))
+    assert graphs.bindable(into, site) is True
+    assert [(b.node, b.index) for b in site.bindings] == [(0xB, 1)]
+    later = notes + (graphs.Note(0xC, 2, 0, _OUT.ptr + 64, 1),)  # a later kernel reads it
+    assert graphs.output_site(_OUT, later, _TOUCHED, _IN, first=len(stale)) is None
+
+
+def test_touches_counts_the_notes_before_each_storage_it_made(monkeypatch):
+    """``_Touches.made``: for each live storage that an op made (not one of
+    its arguments': an in-place op makes none), the notes counted then."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    count = iter(range(10, 100))
+    x = torch.zeros(6, dtype=torch.uint8)
+    with graphs._Touches(lambda: next(count)) as touches:
+        y = torch.empty(4, dtype=torch.uint8)
+        z = x + 1
+        z.add_(1)
+        y.copy_(z[:4])
+        tmp = z * 2
+        del tmp
+    made = touches.made()
+    assert made == {graphs._storage(y)[0]: 10, graphs._storage(z)[0]: 11}
+
+
 def test_an_output_in_the_input_binds_neither():
     """An output that is a view of the input: the input cannot be read from
     the caller's buffer (the static output would not be written), and the

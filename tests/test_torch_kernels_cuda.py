@@ -1264,6 +1264,44 @@ def _per_image(single, batch):
     return torch.stack([single(batch[i]) for i in range(batch.shape[0])])
 
 
+def test_a_three_stage_reference_task_is_bound_and_plans_k1_once(cuda, monkeypatch):
+    """``-w<N> -r30 -gray`` (K9's two passes, K1 and K8 in one graph) on
+    groups on the card: every replay binds its group's input and output,
+    the ``pipeline.<stage>`` spans run only in each capture's warm-up and
+    capture, and K1's plan for the one geometry is made once."""
+    from imageprocessingtools_tpu_torch import serving
+    from imageprocessingtools_tpu_torch.kernels import rotate
+    from imageprocessingtools_tpu_torch.pipeline import PipelineConfig, run_pipeline
+    from imageprocessingtools_tpu_torch.utils import graphs, profiling
+
+    # a geometry no other test plans; 207 x 240 answers, so that every
+    # group's rows start on the 16 bytes that K8 was chosen by
+    config = PipelineConfig(new_width=208, angle=30, gray=True)
+    fn, _ = serving._task_fn(config)
+    batch = _image((5, 270, 470, 3), seed=101).to(cuda)
+    monkeypatch.setattr(graphs, "GROUP_INPUT_BYTES", 2 * batch[0].nbytes)  # groups of 2, 2, 1
+    run = graphs.batched(fn)
+    before, plans = graphs.counts(), rotate.plans_made
+    with profiling.recording() as rec:
+        first = run(batch, cuda)
+    assert _delta(before)["graphs_captured"] == 2 and rotate.plans_made == plans + 1
+    names = collections.Counter(s.name for s in rec.spans)
+    assert names["rotate.plan"] == 1
+    for stage in ("pipeline.resize", "pipeline.rotate", "pipeline.gray"):
+        assert names[stage] == 4  # two graphs, each warmed up and captured
+    before = graphs.counts()
+    with profiling.recording() as rec:
+        again = run(batch, cuda)
+    assert _delta(before) == {"graphs_captured": 0, "graphs_evicted": 0, "graph_replays": 3,
+                              "upload_bytes": 0, "inputs_bound": 3, "outputs_bound": 3,
+                              "copy_in_bytes": 0}
+    assert rotate.plans_made == plans + 1
+    assert collections.Counter(s.name for s in rec.spans) == {
+        "graphs.group": 3, "graphs.bind": 3, "graphs.replay": 3}
+    want = _per_image(lambda img: run_pipeline(img, config)[0], batch)
+    assert torch.equal(first, want) and torch.equal(again, want)
+
+
 def _misaligned(x):
     """A copy of ``x`` one byte past a 16-byte boundary."""
     buf = torch.empty(x.nbytes + 1, dtype=torch.uint8, device=x.device)

@@ -205,3 +205,44 @@ def test_batch_apply_records_its_stages():
     assert by["graphs.group"].parent == by["batch.apply"].seq
     assert by["graphs.copy_out"].parent == by["graphs.group"].seq
     assert len({s.id for s in rec.spans}) == 1
+
+
+@pytest.mark.parametrize("recorded", [False, True])
+def test_pipeline_stages_and_k1_plans_are_spans_only_inside_a_recording(monkeypatch, recorded):
+    """``run_pipeline_batch``'s stages are ``pipeline.<stage>`` spans, and a
+    K1 plan made for a new geometry (here by the plain rotation's row check
+    and by a direct call) a ``rotate.plan`` span, counted once in
+    ``rotate.plans_made``: the cached plan again adds nothing. Without a
+    recording no span reads the clock and the count is the same."""
+    from imageprocessingtools_tpu_torch.kernels import rotate
+    from imageprocessingtools_tpu_torch.pipeline import PipelineConfig, run_pipeline_batch
+
+    images = np.arange(2 * 12 * 16 * 3, dtype=np.uint8).reshape(2, 12, 16, 3)
+    angle = 33.25 + recorded  # angles no other test plans
+    config = PipelineConfig(new_width=10, angle=angle, gray=True, flip_h=True)
+    before = rotate.plans_made
+
+    def run():
+        for _ in range(2):
+            out, _ = run_pipeline_batch(images, config)
+            rotate._device_plan(47, 61, angle, torch.device("cpu"))
+        return out
+
+    if recorded:
+        with recording() as rec:
+            out = run()
+        by = [(s.name, s.parent) for s in rec.spans]
+        stages = [(s.name, s.seq) for s in rec.spans if s.name.startswith("pipeline.")]
+        assert [name for name, _ in stages] == 2 * ["pipeline.resize", "pipeline.rotate",
+                                                    "pipeline.gray", "pipeline.flip_h"]
+        # the first pipeline's rotation plans its geometry, then the direct call
+        assert [b for b in by if b[0] == "rotate.plan"] == [("rotate.plan", stages[1][1]),
+                                                            ("rotate.plan", None)]
+    else:
+        def no_clock():
+            raise AssertionError("a span read the clock")
+
+        monkeypatch.setattr(profiling.time, "perf_counter_ns", no_clock)
+        out = run()
+    assert out.shape == (2, 11, 12)  # 12 x 16 -> 7 x 10 -> 11 x 12
+    assert rotate.plans_made == before + 2

@@ -401,6 +401,20 @@ def test_serve_ok_line_carries_the_binding_counters(tmp_path, capsys, monkeypatc
         ("inputs_bound", "outputs_bound", "copy_in_bytes"), 0)
 
 
+def test_serve_ok_line_carries_k1_s_plans_made(tmp_path, capsys, monkeypatch):
+    """``serve_ok`` gives what the run added to ``kernels/rotate.py``'s
+    ``plans_made`` as ``rotate_plans_made``: one host tile plan for the one
+    rotation geometry of three files of one shape (the CPU's plain rotation
+    makes it to check its rows)."""
+    monkeypatch.setenv("IPT_STRUCTURED_LOG", "1")
+    paths = _write_inputs(tmp_path, [(19, 43)] * 3)  # a geometry no other test plans
+    assert serve.main(["-r37", *paths]) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().err.splitlines()
+             if line.startswith("{")]
+    (ok,) = [line for line in lines if line["event"] == "serve_ok"]
+    assert ok["n_files"] == 3 and ok["rotate_plans_made"] == 1
+
+
 @pytest.mark.parametrize("config,shape", [
     ("thumbnail", (59, 256, 3)),
     ("edge_detect", (7, 30)),
