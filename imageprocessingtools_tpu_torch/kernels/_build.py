@@ -131,9 +131,14 @@ _SIGNATURES = {
     "ipt_capture_note_count": [ctypes.c_ulonglong, ctypes.POINTER(_I)],
     # capture id, notes (out), at most this many
     "ipt_capture_notes_take": [ctypes.c_ulonglong, _P, _I],
-    # instantiated graph, entries, then per entry: node, its kernel's arguments, the
-    # argument's index, the address it takes
-    "ipt_graph_bind": [_P, _I, _P, _P, _P, _P],
+    # a kept dispatch of an instantiated graph (out, last): the graph, bindings, then per
+    # binding: node, its kernel's arguments, the argument's index, its buffer (0 the input,
+    # 1 the output), its byte offset there; the graph's own input and output
+    "ipt_dispatch_new": [_P, _I, _P, _P, _P, _P, _P, ctypes.c_ulonglong, ctypes.c_ulonglong,
+                         ctypes.POINTER(_P)],
+    "ipt_dispatch_free": [_P],
+    # dispatch, stream, input, output, the graph's event, steps (wait 1, launch 2, record 4)
+    "ipt_graph_dispatch": [_P, _P, ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _I],
 }
 
 

@@ -19,6 +19,7 @@ has no size limit.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -54,6 +55,13 @@ def on_device(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
+@functools.lru_cache(maxsize=64)
+def _batched(fn) -> graphs.Batched:
+    """The one ``graphs.batched(fn)`` that ``batch_apply`` keeps for ``fn``,
+    with its plans for repeat calls."""
+    return graphs.batched(fn)
+
+
 def batch_apply(fn, images, mesh: tuple | None = None):
     """Apply a single-image op or pipeline to a batch.
 
@@ -70,14 +78,16 @@ def batch_apply(fn, images, mesh: tuple | None = None):
     place, where ``graphs.bindable`` allows; anything else, and every group
     from the host, is copied into the graph's input and its outputs copied
     out. A ``fn`` that cannot be captured raises ``graphs.CaptureError``. The
-    outputs are fresh tensors. The call is one ``batch.apply`` span
-    (``utils.profiling``).
+    outputs are fresh tensors. One ``graphs.batched(fn)`` is kept for each
+    ``fn``, so that a repeat call of a batch on the card takes the plan its
+    first call left (``graphs.Batched``). The call is one ``batch.apply``
+    span (``utils.profiling``).
     """
     with profiling.span("batch.apply"):
-        batch = torch.as_tensor(images)
+        batch = images if isinstance(images, torch.Tensor) else torch.as_tensor(images)
         if batch.shape[0] == 0:
             raise ValueError("batch_apply: empty batch")
-        run = graphs.batched(fn)
+        run = _batched(fn)
         if mesh is None:
             return run(batch, _indexed(get_device()))
         mesh = default_mesh(mesh)

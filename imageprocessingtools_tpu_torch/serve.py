@@ -55,7 +55,10 @@ host never do), ``copy_in_bytes`` (bytes copied card to card into
 graphs' inputs), all 0 on the CPU, where nothing is captured; and what
 it added to ``kernels/rotate.py``'s ``plans_made``, as ``rotate_plans_made``
 (K1's host tile plans made, one per rotation geometry, which the CPU's
-plain rotation also makes to check its rows).
+plain rotation also makes to check its rows), and to ``utils/graphs.py``'s
+``dispatch_plans_made`` and ``dispatch_plan_hits`` (plans that batches on
+the card left, and calls that took one: 0 for files, which come from the
+host).
 """
 
 from __future__ import annotations
@@ -79,7 +82,9 @@ from imageprocessingtools_tpu_torch.utils import graphs, log
 
 def _counts() -> dict:
     """The always-on counters that ``serve_ok`` reports the run's share of."""
-    return {**graphs.counts(), "rotate_plans_made": rotate.plans_made}
+    return {**graphs.counts(), "rotate_plans_made": rotate.plans_made,
+            "dispatch_plans_made": graphs.dispatch_plans_made,
+            "dispatch_plan_hits": graphs.dispatch_plan_hits}
 
 
 def _report_skipped(failures: dict) -> None:

@@ -42,6 +42,13 @@ which one replay runs on the card with no host work between its launches.
   group's images taken as inputs are taken (below), into fresh outputs made
   before the first replay: a group whose output can be bound is written
   into its rows of them, else its outputs are copied out of the graph.
+  A batch on a card whose output is one tensor leaves a plan for its
+  ``plan_key`` (the device, and the batch's device, shape, dtype and
+  strides): its groups, their graphs (held weakly), the output's shape and
+  dtype. A later call with that key takes the plan while it holds (no graph
+  was dropped since, and the groups would hold as many images): one fresh
+  output, then each group bound where its and its rows' addresses allow,
+  in one native call, else taken as above.
   A group is ``over_group(fn, group)``: where ``fn``
   has a batch form (below), that form on the whole group, whose kernels
   launch once per group (``jax.vmap``'s batching rule: one kernel over the
@@ -58,10 +65,11 @@ which one replay runs on the card with no host work between its launches.
   that has no batch form, a list of per-image outputs). A function that has
   a batch form never runs per image in ``batched``: if its capture fails,
   it raises as any capture does.
-- ``replayed(cache, key, fn, x, name)``: the one path of all three forms
+- ``replayed(cache, key, fn, x, name)``: the path of all three forms
   (``graphed``, ``batched`` and the band pipelines of
   ``parallel/spatial.py``): the graph kept for ``key``, captured on a miss,
-  ``x`` taken in, one replay, its static output inside the block.
+  ``x`` taken in, one replay, its static output inside the block. Every
+  replay, a plan's too, goes through ``_run``.
 
 How inputs are taken. Every port kernel is launched through
 ``csrc/launch.cuh``, which under capture notes each pointer argument with
@@ -80,9 +88,14 @@ wrote, and nothing reads it after them. On each replay ``bindable``
 (a pure function of the tensor's device, shape, strides and address, and
 the site) decides: an input on the graph's card, of its shape, contiguous,
 at an address that meets every noted alignment, is bound, and so is the
-output rows of a call whose input is on the card (``_Binder``: one
-``cudaGraphExecKernelNodeSetParams`` a noted node, where the addresses
-differ from what the graph holds; launches already enqueued keep theirs).
+output rows of a call whose input is on the card. A replay is
+``_Dispatch``'s native call, ``ipt_graph_dispatch``: it waits for the
+graph's last call where another stream made it, sets a noted node's
+arguments (``cudaGraphExecKernelNodeSetParams``, from the parameters taken
+once from the node) where the addresses differ from what the graph holds
+(launches already enqueued keep theirs), launches the instantiated graph
+and records the graph's event. A graph that draws random numbers cannot be
+captured: such a launch would draw the same ones again.
 Anything else, and every host input, is copied into the graph's input (a
 fallback points the kernels back at the graph's own buffers first), and its
 outputs copied out. There is no switch: what the code observes decides.
@@ -104,11 +117,15 @@ Counters (``counts()``; always on): graphs captured, graphs the byte bound
 dropped, replays, bytes copied from the host into a graph's input
 (``upload_bytes``), replays whose input and whose output were bound
 (``inputs_bound``, ``outputs_bound``), and bytes copied card to card into a
-graph's input (``copy_in_bytes``, the fallback). Spans
+graph's input (``copy_in_bytes``, the fallback); apart from these,
+``dispatch_plans_made`` and ``dispatch_plan_hits`` (the plans of batches on
+a card, and the calls that took one). Spans
 (``utils.profiling.span``, recorded only inside a recording), on
 ``replayed``'s one path: ``graphs.capture``, ``graphs.evict`` (the bound's
 drops, each waiting for its graph's last call, and the emptied cache),
-``graphs.bind`` (a call that binds its input or output), ``graphs.upload``
+``graphs.bind`` (a call that binds its input or output: inside a
+recording the bind is a native call of its own, outside one it is part of
+the launch's), ``graphs.upload``
 (the copy of a host input into the graph's) or ``graphs.copy_in`` (of an
 unbound input on a card), ``graphs.replay``; in ``batched``,
 ``graphs.group`` around each group and ``graphs.copy_out`` around the copy
@@ -186,7 +203,9 @@ class _Touches(TorchDispatchMode):
     than views take, to read or to write, and for each storage an op made
     (one that is none of its arguments': an allocation) how many port kernel
     notes the capture held then (``noted()``). With the port kernels' notes,
-    they say what touches a graph's input and output."""
+    they say what touches a graph's input and output. ``seeded``: the first
+    op that drew random numbers (a replay launched by ``ipt_graph_dispatch``
+    would draw the same ones again)."""
 
     @classmethod
     def _should_skip_dynamo(cls) -> bool:
@@ -199,10 +218,13 @@ class _Touches(TorchDispatchMode):
         self._seen = {}  # a storage's weak reference -> its (address, bytes)
         self._made = {}  # a storage's weak reference -> (its address, notes before it)
         self._noted = noted
+        self.seeded = None  # the first op that drew random numbers, if any
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         result = func(*args, **kwargs)
+        if self.seeded is None and torch.Tag.nondeterministic_seeded in func.tags:
+            self.seeded = func
         if not getattr(func, "is_view", False):
             taken = set()
             for t in pytree.tree_leaves((args, kwargs)):
@@ -339,6 +361,9 @@ def capture(fn, *args) -> Captured:
                         with _Touches(functools.partial(_note_count, lib, capture_id.value)) \
                                 as touches:
                             out = fn(*args)
+                        if touches.seeded is not None:
+                            raise RuntimeError(f"{touches.seeded} draws random numbers, which "
+                                               "every replay would draw again")
                         touched, made = touches.ranges(), touches.made()
                     except BaseException:
                         _abandon(graph)
@@ -499,50 +524,68 @@ def output_site(out: Buffer | None, notes, touched, static_in: Buffer,
                 (Binding(n.node, n.nargs, n.index, 0, n.align),))
 
 
+def placeable(x: Buffer, site: Site | None) -> bool:
+    """Whether ``x`` may take the place of a graph's buffer at ``site`` (None:
+    nowhere) wherever it lies: on the graph's card, of its shape, and
+    contiguous (a pure function of the buffer's device, shape and strides)."""
+    return (site is not None and x.device == site.device and x.shape == site.shape
+            and _dense(x.shape, x.strides))
+
+
+def aligned(ptr: int, site: Site | None) -> bool:
+    """Whether a buffer at ``ptr`` meets every alignment that a launch
+    holding ``site`` was chosen by (a pure function; None: nothing to meet)."""
+    return site is None or all((ptr + b.offset) % b.align == 0 for b in site.bindings)
+
+
 def bindable(x: Buffer, site: Site | None) -> bool:
     """Whether ``x`` may take the place of a graph's buffer at ``site`` (None:
-    nowhere) for one replay: on the graph's card, of its shape, contiguous,
-    and at an address that meets every alignment that a launch holding it was
-    chosen by (a pure function)."""
-    return (site is not None and x.device == site.device and x.shape == site.shape
-            and _dense(x.shape, x.strides)
-            and all((x.ptr + b.offset) % b.align == 0 for b in site.bindings))
+    nowhere) for one replay: ``placeable``, and at an address that meets
+    every alignment that a launch holding it was chosen by (a pure
+    function)."""
+    return placeable(x, site) and aligned(x.ptr, site)
 
 
-class _Binder:
-    """The kernel arguments of one instantiated graph that hold its input or
-    output, grouped by node, and the addresses the graph holds there now."""
+# ``ipt_graph_dispatch``'s steps
+_WAIT, _LAUNCH, _RECORD = 1, 2, 4
+
+
+class _Dispatch:
+    """One instantiated graph's native dispatch (``ipt_graph_dispatch`` in
+    ``csrc/lut_apply.cu``): the kernel arguments that hold its input or
+    output, grouped by node, each node's parameters taken once. A call, one
+    call into the library, waits for the graph's last call where asked,
+    points those arguments at the input and output given where they differ
+    from what the graph holds (launches already enqueued keep theirs),
+    launches the graph and records its event, as ``steps`` say. ``own``:
+    the graph's own input and output addresses, which a call that binds
+    neither passes, so that the graph's kernels read and write its own
+    buffers again."""
 
     def __init__(self, graph: torch.cuda.CUDAGraph, inputs: Site | None, outputs: Site | None,
                  own_in: int, own_out: int):
-        order = sorted([(False, b) for b in (inputs.bindings if inputs else ())]
-                       + [(True, b) for b in (outputs.bindings if outputs else ())],
+        order = sorted([(0, b) for b in (inputs.bindings if inputs else ())]
+                       + [(1, b) for b in (outputs.bindings if outputs else ())],
                        key=lambda rb: rb[1].node)
-        n = self.n = len(order)
-        self.exec = graph.raw_cuda_graph_exec()
-        self.nodes = (ctypes.c_ulonglong * n)(*(b.node for _, b in order))
-        self.nargs = (ctypes.c_int * n)(*(b.nargs for _, b in order))
-        self.index = (ctypes.c_int * n)(*(b.index for _, b in order))
-        self.roles = [(is_out, b.offset) for is_out, b in order]
+        n = self.bindings = len(order)
+        build = _library()
+        lib = build.library()
+        handle = ctypes.c_void_p()
+        build.check(lib.ipt_dispatch_new(
+            graph.raw_cuda_graph_exec(), n, (ctypes.c_ulonglong * n)(*(b.node for _, b in order)),
+            (ctypes.c_int * n)(*(b.nargs for _, b in order)),
+            (ctypes.c_int * n)(*(b.index for _, b in order)),
+            (ctypes.c_int * n)(*(role for role, _ in order)),
+            (ctypes.c_ulonglong * n)(*(b.offset for _, b in order)), own_in, own_out,
+            ctypes.byref(handle)), "ipt_dispatch_new")
         self.own = (own_in, own_out)
-        self.now = self._at(None, None)
+        self._handle, self._call, self._check = handle.value, lib.ipt_graph_dispatch, build.check
+        weakref.finalize(self, lib.ipt_dispatch_free, handle.value)
 
-    def _at(self, src: int | None, dst: int | None) -> list:
-        src = self.own[0] if src is None else src
-        dst = self.own[1] if dst is None else dst
-        return [(dst if is_out else src) + offset for is_out, offset in self.roles]
-
-    def point(self, src: int | None, dst: int | None) -> None:
-        """Point the graph's input arguments at ``src`` and its output's at
-        ``dst`` (None: the graph's own buffer) where they differ from what
-        the graph holds; launches already enqueued keep what they had."""
-        want = self._at(src, dst)
-        if want != self.now:
-            build = _library()
-            build.check(build.library().ipt_graph_bind(
-                self.exec, self.n, self.nodes, self.nargs, self.index,
-                (ctypes.c_ulonglong * self.n)(*want)), "ipt_graph_bind")
-            self.now = want
+    def __call__(self, stream: int, src: int, dst: int, event: int, steps: int) -> None:
+        status = self._call(self._handle, stream, src, dst, event, steps)
+        if status:
+            self._check(status, "ipt_graph_dispatch")
 
 
 @dataclasses.dataclass(eq=False)
@@ -554,7 +597,8 @@ class _Entry:
     there; ``name``: its function's; ``seconds``: its capture's, the warm-up
     included; ``inputs`` and ``outputs``: where a caller's buffer may take
     the place of its input and output (``input_site``, ``output_site``),
-    which ``binder`` points its kernels at."""
+    which ``dispatch`` points its kernels at; ``event``: ``done``'s CUDA
+    event, and ``stream``: the stream that recorded it last (raw handles)."""
 
     static_in: torch.Tensor
     captured: Captured
@@ -565,7 +609,9 @@ class _Entry:
     done: torch.cuda.Event = dataclasses.field(default_factory=torch.cuda.Event)
     inputs: Site | None = None
     outputs: Site | None = None
-    binder: _Binder | None = None
+    dispatch: _Dispatch | None = None
+    event: int = 0
+    stream: int | None = None
 
     @property
     def nbytes(self) -> int:
@@ -582,6 +628,8 @@ upload_bytes = 0  # bytes copied from the host into graphs' inputs
 inputs_bound = 0  # replays that read the caller's input where it lay
 outputs_bound = 0  # replays that wrote the caller's output where it lies
 copy_in_bytes = 0  # bytes copied card to card into graphs' inputs
+dispatch_plans_made = 0  # plans ``Batched`` made for a batch on the card (``plan_key``)
+dispatch_plan_hits = 0  # ``Batched`` calls that took a kept plan
 
 
 def counts() -> dict:
@@ -632,6 +680,12 @@ def _keep(entry: _Entry) -> None:
         torch.cuda.empty_cache()  # the dropped graphs' pools go back to the card
 
 
+def _touch(entry) -> None:
+    """Move a kept graph to the LRU's end."""
+    if id(entry) in _held:
+        _held.move_to_end(id(entry))
+
+
 def _find(cache, key, make) -> _Entry:
     """The graph kept in ``cache`` (a weakly referenceable dict) for
     ``key``, made by ``make()`` and counted against the bound on a miss,
@@ -640,8 +694,8 @@ def _find(cache, key, make) -> _Entry:
     if entry is None:
         entry = cache[key] = make()
         _keep(entry)
-    elif id(entry) in _held:
-        _held.move_to_end(id(entry))
+    else:
+        _touch(entry)
     return entry
 
 
@@ -659,9 +713,15 @@ def _whole(out) -> Buffer | None:
     return Buffer.of(out)
 
 
+def _stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream (0: its default one)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def _capture_entry(fn, x: torch.Tensor, key: tuple, cache, name: str) -> _Entry:
     """A graph of ``fn`` on a copy of ``x`` made on ``x``'s device, with the
-    sites where a caller's buffers may take the place of its own."""
+    sites where a caller's buffers may take the place of its own and its
+    native dispatch."""
     with profiling.span("graphs.capture"):
         t0 = time.perf_counter()
         static_in = torch.empty_like(x, device=torch.cuda.current_device())
@@ -674,58 +734,86 @@ def _capture_entry(fn, x: torch.Tensor, key: tuple, cache, name: str) -> _Entry:
         whole = _whole(captured.out)
         outputs = output_site(whole, captured.notes, captured.touched, own,
                               captured.made.get(whole.ptr, 0) if whole is not None else 0)
-        binder = None
-        if inputs is not None or outputs is not None:
-            binder = _Binder(captured.graph, inputs, outputs, own.ptr,
+        dispatch = _Dispatch(captured.graph, inputs, outputs, own.ptr,
                              captured.out.data_ptr() if outputs is not None else 0)
-        return _Entry(static_in, captured, key, weakref.ref(cache), name,
-                      time.perf_counter() - t0, inputs=inputs, outputs=outputs, binder=binder)
+        entry = _Entry(static_in, captured, key, weakref.ref(cache), name,
+                       time.perf_counter() - t0, inputs=inputs, outputs=outputs,
+                       dispatch=dispatch)
+        entry.done.record()  # makes the event that the library waits for and records
+        entry.event, entry.stream = entry.done.cuda_event, _stream(static_in.device)
+        return entry
 
 
-def _replay(entry: _Entry, x: torch.Tensor, into: torch.Tensor | None):
-    """One replay (after the graph's last call) on ``x``: bound into the
-    graph's kernels where it is on the card and ``bindable``, else copied
-    into the graph's input; with ``into`` (a tensor shaped as the graph's
-    output), the output written there where ``x`` is on the card and
-    ``into`` is ``bindable``. Returns the static output, valid until the
-    entry's next call, and whether the output went to ``into`` instead."""
+def _run(entry: _Entry, x: torch.Tensor, src: int | None, dst: int | None, stream: int):
+    """One replay of ``entry`` on ``stream`` (the raw handle of the current
+    stream on the graph's card), after the graph's last call: its input read
+    at ``src`` where it lies in ``x`` (None: ``x`` copied into the graph's),
+    its output written at ``dst`` (None: into the graph's own, which the
+    caller reads before it records ``done``). Outside a recording of spans
+    a bound replay is one call into the library."""
     global replays_made, upload_bytes, copy_in_bytes, inputs_bound, outputs_bound
-    stream = torch.cuda.current_stream()
-    stream.wait_event(entry.done)
-    binder, bind_in, bind_out = entry.binder, False, False
-    if binder is not None and x.is_cuda:
-        bind_in = bindable(Buffer.of(x), entry.inputs)
-        bind_out = into is not None and bindable(Buffer.of(into), entry.outputs)
-    if bind_in or bind_out:
-        with profiling.span("graphs.bind"):
-            binder.point(x.data_ptr() if bind_in else None, into.data_ptr() if bind_out else None)
-    elif binder is not None:
-        binder.point(None, None)  # back to the graph's own buffers, if a call moved them
-    if bind_in:
-        inputs_bound += 1
-        if stream.stream_id != 0:  # the replay may read x after its caller frees it
-            x.record_stream(stream)
-    else:
+    dispatch, event = entry.dispatch, entry.event
+    own_in, own_out = dispatch.own
+    at_in, at_out = own_in if src is None else src, own_out if dst is None else dst
+    steps = _LAUNCH | (_WAIT if stream != entry.stream else 0) | (_RECORD if dst is not None else 0)
+    bound = src is not None or dst is not None
+    bind = profiling.span("graphs.bind") if bound else profiling.NO_SPAN
+    if src is None:
+        with bind:  # the copy in waits for the graph's last call
+            dispatch(stream, at_in, at_out, event, steps & _WAIT)
+        steps &= ~_WAIT
         if x.is_cuda:
             copy_in_bytes += x.nbytes
         else:
             upload_bytes += x.nbytes
         with profiling.span("graphs.copy_in" if x.is_cuda else "graphs.upload"):
             entry.static_in.copy_(x)
-    outputs_bound += bind_out
+    else:
+        inputs_bound += 1
+        if stream:  # the replay may read x after its caller frees it
+            x.record_stream(torch.cuda.current_stream(x.device))
+        if bind is not profiling.NO_SPAN:
+            with bind:
+                dispatch(stream, at_in, at_out, event, 0)
+    outputs_bound += dst is not None
     replays_made += 1
     with profiling.span("graphs.replay"):
-        entry.captured.replay()
-    return entry.captured.out, bind_out
+        dispatch(stream, at_in, at_out, event, steps)
+    for wrapper, n in entry.captured.launches.items():
+        wrapper.launches += n
+    if dst is not None:
+        entry.stream = stream
+
+
+def _replay(entry: _Entry, x: torch.Tensor, into: torch.Tensor | None, stream: int):
+    """One replay (after the graph's last call) on ``x``: bound into the
+    graph's kernels where it is on the card and ``bindable``, else copied
+    into the graph's input; with ``into`` (a tensor shaped as the graph's
+    output), the output written there where ``x`` is on the card and
+    ``into`` is ``bindable``. Returns the static output, valid until the
+    entry's next call, and whether the output went to ``into`` instead."""
+    src = dst = None
+    if entry.dispatch.bindings and x.is_cuda:
+        if bindable(Buffer.of(x), entry.inputs):
+            src = x.data_ptr()
+        if into is not None and bindable(Buffer.of(into), entry.outputs):
+            dst = into.data_ptr()
+    _run(entry, x, src, dst, stream)
+    return entry.captured.out, dst is not None
 
 
 @contextlib.contextmanager
 def _replaying(entry: _Entry, x: torch.Tensor, into: torch.Tensor | None = None):
-    """``_replay`` inside the block; calls on other streams wait for its end."""
+    """``_replay`` inside the block; calls on other streams wait for its end
+    (a bound output's replay records ``done`` itself)."""
+    stream, wrote = _stream(entry.static_in.device), False
     try:
-        yield _replay(entry, x, into)
+        out, wrote = _replay(entry, x, into, stream)
+        yield out, wrote
     finally:
-        entry.done.record()
+        if not wrote:
+            entry.done.record()
+            entry.stream = stream
 
 
 @contextlib.contextmanager
@@ -874,12 +962,58 @@ def _put(group, out, row: int) -> None:
 _batch_graphs: collections.OrderedDict = collections.OrderedDict()
 
 
+def plan_key(batch: torch.Tensor, device) -> tuple:
+    """What a ``Batched`` plan is kept for: the device the batch runs on (as
+    the caller names it) and the batch's own device, shape, dtype and
+    strides (a pure function of the tensor's metadata)."""
+    return (device, *graph_key(batch))
+
+
+class _PlanGroup(NamedTuple):
+    """One group of a plan: its first image and images, its graph (a weak
+    reference), the bytes from the batch's start to the group's and from
+    the output's start to its rows, and whether the group and its rows are
+    ``placeable`` in the graph (then only their addresses decide a bind)."""
+
+    start: int
+    count: int
+    entry: weakref.ref
+    in_offset: int
+    out_offset: int
+    placed: bool
+
+
+class _Plan(NamedTuple):
+    """What a repeat call of ``Batched`` with a kept ``plan_key`` takes from
+    the first: the device it runs on, the output's shape and dtype (a fresh
+    tensor a call), the images of a group as ``group_size`` gave them for
+    ``image_bytes``, the groups, and ``evictions_made`` when it was made."""
+
+    device: torch.device
+    shape: tuple
+    dtype: torch.dtype
+    image_bytes: int
+    group: int
+    groups: tuple
+    evictions: int
+
+    def entries(self) -> list | None:
+        """The groups' graphs, or None where the plan no longer holds: a graph
+        was dropped (the byte bound dropped some since the plan was made, or
+        one is gone), or a group would now hold another number of images."""
+        if self.evictions != evictions_made or group_size(self.image_bytes) != self.group:
+            return None
+        entries = [g.entry() for g in self.groups]
+        return None if None in entries else entries
+
+
 class Batched:
     """``fn`` over a leading dimension (see the module's docstring)."""
 
     def __init__(self, fn):
         self.fn = fn
         self.__name__ = f"batched({_name(fn)})"
+        self._plans = {}  # plan_key -> _Plan
 
         def body(x):
             return over_group(fn, x)
@@ -889,16 +1023,17 @@ class Batched:
 
     def _group(self, part: torch.Tensor, device: torch.device, out, n: int, start: int):
         """One group's outputs into rows ``start`` on of ``out`` (made for
-        ``n`` images at the first group, ``_empty_for``), which it returns.
-        On a CUDA device one replay of the group's graph: a bound output
-        written where it lies, else the graph's static outputs copied out; on
-        a CPU device the group body run eagerly, its outputs copied."""
+        ``n`` images at the first group, ``_empty_for``): ``out`` and the
+        group's graph (None on a CPU device). On a CUDA device one replay of
+        the group's graph: a bound output written where it lies, else the
+        graph's static outputs copied out; on a CPU device the group body
+        run eagerly, its outputs copied."""
         if device.type != "cuda":
             outs = self._body(part.to(device))
             out = _empty_for(outs, n) if out is None else out
             with profiling.span("graphs.copy_out"):
                 _put(outs, out, start)
-            return out
+            return out, None
         key = (self.fn, device, tuple(part.shape[1:]), part.dtype, part.shape[0])
         entry = _find(_batch_graphs, key,
                       lambda: _capture_entry(self._body, part, key, _batch_graphs, self.__name__))
@@ -908,6 +1043,43 @@ class Batched:
             if not wrote:
                 with profiling.span("graphs.copy_out"):
                     _put(outs, out, start)
+        return out, entry
+
+    def _plan(self, batch: torch.Tensor, device: torch.device, out: torch.Tensor, group: int,
+              entries: list) -> _Plan:
+        """The plan of a call that ran ``batch`` into ``out`` on ``entries``."""
+        rows = out.stride(0) * out.element_size()
+        groups = []
+        for (start, count), entry in zip(spans(batch.shape[0], group), entries):
+            part = Buffer(batch.device, (count, *batch.shape[1:]), batch.stride(), 0, 0)
+            into = Buffer(out.device, (count, *out.shape[1:]), out.stride(), 0, 0)
+            groups.append(_PlanGroup(
+                start, count, weakref.ref(entry), start * batch.stride(0) * batch.element_size(),
+                start * rows, placeable(part, entry.inputs) and placeable(into, entry.outputs)))
+        return _Plan(device, tuple(out.shape), out.dtype, batch[0].nbytes, group, tuple(groups),
+                     evictions_made)
+
+    def _planned(self, plan: _Plan, entries: list, batch: torch.Tensor) -> torch.Tensor:
+        """A call with a kept plan: one fresh output, then each group bound
+        where its and its rows' addresses allow (``_run``), else as
+        ``_group`` takes it."""
+        global dispatch_plan_hits
+        dispatch_plan_hits += 1
+        device = plan.device
+        out = torch.empty(plan.shape, dtype=plan.dtype, device=device)
+        stream, src, dst = _stream(device), batch.data_ptr(), out.data_ptr()
+        current = torch.cuda.current_device() == device.index
+        with contextlib.nullcontext() if current else torch.cuda.device(device):
+            for g, entry in zip(plan.groups, entries):
+                with profiling.span("graphs.group"):
+                    _touch(entry)
+                    at_in, at_out = src + g.in_offset, dst + g.out_offset
+                    if g.placed and aligned(at_in, entry.inputs) and aligned(at_out,
+                                                                             entry.outputs):
+                        _run(entry, batch, at_in, at_out, stream)
+                    else:
+                        self._group(batch[g.start:g.start + g.count], device, out,
+                                    plan.shape[0], g.start)
         return out
 
     def __call__(self, images, device):
@@ -920,17 +1092,36 @@ class Batched:
         its rows of them, else its outputs are copied out of the graph
         before its graph's next replay (a batch form's stacks in one copy
         each, per-image outputs stacked); serving downloads these
-        (``serving._to_host``)."""
+        (``serving._to_host``). A batch on the card whose output is one
+        tensor, for a ``device`` that names its card, leaves a plan for its
+        ``plan_key``, which a later call with that key takes while it holds
+        (``_Plan.entries``): no resolution of the device, the groups or their
+        graphs, and each group bound in one call into the library."""
+        global dispatch_plans_made
+        named = isinstance(device, torch.device) and device.index is not None
+        if named and isinstance(images, torch.Tensor):
+            key = plan_key(images, device)
+            plan = self._plans.get(key)
+            if plan is not None:
+                entries = plan.entries()
+                if entries is not None:
+                    return self._planned(plan, entries, images)
+                del self._plans[key]
         batch = torch.as_tensor(images)
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        n, out = batch.shape[0], None
+        n, out, entries = batch.shape[0], None, []
         group = group_size(batch[0].numel() * batch.element_size())
         with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
             for start, count in spans(n, group):
                 with profiling.span("graphs.group"):
-                    out = self._group(batch[start:start + count], device, out, n, start)
+                    out, entry = self._group(batch[start:start + count], device, out, n, start)
+                    entries.append(entry)
+        if named and device.type == "cuda" and batch.is_cuda and isinstance(out, torch.Tensor):
+            dispatch_plans_made += 1
+            self._plans = {k: p for k, p in self._plans.items() if p.entries() is not None}
+            self._plans[plan_key(batch, device)] = self._plan(batch, device, out, group, entries)
         return out
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ast
 import collections
+import types
 import weakref
 from pathlib import Path
 
@@ -26,7 +27,7 @@ import torch
 from imageprocessingtools_tpu.kernels import fused as jax_fused
 from imageprocessingtools_tpu_torch import kernels
 from imageprocessingtools_tpu_torch.kernels import core, fused
-from imageprocessingtools_tpu_torch.utils import graphs
+from imageprocessingtools_tpu_torch.utils import graphs, profiling
 
 JAX_KERNELS_INIT = Path(__file__).resolve().parent.parent / "imageprocessingtools_tpu" / \
     "kernels" / "__init__.py"
@@ -290,6 +291,131 @@ def test_touches_names_what_torch_ops_take_and_not_views(monkeypatch):
     assert touches.ranges() == (graphs._storage(x),)
     assert graphs._dense((2, 3, 4), (12, 4, 1)) and graphs._dense((1, 3, 4), (99, 4, 1))
     assert not graphs._dense((2, 3, 4), (24, 4, 1)) and not graphs._dense((3, 4), (1, 3))
+
+
+# ---------------------------------------------------------------------------
+# Kept dispatch plans (graphs.plan_key, _Plan) and the native dispatch's
+# steps (graphs._run): pure host logic; the plans' calls run on the card
+# (tests/test_torch_kernels_cuda.py).
+# ---------------------------------------------------------------------------
+
+def test_plan_key_is_the_batchs_metadata_and_the_device():
+    batch = torch.zeros((4, 6, 8, 3), dtype=torch.uint8)
+    key = graphs.plan_key(batch, _CARD)
+    assert key == (_CARD, torch.device("cpu"), (4, 6, 8, 3), torch.uint8, (144, 24, 3, 1))
+    assert graphs.plan_key(batch.clone(), _CARD) == key  # other bytes, the same plan
+    misses = {
+        "another shape": graphs.plan_key(batch[:3], _CARD),
+        "another dtype": graphs.plan_key(batch.to(torch.int16), _CARD),
+        "other strides": graphs.plan_key(torch.zeros((4, 6, 9, 3), dtype=torch.uint8)[:, :, :8],
+                                         _CARD),
+        "another card": graphs.plan_key(batch, torch.device("cuda", 1)),
+        "the batch elsewhere": graphs.plan_key(batch.to("meta"), _CARD),
+    }
+    assert all(k != key for k in misses.values()), misses
+
+
+def test_a_plan_holds_while_its_graphs_do(monkeypatch):
+    """``_Plan.entries``: the groups' graphs while none was dropped and the
+    groups hold as many images as when the plan was made; None after the
+    byte bound drops any graph, once a graph is gone, or once a group would
+    hold another number of images."""
+    class Entry:
+        pass
+
+    monkeypatch.setattr(graphs, "GROUP_INPUT_BYTES", 2 * 48)  # 3 images: groups of 2 and 1
+    entries = [Entry(), Entry()]
+    groups = tuple(graphs._PlanGroup(start, count, weakref.ref(e), 48 * start, 16 * start, True)
+                   for (start, count), e in zip(graphs.spans(3, 2), entries))
+    plan = graphs._Plan(_CARD, (3, 4, 4), torch.uint8, 48, 2, groups, graphs.evictions_made)
+    assert plan.entries() == entries
+    monkeypatch.setattr(graphs, "evictions_made", graphs.evictions_made + 1)
+    assert plan.entries() is None
+    monkeypatch.setattr(graphs, "evictions_made", plan.evictions)
+    monkeypatch.setattr(graphs, "GROUP_INPUT_BYTES", 3 * 48)
+    assert plan.entries() is None
+    monkeypatch.setattr(graphs, "GROUP_INPUT_BYTES", 2 * 48)
+    assert plan.entries() == entries
+    entries.pop()
+    assert plan.entries() is None
+
+
+def test_a_batch_off_the_card_leaves_no_plan():
+    """Plans are for batches on a card: a CPU run makes none and takes none."""
+    run = graphs.batched(lambda x: 255 - x)
+    before = (graphs.dispatch_plans_made, graphs.dispatch_plan_hits)
+    batch = torch.from_numpy(_image((3, 4, 5, 3), 0))
+    for device in (torch.device("cpu"), torch.device("cpu", 0)):
+        for _ in range(2):
+            assert torch.equal(run(batch, device), 255 - batch)
+    assert run._plans == {} and (graphs.dispatch_plans_made, graphs.dispatch_plan_hits) == before
+
+
+class _Dispatched:
+    """A stand-in for ``_Dispatch``: the steps of each call."""
+
+    bindings = 2
+    own = (0x1000, 0x2000)
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, stream, src, dst, event, steps):
+        assert event == 0xE
+        self.calls.append((src, dst, steps))
+
+
+def _entry(stream):
+    return types.SimpleNamespace(dispatch=_Dispatched(), event=0xE, stream=stream,
+                                 static_in=torch.zeros(4, dtype=torch.uint8),
+                                 captured=types.SimpleNamespace(launches={}))
+
+
+@pytest.mark.parametrize("src,dst,last,recorded,calls", [
+    (0x9000, 0xA000, 0, None, [(0x9000, 0xA000, "launch record")]),
+    (0x9000, 0xA000, 3, None, [(0x9000, 0xA000, "wait launch record")]),
+    (None, None, 3, None, [(0x1000, 0x2000, "wait"), (0x1000, 0x2000, "launch")]),
+    (None, 0xA000, 0, None, [(0x1000, 0xA000, ""), (0x1000, 0xA000, "launch record")]),
+    (0x9000, 0xA000, 0, {"graphs.bind": 1, "graphs.replay": 1},
+     [(0x9000, 0xA000, ""), (0x9000, 0xA000, "launch record")]),
+    (0x9000, None, 3, {"graphs.bind": 1, "graphs.replay": 1},
+     [(0x9000, 0x2000, ""), (0x9000, 0x2000, "wait launch")]),
+    (None, None, 3, {"graphs.upload": 1, "graphs.replay": 1},
+     [(0x1000, 0x2000, "wait"), (0x1000, 0x2000, "launch")]),
+    (None, 0xA000, 0, {"graphs.bind": 1, "graphs.upload": 1, "graphs.replay": 1},
+     [(0x1000, 0xA000, ""), (0x1000, 0xA000, "launch record")]),
+], ids=["bound", "bound, after another stream", "copied", "copied in, bound out",
+        "bound, recorded", "bound in, recorded", "copied, recorded",
+        "copied in, bound out, recorded"])
+def test_a_replays_native_calls_and_spans(monkeypatch, src, dst, last, recorded, calls):
+    """``_run`` on the default stream (0): outside a recording of spans, a
+    bound replay is one native call (the bind, the launch, the event; the
+    wait where another stream recorded the graph's event last), and a copied
+    input's wait comes before its copy; inside one, the spans are those of
+    the parent's path: the bind apart in ``graphs.bind`` where anything is
+    bound, the copy in ``graphs.upload`` (a host input), the launch in
+    ``graphs.replay``. The library records the event where the output is
+    bound; else the caller does, after it reads the graph's."""
+    for name in ("replays_made", "upload_bytes", "copy_in_bytes", "inputs_bound",
+                 "outputs_bound"):
+        monkeypatch.setattr(graphs, name, 0)
+    entry, x = _entry(last), torch.arange(4, dtype=torch.uint8)
+    if recorded is None:
+        graphs._run(entry, x, src, dst, 0)
+        spans = None
+    else:
+        with profiling.recording() as rec:
+            graphs._run(entry, x, src, dst, 0)
+        spans = dict(collections.Counter(s.name for s in rec.spans))
+    assert spans == recorded
+    steps = {"wait": graphs._WAIT, "launch": graphs._LAUNCH, "record": graphs._RECORD}
+    assert entry.dispatch.calls == [(s, d, sum(steps[w] for w in words.split()))
+                                    for s, d, words in calls]
+    assert (graphs.replays_made, graphs.inputs_bound, graphs.outputs_bound) == (
+        1, src is not None, dst is not None)
+    assert graphs.upload_bytes == (4 if src is None else 0)
+    assert torch.equal(entry.static_in, x if src is None else torch.zeros(4, dtype=torch.uint8))
+    assert entry.stream == (0 if dst is not None else last)
 
 
 def test_every_kernel_launch_is_noted():

@@ -1434,6 +1434,154 @@ def test_graphed_flagship_binds_a_fresh_output(cuda):
 
 
 # ---------------------------------------------------------------------------
+# Kept dispatch plans (utils/graphs.py::Batched, _Plan): a repeat call of a
+# batch on the card takes its first call's plan, one native dispatch a group.
+# ---------------------------------------------------------------------------
+
+def _plan_counts() -> dict:
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    return {**graphs.counts(), "dispatch_plans_made": graphs.dispatch_plans_made,
+            "dispatch_plan_hits": graphs.dispatch_plan_hits}
+
+
+def _plan_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _plan_counts().items()}
+
+
+def _resident_tasks():
+    """name -> (a call on a group on the card as the benchmark makes it, the
+    per-image form); shapes no other test takes."""
+    from imageprocessingtools_tpu_torch import cli, serving
+    from imageprocessingtools_tpu_torch.models import presets
+    from imageprocessingtools_tpu_torch.parallel import batch
+    from imageprocessingtools_tpu_torch.pipeline import run_pipeline
+
+    config = cli._parse_args(["-w1920", "-r30", "-gray", "frame.ppm"])[0]
+    return {
+        "flagship": (batch.batched_fused_pipeline, fused.fused_pipeline_mega, (3, 200, 352, 3)),
+        "thumbnail": (lambda g: serving.process_batch(g, "thumbnail")[0],
+                      presets.PRESETS["thumbnail"], (3, 208, 352, 3)),
+        "-w1920 -r30 -gray": (lambda g: serving.process_batch(g, config)[0],
+                              lambda img: run_pipeline(img, config)[0], (2, 216, 384, 3)),
+    }
+
+
+@pytest.mark.parametrize("task", ["flagship", "thumbnail", "-w1920 -r30 -gray"])
+def test_resident_calls_take_a_kept_plan(cuda, monkeypatch, task):
+    """30 calls over three distinct groups on the card, as the benchmark's
+    resident cells make them: the first call leaves a plan, every later one
+    takes it, every replay binds its input and output, and every output
+    kept to the end is byte-equal to the per-image form (no later call
+    rewrites an earlier one's)."""
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    call, single, shape = _resident_tasks()[task]
+    monkeypatch.setattr(graphs, "GROUP_INPUT_BYTES", 2 * int(np.prod(shape[1:])))  # 2 + 1
+    groups = [_image(shape, seed=140 + k).to(cuda) for k in range(3)]
+    before = _plan_counts()
+    outs = [call(groups[k % 3]) for k in range(30)]
+    delta = _plan_delta(before)
+    replays = 30 * len(graphs.spans(shape[0], graphs.group_size(int(np.prod(shape[1:])))))
+    assert delta["dispatch_plans_made"] == 1 and delta["dispatch_plan_hits"] == 29
+    assert delta["graph_replays"] == replays
+    assert delta["inputs_bound"] == replays and delta["outputs_bound"] == replays
+    assert delta["copy_in_bytes"] == 0 and delta["upload_bytes"] == 0
+    assert len({o.data_ptr() for o in outs}) == 30  # a fresh output a call
+    wants = [_per_image(single, g) for g in groups]
+    for k, out in enumerate(outs):
+        assert torch.equal(out, wants[k % 3]), k
+
+
+def test_a_plan_binds_then_copies_then_binds(cuda):
+    """One plan: an aligned batch is bound, a view one byte off the
+    alignment K2 was captured with takes the fallback (copied in), and the
+    next aligned batch is bound again; every output byte-equal."""
+    from imageprocessingtools_tpu_torch.parallel import batch
+
+    xs = [_image((2, 136, 256, 3), seed=s).to(cuda) for s in (151, 152, 153)]
+    batch.batched_fused_pipeline(xs[0])  # the capture, the plan
+    before = _plan_counts()
+    for x, bound in zip([xs[0], _misaligned(xs[1]), xs[2]], (True, False, True)):
+        step = _plan_counts()
+        out = batch.batched_fused_pipeline(x)
+        delta = _plan_delta(step)
+        assert delta["dispatch_plan_hits"] == 1 and delta["inputs_bound"] == bound
+        assert delta["outputs_bound"] == 1 and delta["copy_in_bytes"] == (0 if bound else x.nbytes)
+        assert torch.equal(out, _per_image(fused.fused_pipeline_mega, x))
+    delta = _plan_delta(before)
+    assert delta["dispatch_plans_made"] == 0 and delta["graphs_captured"] == 0
+
+
+def test_a_plan_is_dropped_when_its_graph_is(cuda, monkeypatch):
+    """Under a byte bound that holds one graph, a call of another shape
+    drops the first shape's graph: the first shape's plan is dropped with it
+    (its graph is freed, never replayed), and its next call captures again
+    and leaves a new plan."""
+    import gc
+    import weakref
+
+    from imageprocessingtools_tpu_torch.parallel import batch
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    monkeypatch.setattr(graphs, "_held", collections.OrderedDict())  # other tests' graphs aside
+    monkeypatch.setattr(graphs, "GRAPH_BYTES_BOUND", 1)
+    x, y = _image((2, 152, 256, 3), seed=161).to(cuda), _image((2, 160, 256, 3), seed=162).to(cuda)
+    batch.batched_fused_pipeline(x)
+    (first,) = [e for e in graphs._live() if tuple(e.static_in.shape) == tuple(x.shape)]
+    first = weakref.ref(first)
+    batch.batched_fused_pipeline(x)
+    before = _plan_counts()
+    batch.batched_fused_pipeline(y)  # drops x's graph
+    gc.collect()
+    assert first() is None
+    out = batch.batched_fused_pipeline(x)
+    delta = _plan_delta(before)
+    assert delta["graphs_captured"] == 2 and delta["graphs_evicted"] == 2
+    assert delta["dispatch_plans_made"] == 2 and delta["dispatch_plan_hits"] == 0
+    assert torch.equal(out, _per_image(fused.fused_pipeline_mega, x))
+    again = batch.batched_fused_pipeline(x)
+    assert _plan_delta(before)["dispatch_plan_hits"] == 1 and torch.equal(again, out)
+
+
+def test_a_plan_on_a_second_stream_waits_for_the_graphs_last_call(cuda):
+    """Calls that take a plan on a side stream, then on the default one:
+    each waits for the graph's last call on the other stream (``done``); an
+    input made on the default stream and dropped by its caller at once is
+    read before the default stream's next allocations reuse its bytes;
+    every output byte-equal."""
+    from imageprocessingtools_tpu_torch.parallel import batch
+
+    x = _image((2, 144, 256, 3), seed=171).to(cuda)
+    want = _per_image(fused.fused_pipeline_mega, x)
+    batch.batched_fused_pipeline(x)  # the capture and the plan, on the default stream
+    ys = [x.clone() for _ in range(3)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = _plan_counts()
+    outs = []
+    with torch.cuda.stream(side):
+        while ys:
+            outs.append(batch.batched_fused_pipeline(ys.pop()))
+    noise = [torch.full_like(x, 7) for _ in range(3)]  # may take the dropped inputs' bytes
+    main = [batch.batched_fused_pipeline(x) for _ in range(2)]
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert _plan_delta(before)["dispatch_plan_hits"] == 5 and len(noise) == 3
+    assert all(torch.equal(o, want) for o in outs + main)
+
+
+def test_a_capture_that_draws_random_numbers_is_refused(cuda):
+    """A replay launched by the library would draw a captured op's random
+    numbers again: such a function cannot be captured."""
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    g = graphs.graphed(lambda x: x + torch.randint_like(x, 2))
+    with pytest.raises(graphs.CaptureError, match="random numbers"):
+        g(_image((8, 8, 3), seed=0).to(cuda))
+
+
+# ---------------------------------------------------------------------------
 # Batched graphs (utils/graphs.py::batched): serving's and the batch module's
 # jax.jit(jax.vmap(fn)), one replay per group of images.
 # ---------------------------------------------------------------------------

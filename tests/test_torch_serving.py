@@ -373,8 +373,9 @@ def test_process_files_spans_carry_each_chunk_id_across_threads(tmp_path):
 
 
 def test_serve_ok_line_carries_the_graph_counters(tmp_path, capsys, monkeypatch):
-    """``serve_ok`` gives what the run added to the graph counters: 0 each on
-    the CPU, where no graph is captured."""
+    """``serve_ok`` gives what the run added to the graph counters, and to
+    the dispatch plans made and taken: 0 each on the CPU, where no graph is
+    captured and no batch lies on a card."""
     monkeypatch.setenv("IPT_STRUCTURED_LOG", "1")
     paths = _write_inputs(tmp_path, [(8, 16)] * 3)
     assert serve.main(["--preset", "thumbnail", *paths]) == 0
@@ -382,9 +383,9 @@ def test_serve_ok_line_carries_the_graph_counters(tmp_path, capsys, monkeypatch)
              if line.startswith("{")]
     (ok,) = [line for line in lines if line["event"] == "serve_ok"]
     assert ok["n_files"] == 3
-    assert {k: ok[k] for k in ("graphs_captured", "graphs_evicted", "graph_replays",
-                               "upload_bytes")} == dict.fromkeys(
-        ("graphs_captured", "graphs_evicted", "graph_replays", "upload_bytes"), 0)
+    names = ("graphs_captured", "graphs_evicted", "graph_replays", "upload_bytes",
+             "dispatch_plans_made", "dispatch_plan_hits")
+    assert {k: ok[k] for k in names} == dict.fromkeys(names, 0)
 
 
 def test_serve_ok_line_carries_the_binding_counters(tmp_path, capsys, monkeypatch):
