@@ -13,11 +13,10 @@
 // one global atomicAdd per non-empty bin per block into an output the wrapper
 // zeroed) at 11.8 us on 4K noise was that flush: 262,144 global atomics onto
 // 256 addresses, 6.8 us of it (NVIDIA H100 80GB HBM3 at 700 W; the cuts and
-// every variant that was timed are in PERF.md, their source in
-// csrc/variants/histogram_variants.cu). The bank conflicts of its shared
-// atomics cost about 0.4 us, and threads adding to one bin are merged by the
-// hardware, so noise and a gradient, not the constant image (3.4 us), were
-// its slow cases. This design:
+// every variant that was timed are in PERF.md). The bank conflicts of its
+// shared atomics cost about 0.4 us, and threads adding to one bin are merged
+// by the hardware, so noise and a gradient, not the constant image (3.4 us),
+// were its slow cases. This design:
 //
 // - One resident block of 1024 threads per SM walks its share of the buffer,
 //   each thread counting one 16-byte load while its next is in flight, so the

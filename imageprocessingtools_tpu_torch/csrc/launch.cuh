@@ -9,7 +9,8 @@
 // where it chose nothing by it). utils/graphs.py takes a capture's notes
 // (ipt_capture_notes_take) to find the nodes that read a graph's input or
 // write its output, and later points those arguments at a caller's buffers
-// (ipt_graph_bind) instead of copying through the graph's own.
+// (ipt_graph_dispatch, csrc/graph_runtime.cu) instead of copying through the
+// graph's own.
 //
 // A launch that is not captured costs one cudaStreamGetCaptureInfo more. A
 // captured launch whose node cannot be told is noted with node 0, which

@@ -7,7 +7,9 @@ sharded over a device mesh. Here it is ``utils.graphs.batched``: on a CUDA
 device, replays of CUDA graphs over groups of images, each graph holding
 its group's batch form where the function has one (each kernel launched
 once over the group, as ``jax.vmap`` makes one kernel over the batch), else
-its per-image launches; on a CPU device the same group body, eagerly. A mesh is
+its per-image launches, every call running the plan kept for its batch's
+device, shape, dtype and strides; on a CPU device the same group body,
+eagerly. A mesh is
 a tuple of devices (``default_mesh``); ``batch_apply`` gives each device an
 equal shard of the batch, runs it there on graphs of that device's own (no
 graph spans two cards), and returns the shards' outputs, which the caller
@@ -58,7 +60,7 @@ def on_device(device: torch.device):
 @functools.lru_cache(maxsize=64)
 def _batched(fn) -> graphs.Batched:
     """The one ``graphs.batched(fn)`` that ``batch_apply`` keeps for ``fn``,
-    with its plans for repeat calls."""
+    with its plans."""
     return graphs.batched(fn)
 
 
@@ -75,13 +77,14 @@ def batch_apply(fn, images, mesh: tuple | None = None):
     (``gather`` joins them). On a CUDA device every group of images is one
     replay of a captured graph (``graphs.batched``): a group on the card is
     bound into the graph's kernels where it lies, and its output written in
-    place, where ``graphs.bindable`` allows; anything else, and every group
-    from the host, is copied into the graph's input and its outputs copied
-    out. A ``fn`` that cannot be captured raises ``graphs.CaptureError``. The
+    place, where its plan places them and their addresses are aligned
+    (``graphs.bindable``'s two halves); anything else, and every group from
+    the host, is copied into the graph's input and its outputs copied out.
+    A ``fn`` that cannot be captured raises ``graphs.CaptureError``. The
     outputs are fresh tensors. One ``graphs.batched(fn)`` is kept for each
-    ``fn``, so that a repeat call of a batch on the card takes the plan its
-    first call left (``graphs.Batched``). The call is one ``batch.apply``
-    span (``utils.profiling``).
+    ``fn``, so that a repeat call runs the plan its first call made
+    (``graphs.Batched``). The call is one ``batch.apply`` span
+    (``utils.profiling``).
     """
     with profiling.span("batch.apply"):
         batch = images if isinstance(images, torch.Tensor) else torch.as_tensor(images)

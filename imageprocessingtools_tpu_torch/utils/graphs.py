@@ -37,18 +37,14 @@ which one replay runs on the card with no host work between its launches.
   ``parallel/batch.py:53-92``). N images of one shape run in groups of G
   (``group_size``: as many as ``GROUP_INPUT_BYTES`` of input hold, at most
   ``GROUP_IMAGES``; ``spans``): on a CUDA device, one graph per (fn,
-  device, image shape, dtype, images in the group); the batch is ⌊N/G⌋
-  replays of the G-image graph and one replay of the remainder's, each
-  group's images taken as inputs are taken (below), into fresh outputs made
-  before the first replay: a group whose output can be bound is written
-  into its rows of them, else its outputs are copied out of the graph.
-  A batch on a card whose output is one tensor leaves a plan for its
+  device, image shape, dtype, images in the group), and one plan per
   ``plan_key`` (the device, and the batch's device, shape, dtype and
-  strides): its groups, their graphs (held weakly), the output's shape and
-  dtype. A later call with that key takes the plan while it holds (no graph
-  was dropped since, and the groups would hold as many images): one fresh
-  output, then each group bound where its and its rows' addresses allow,
-  in one native call, else taken as above.
+  strides) that every call with the key runs while it holds (``_Plan``),
+  made by finding or capturing the groups' graphs: fresh outputs, then one
+  replay of each group's graph (⌊N/G⌋ of the G-image graph, one of the
+  remainder's), each group and its rows of the output bound where the plan
+  places them and their addresses are aligned (below), else copied in and
+  out.
   A group is ``over_group(fn, group)``: where ``fn``
   has a batch form (below), that form on the whole group, whose kernels
   launch once per group (``jax.vmap``'s batching rule: one kernel over the
@@ -65,11 +61,10 @@ which one replay runs on the card with no host work between its launches.
   that has no batch form, a list of per-image outputs). A function that has
   a batch form never runs per image in ``batched``: if its capture fails,
   it raises as any capture does.
-- ``replayed(cache, key, fn, x, name)``: the path of all three forms
-  (``graphed``, ``batched`` and the band pipelines of
-  ``parallel/spatial.py``): the graph kept for ``key``, captured on a miss,
-  ``x`` taken in, one replay, its static output inside the block. Every
-  replay, a plan's too, goes through ``_run``.
+- ``replayed(cache, key, fn, x, name)``: the band pipelines' path
+  (``parallel/spatial.py``): the graph kept for ``key``, captured on a
+  miss, ``x`` taken in, one replay, its static output inside the block.
+  Every replay (``graphed``'s, a plan's, ``replayed``'s) is one ``_replay``.
 
 How inputs are taken. Every port kernel is launched through
 ``csrc/launch.cuh``, which under capture notes each pointer argument with
@@ -83,31 +78,31 @@ one tensor, its storage whole, that one noted argument holds from its first
 byte and no torch op takes (K3's batch, K9's H pass, K8 after K1; not a
 tuple, a per-image list or print_ready's packed bits). Notes taken before
 the capture made the output's storage do not count: the graph's pool may
-give the output an earlier stage's freed buffer, which those launches
-wrote, and nothing reads it after them. On each replay ``bindable``
-(a pure function of the tensor's device, shape, strides and address, and
-the site) decides: an input on the graph's card, of its shape, contiguous,
-at an address that meets every noted alignment, is bound, and so is the
-output rows of a call whose input is on the card. A replay is
-``_Dispatch``'s native call, ``ipt_graph_dispatch``: it waits for the
-graph's last call where another stream made it, sets a noted node's
-arguments (``cudaGraphExecKernelNodeSetParams``, from the parameters taken
-once from the node) where the addresses differ from what the graph holds
-(launches already enqueued keep theirs), launches the instantiated graph
-and records the graph's event. A graph that draws random numbers cannot be
-captured: such a launch would draw the same ones again.
-Anything else, and every host input, is copied into the graph's input (a
-fallback points the kernels back at the graph's own buffers first), and its
-outputs copied out. There is no switch: what the code observes decides.
+give the output an earlier stage's freed buffer, which those launches wrote,
+and nothing reads it after them. ``bindable`` decides: a buffer
+``placeable`` at the site (on the graph's card, of its shape, contiguous; a
+plan decides it once) and ``aligned`` (at an address that meets every noted
+alignment; every call) is bound: an input, and the output of a call whose
+input is on the card. A replay is ``_Dispatch``'s native call,
+``ipt_graph_dispatch``: it waits for the graph's last call where another
+stream made it, sets a noted node's arguments
+(``cudaGraphExecKernelNodeSetParams``, from the parameters taken once from
+the node) where the addresses differ from what the graph holds (launches
+already enqueued keep theirs), launches the instantiated graph and records
+the graph's event. A graph that draws random numbers cannot be captured:
+such a launch would draw the same ones again. Anything else, and every host
+input, is copied into the graph's input (a fallback points the kernels back
+at the graph's own buffers first), and its outputs copied out. There is no
+switch: what the code observes decides.
 
 Memory: each graph holds a pool of its own. Every graph that ``graphed``,
 ``batched`` and the band pipelines keep is in one LRU (``held``) with its
-bytes (its static input
-and what the allocator reserved during its capture). After each capture the
-least recently used graphs are dropped until those kept hold at most
-``GRAPH_BYTES_BOUND`` bytes (a single graph above the bound stays alone),
-and the allocator's cache is emptied so that their pools go back to the
-card. The LRU is for one thread: serving replays from its main thread only.
+bytes (its static input and what the allocator reserved during its capture).
+After each capture the least recently used graphs are dropped until those
+kept hold at most ``GRAPH_BYTES_BOUND`` bytes (a single graph above the
+bound stays alone), and the allocator's cache is emptied so that their pools
+go back to the card. The LRU is for one thread: serving replays from its
+main thread only.
 
 Launch counts (each wrapper's ``.launches``): the warm-up's launches count,
 as they run. A capture launches nothing, so the counts it added are taken
@@ -119,17 +114,15 @@ dropped, replays, bytes copied from the host into a graph's input
 (``inputs_bound``, ``outputs_bound``), and bytes copied card to card into a
 graph's input (``copy_in_bytes``, the fallback); apart from these,
 ``dispatch_plans_made`` and ``dispatch_plan_hits`` (the plans of batches on
-a card, and the calls that took one). Spans
-(``utils.profiling.span``, recorded only inside a recording), on
-``replayed``'s one path: ``graphs.capture``, ``graphs.evict`` (the bound's
-drops, each waiting for its graph's last call, and the emptied cache),
-``graphs.bind`` (a call that binds its input or output: inside a
-recording the bind is a native call of its own, outside one it is part of
-the launch's), ``graphs.upload``
-(the copy of a host input into the graph's) or ``graphs.copy_in`` (of an
-unbound input on a card), ``graphs.replay``; in ``batched``,
-``graphs.group`` around each group and ``graphs.copy_out`` around the copy
-of outputs that were not bound out of the graph.
+a card, and the calls that took one). Spans (``utils.profiling.span``,
+recorded only inside a recording; they change no native call):
+``graphs.capture``, ``graphs.evict`` (the bound's drops, each waiting for
+its graph's last call, and the emptied cache), ``graphs.upload`` (the copy
+of a host input into the graph's) or ``graphs.copy_in`` (of an unbound
+input on a card), ``graphs.replay`` (the launch, and a bound replay's
+bind); in ``batched``, ``graphs.group`` around each group and
+``graphs.copy_out`` around the copy of outputs that were not bound out of
+the graph.
 """
 
 from __future__ import annotations
@@ -552,7 +545,7 @@ _WAIT, _LAUNCH, _RECORD = 1, 2, 4
 
 class _Dispatch:
     """One instantiated graph's native dispatch (``ipt_graph_dispatch`` in
-    ``csrc/lut_apply.cu``): the kernel arguments that hold its input or
+    ``csrc/graph_runtime.cu``): the kernel arguments that hold its input or
     output, grouped by node, each node's parameters taken once. A call, one
     call into the library, waits for the graph's last call where asked,
     points those arguments at the input and output given where they differ
@@ -567,7 +560,7 @@ class _Dispatch:
         order = sorted([(0, b) for b in (inputs.bindings if inputs else ())]
                        + [(1, b) for b in (outputs.bindings if outputs else ())],
                        key=lambda rb: rb[1].node)
-        n = self.bindings = len(order)
+        n = len(order)
         build = _library()
         lib = build.library()
         handle = ctypes.c_void_p()
@@ -744,23 +737,22 @@ def _capture_entry(fn, x: torch.Tensor, key: tuple, cache, name: str) -> _Entry:
         return entry
 
 
-def _run(entry: _Entry, x: torch.Tensor, src: int | None, dst: int | None, stream: int):
+def _replay(entry: _Entry, x: torch.Tensor, src: int | None, dst: int | None,
+            stream: int) -> None:
     """One replay of ``entry`` on ``stream`` (the raw handle of the current
     stream on the graph's card), after the graph's last call: its input read
     at ``src`` where it lies in ``x`` (None: ``x`` copied into the graph's),
     its output written at ``dst`` (None: into the graph's own, which the
-    caller reads before it records ``done``). Outside a recording of spans
-    a bound replay is one call into the library."""
+    caller reads, then ``_read``). A bound replay is one call into the
+    library; a copied input's wait for the graph's last call comes before
+    its copy."""
     global replays_made, upload_bytes, copy_in_bytes, inputs_bound, outputs_bound
     dispatch, event = entry.dispatch, entry.event
     own_in, own_out = dispatch.own
     at_in, at_out = own_in if src is None else src, own_out if dst is None else dst
     steps = _LAUNCH | (_WAIT if stream != entry.stream else 0) | (_RECORD if dst is not None else 0)
-    bound = src is not None or dst is not None
-    bind = profiling.span("graphs.bind") if bound else profiling.NO_SPAN
     if src is None:
-        with bind:  # the copy in waits for the graph's last call
-            dispatch(stream, at_in, at_out, event, steps & _WAIT)
+        dispatch(stream, at_in, at_out, event, steps & _WAIT)
         steps &= ~_WAIT
         if x.is_cuda:
             copy_in_bytes += x.nbytes
@@ -772,9 +764,6 @@ def _run(entry: _Entry, x: torch.Tensor, src: int | None, dst: int | None, strea
         inputs_bound += 1
         if stream:  # the replay may read x after its caller frees it
             x.record_stream(torch.cuda.current_stream(x.device))
-        if bind is not profiling.NO_SPAN:
-            with bind:
-                dispatch(stream, at_in, at_out, event, 0)
     outputs_bound += dst is not None
     replays_made += 1
     with profiling.span("graphs.replay"):
@@ -785,52 +774,37 @@ def _run(entry: _Entry, x: torch.Tensor, src: int | None, dst: int | None, strea
         entry.stream = stream
 
 
-def _replay(entry: _Entry, x: torch.Tensor, into: torch.Tensor | None, stream: int):
-    """One replay (after the graph's last call) on ``x``: bound into the
-    graph's kernels where it is on the card and ``bindable``, else copied
-    into the graph's input; with ``into`` (a tensor shaped as the graph's
-    output), the output written there where ``x`` is on the card and
-    ``into`` is ``bindable``. Returns the static output, valid until the
-    entry's next call, and whether the output went to ``into`` instead."""
-    src = dst = None
-    if entry.dispatch.bindings and x.is_cuda:
-        if bindable(Buffer.of(x), entry.inputs):
-            src = x.data_ptr()
-        if into is not None and bindable(Buffer.of(into), entry.outputs):
-            dst = into.data_ptr()
-    _run(entry, x, src, dst, stream)
-    return entry.captured.out, dst is not None
+def _read(entry: _Entry, stream: int) -> None:
+    """Mark the graph's static output read on ``stream``: its next call on
+    another stream waits for this (a bound output's replay marks it itself)."""
+    entry.done.record()
+    entry.stream = stream
 
 
-@contextlib.contextmanager
-def _replaying(entry: _Entry, x: torch.Tensor, into: torch.Tensor | None = None):
-    """``_replay`` inside the block; calls on other streams wait for its end
-    (a bound output's replay records ``done`` itself)."""
-    stream, wrote = _stream(entry.static_in.device), False
-    try:
-        out, wrote = _replay(entry, x, into, stream)
-        yield out, wrote
-    finally:
-        if not wrote:
-            entry.done.record()
-            entry.stream = stream
+def _bound(x: torch.Tensor, site: Site | None) -> int | None:
+    """``x``'s address where it may take the place of a graph's buffer at
+    ``site`` for one replay (``bindable``), else None."""
+    return x.data_ptr() if site is not None and bindable(Buffer.of(x), site) else None
 
 
 @contextlib.contextmanager
 def replayed(cache, key, fn, x: torch.Tensor, name: str):
     """One replay of the graph of ``fn`` that ``cache`` keeps for ``key``
     (captured on a copy of ``x`` made on the current card on a miss, and
-    counted against the byte bound) on ``x`` (bound or copied in, as
-    ``_replay`` takes it): its static output inside the block, which the
-    graph's next call rewrites. Calls on other streams wait for the block's
-    end."""
+    counted against the byte bound) on ``x`` (bound where ``bindable``, else
+    copied in): its static output inside the block, which the graph's next
+    call rewrites. Calls on other streams wait for the block's end."""
     entry = _find(cache, key, lambda: _capture_entry(fn, x, key, cache, name))
-    with _replaying(entry, x) as (out, _):
-        yield out
+    stream = _stream(entry.static_in.device)
+    try:
+        _replay(entry, x, _bound(x, entry.inputs), None, stream)
+        yield entry.captured.out
+    finally:
+        _read(entry, stream)
 
 
 class Graphed:
-    """``fn`` as a compiled callable (see the module's docstring)."""
+    """``graphed(fn)``: ``fn`` as a compiled callable (see the module's docstring)."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -845,15 +819,19 @@ class Graphed:
         with torch.cuda.device(x.device):
             entry = _find(self._graphs, key,
                           lambda: _capture_entry(self.fn, x, key, self._graphs, self.__name__))
-            into = None if entry.outputs is None else _fresh(entry.captured.out)
-            with _replaying(entry, x, into) as (out, wrote):
-                return into if wrote else _clone(out)
+            stream = _stream(x.device)
+            into = None if entry.outputs is None else torch.empty_like(
+                entry.captured.out, memory_format=torch.contiguous_format)
+            dst = None if into is None else _bound(into, entry.outputs)
+            _replay(entry, x, _bound(x, entry.inputs), dst, stream)
+            if dst is not None:
+                return into
+            out = _clone(entry.captured.out)
+            _read(entry, stream)
+            return out
 
 
-def graphed(fn) -> Graphed:
-    """``fn`` (a tensor -> a tensor or a tuple of tensors) replayed from a
-    CUDA graph on a CUDA tensor, called as it is on a CPU tensor."""
-    return Graphed(fn)
+graphed = Graphed
 
 
 def group_size(image_bytes: int) -> int:
@@ -923,27 +901,15 @@ def eager_batch(fn, batch: torch.Tensor):
     return _stack(_each(fn, batch))
 
 
-def _empty_batch(one, n: int) -> object:
-    """Empty tensors for ``n`` images of the shapes, dtypes and device of
-    ``one`` (one image's output; a tuple for tuple outputs)."""
-    if isinstance(one, tuple):
-        return tuple(_empty_batch(o, n) for o in one)
-    return torch.empty((n,) + tuple(one.shape), dtype=one.dtype, device=one.device)
-
-
-def _fresh(t: torch.Tensor) -> torch.Tensor:
-    """An empty contiguous tensor of ``t``'s shape, dtype and device."""
-    return torch.empty(t.shape, dtype=t.dtype, device=t.device)
-
-
-def _empty_for(group, n: int) -> object:
-    """Empty tensors for ``n`` images shaped as one group's outputs
-    (``over_group``'s: a stack, a per-image list, or a tuple of these)."""
+def _empty_for(group, n: int, device, lead: int = 1):
+    """Empty tensors on ``device`` for ``n`` images shaped as one group's
+    outputs (``over_group``'s: a stack, a per-image list, or a tuple of
+    these; or as this function gives them, on the meta device for a plan)."""
     if isinstance(group, torch.Tensor):
-        return torch.empty((n,) + tuple(group.shape[1:]), dtype=group.dtype, device=group.device)
+        return torch.empty((n, *group.shape[lead:]), dtype=group.dtype, device=device)
     if isinstance(group, tuple):
-        return tuple(_empty_for(g, n) for g in group)
-    return _empty_batch(group[0], n)
+        return tuple(_empty_for(g, n, device, lead) for g in group)
+    return _empty_for(group[0], n, device, 0)  # one image's outputs
 
 
 def _put(group, out, row: int) -> None:
@@ -980,18 +946,18 @@ class _PlanGroup(NamedTuple):
     entry: weakref.ref
     in_offset: int
     out_offset: int
-    placed: bool
+    place_in: bool
+    place_out: bool
 
 
 class _Plan(NamedTuple):
-    """What a repeat call of ``Batched`` with a kept ``plan_key`` takes from
-    the first: the device it runs on, the output's shape and dtype (a fresh
-    tensor a call), the images of a group as ``group_size`` gave them for
+    """What every call of ``Batched`` with one ``plan_key`` runs: the device
+    it runs on, its outputs on the meta device (``_empty_for``: fresh
+    tensors a call), the images of a group as ``group_size`` gave them for
     ``image_bytes``, the groups, and ``evictions_made`` when it was made."""
 
     device: torch.device
-    shape: tuple
-    dtype: torch.dtype
+    out: object
     image_bytes: int
     group: int
     groups: tuple
@@ -1008,7 +974,7 @@ class _Plan(NamedTuple):
 
 
 class Batched:
-    """``fn`` over a leading dimension (see the module's docstring)."""
+    """``batched(fn)``: ``fn`` over a leading dimension (see the module's docstring)."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -1021,113 +987,94 @@ class Batched:
         body.__qualname__ = self.__name__
         self._body = body
 
-    def _group(self, part: torch.Tensor, device: torch.device, out, n: int, start: int):
-        """One group's outputs into rows ``start`` on of ``out`` (made for
-        ``n`` images at the first group, ``_empty_for``): ``out`` and the
-        group's graph (None on a CPU device). On a CUDA device one replay of
-        the group's graph: a bound output written where it lies, else the
-        graph's static outputs copied out; on a CPU device the group body
-        run eagerly, its outputs copied."""
+    def __call__(self, images, device):
+        """``fn`` on every image of ``images`` (uint8[N, ...]: numpy, or a
+        tensor on any device) on ``device``: its outputs stacked (a tuple of
+        stacks for tuple outputs), fresh tensors on ``device`` that no later
+        call rewrites, as a JAX executable returns fresh arrays; serving
+        downloads these (``serving._to_host``). On a card every call runs
+        the plan kept for its ``plan_key`` while it holds
+        (``_Plan.entries``), else a new one (``_plan``)."""
+        global dispatch_plans_made, dispatch_plan_hits
+        if not isinstance(device, torch.device) or device.index is None:
+            device = torch.device(device)
+            if device.type == "cuda" and device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+        batch = images if isinstance(images, torch.Tensor) else torch.as_tensor(images)
         if device.type != "cuda":
-            outs = self._body(part.to(device))
-            out = _empty_for(outs, n) if out is None else out
-            with profiling.span("graphs.copy_out"):
-                _put(outs, out, start)
-            return out, None
-        key = (self.fn, device, tuple(part.shape[1:]), part.dtype, part.shape[0])
-        entry = _find(_batch_graphs, key,
-                      lambda: _capture_entry(self._body, part, key, _batch_graphs, self.__name__))
-        out = _empty_for(entry.captured.out, n) if out is None else out
-        into = out[start:start + part.shape[0]] if isinstance(out, torch.Tensor) else None
-        with _replaying(entry, part, into) as (outs, wrote):
-            if not wrote:
+            return self._eager(batch, device)
+        key = plan_key(batch, device)
+        plan = self._plans.get(key)
+        entries = None if plan is None else plan.entries()
+        if entries is None:
+            plan, entries = self._plan(batch, device)
+            dispatch_plans_made += batch.is_cuda
+            self._plans = {k: p for k, p in self._plans.items() if p.entries() is not None}
+            self._plans[key] = plan
+        else:
+            dispatch_plan_hits += batch.is_cuda
+        return self._run(plan, entries, batch)
+
+    def _eager(self, batch: torch.Tensor, device: torch.device):
+        """On a CPU device: each group's body run eagerly, its outputs copied."""
+        n, out = batch.shape[0], None
+        for start, count in spans(n, group_size(batch[0].nbytes)):
+            with profiling.span("graphs.group"):
+                outs = self._body(batch[start:start + count].to(device))
+                out = _empty_for(outs, n, device) if out is None else out
                 with profiling.span("graphs.copy_out"):
                     _put(outs, out, start)
-        return out, entry
+        return out
 
-    def _plan(self, batch: torch.Tensor, device: torch.device, out: torch.Tensor, group: int,
-              entries: list) -> _Plan:
-        """The plan of a call that ran ``batch`` into ``out`` on ``entries``."""
-        rows = out.stride(0) * out.element_size()
+    def _plan(self, batch: torch.Tensor, device: torch.device) -> tuple:
+        """The plan of ``batch`` on ``device``, and its groups' graphs: each
+        one found or captured (``_find``), none replayed. A group's input is
+        placed where it lies on the graph's card; its rows of the output
+        where the output is one tensor and the batch lies on the card."""
+        n, group = batch.shape[0], group_size(batch[0].nbytes)
+        entries = []
+        with torch.cuda.device(device):
+            for start, count in spans(n, group):
+                part = batch[start:start + count]
+                key = (self.fn, device, tuple(part.shape[1:]), part.dtype, count)
+                entries.append(_find(_batch_graphs, key, lambda: _capture_entry(
+                    self._body, part, key, _batch_graphs, self.__name__)))
+        out = _empty_for(entries[0].captured.out, n, "meta")
         groups = []
-        for (start, count), entry in zip(spans(batch.shape[0], group), entries):
+        for (start, count), entry in zip(spans(n, group), entries):
             part = Buffer(batch.device, (count, *batch.shape[1:]), batch.stride(), 0, 0)
-            into = Buffer(out.device, (count, *out.shape[1:]), out.stride(), 0, 0)
+            place_out = isinstance(out, torch.Tensor) and batch.is_cuda and placeable(
+                Buffer(device, (count, *out.shape[1:]), out.stride(), 0, 0), entry.outputs)
             groups.append(_PlanGroup(
                 start, count, weakref.ref(entry), start * batch.stride(0) * batch.element_size(),
-                start * rows, placeable(part, entry.inputs) and placeable(into, entry.outputs)))
-        return _Plan(device, tuple(out.shape), out.dtype, batch[0].nbytes, group, tuple(groups),
-                     evictions_made)
+                start * out.stride(0) * out.element_size() if place_out else 0,
+                placeable(part, entry.inputs), place_out))
+        return _Plan(device, out, batch[0].nbytes, group, tuple(groups), evictions_made), entries
 
-    def _planned(self, plan: _Plan, entries: list, batch: torch.Tensor) -> torch.Tensor:
-        """A call with a kept plan: one fresh output, then each group bound
-        where its and its rows' addresses allow (``_run``), else as
-        ``_group`` takes it."""
-        global dispatch_plan_hits
-        dispatch_plan_hits += 1
+    def _run(self, plan: _Plan, entries: list, batch: torch.Tensor):
+        """One call on ``plan``: fresh outputs, then one replay a group, its
+        input and its rows of the output bound where the plan places them
+        and their addresses are ``aligned``, else copied in (from the
+        group's images) and out (before ``_read``)."""
         device = plan.device
-        out = torch.empty(plan.shape, dtype=plan.dtype, device=device)
-        stream, src, dst = _stream(device), batch.data_ptr(), out.data_ptr()
+        out = _empty_for(plan.out, batch.shape[0], device)
+        stream, src = _stream(device), batch.data_ptr()
+        dst = out.data_ptr() if isinstance(out, torch.Tensor) else 0
         current = torch.cuda.current_device() == device.index
         with contextlib.nullcontext() if current else torch.cuda.device(device):
             for g, entry in zip(plan.groups, entries):
                 with profiling.span("graphs.group"):
                     _touch(entry)
                     at_in, at_out = src + g.in_offset, dst + g.out_offset
-                    if g.placed and aligned(at_in, entry.inputs) and aligned(at_out,
-                                                                             entry.outputs):
-                        _run(entry, batch, at_in, at_out, stream)
-                    else:
-                        self._group(batch[g.start:g.start + g.count], device, out,
-                                    plan.shape[0], g.start)
-        return out
-
-    def __call__(self, images, device):
-        """``fn`` on every image of ``images`` (uint8[N, ...]: numpy, or a
-        tensor on any device) on ``device``: its outputs stacked (a tuple of
-        stacks for tuple outputs), fresh tensors on ``device`` that no later
-        call rewrites, as a JAX executable returns fresh arrays. On a card
-        the fresh tensors are made before the first group's replay; a group
-        whose output the graph writes where it lies (``output_site``) writes
-        its rows of them, else its outputs are copied out of the graph
-        before its graph's next replay (a batch form's stacks in one copy
-        each, per-image outputs stacked); serving downloads these
-        (``serving._to_host``). A batch on the card whose output is one
-        tensor, for a ``device`` that names its card, leaves a plan for its
-        ``plan_key``, which a later call with that key takes while it holds
-        (``_Plan.entries``): no resolution of the device, the groups or their
-        graphs, and each group bound in one call into the library."""
-        global dispatch_plans_made
-        named = isinstance(device, torch.device) and device.index is not None
-        if named and isinstance(images, torch.Tensor):
-            key = plan_key(images, device)
-            plan = self._plans.get(key)
-            if plan is not None:
-                entries = plan.entries()
-                if entries is not None:
-                    return self._planned(plan, entries, images)
-                del self._plans[key]
-        batch = torch.as_tensor(images)
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        n, out, entries = batch.shape[0], None, []
-        group = group_size(batch[0].numel() * batch.element_size())
-        with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
-            for start, count in spans(n, group):
-                with profiling.span("graphs.group"):
-                    out, entry = self._group(batch[start:start + count], device, out, n, start)
-                    entries.append(entry)
-        if named and device.type == "cuda" and batch.is_cuda and isinstance(out, torch.Tensor):
-            dispatch_plans_made += 1
-            self._plans = {k: p for k, p in self._plans.items() if p.entries() is not None}
-            self._plans[plan_key(batch, device)] = self._plan(batch, device, out, group, entries)
+                    at_in = at_in if g.place_in and aligned(at_in, entry.inputs) else None
+                    at_out = at_out if g.place_out and aligned(at_out, entry.outputs) else None
+                    part = batch if at_in is not None else batch[g.start:g.start + g.count]
+                    _replay(entry, part, at_in, at_out, stream)
+                    if at_out is None:
+                        with profiling.span("graphs.copy_out"):
+                            _put(entry.captured.out, out, g.start)
+                        _read(entry, stream)
         return out
 
 
-def batched(fn) -> Batched:
-    """``fn`` (an image -> a tensor or a tuple of tensors) over a leading
-    dimension: replays of CUDA graphs over groups of images on a CUDA
-    device, each group through ``fn``'s batch form where it has one; the
-    same group body run eagerly on a CPU device."""
-    return Batched(fn)
+batched = Batched

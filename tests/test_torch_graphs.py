@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ast
 import collections
+import contextlib
 import types
 import weakref
 from pathlib import Path
@@ -294,8 +295,9 @@ def test_touches_names_what_torch_ops_take_and_not_views(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# Kept dispatch plans (graphs.plan_key, _Plan) and the native dispatch's
-# steps (graphs._run): pure host logic; the plans' calls run on the card
+# Kept dispatch plans (graphs.plan_key, _Plan, Batched) and the native
+# dispatch's steps (graphs._replay): pure host logic, here also over
+# stand-in graphs on a stand-in card; the plans' calls run on the card
 # (tests/test_torch_kernels_cuda.py).
 # ---------------------------------------------------------------------------
 
@@ -325,9 +327,11 @@ def test_a_plan_holds_while_its_graphs_do(monkeypatch):
 
     monkeypatch.setattr(graphs, "GROUP_INPUT_BYTES", 2 * 48)  # 3 images: groups of 2 and 1
     entries = [Entry(), Entry()]
-    groups = tuple(graphs._PlanGroup(start, count, weakref.ref(e), 48 * start, 16 * start, True)
+    groups = tuple(graphs._PlanGroup(start, count, weakref.ref(e), 48 * start, 16 * start,
+                                     True, True)
                    for (start, count), e in zip(graphs.spans(3, 2), entries))
-    plan = graphs._Plan(_CARD, (3, 4, 4), torch.uint8, 48, 2, groups, graphs.evictions_made)
+    out = torch.empty((3, 4, 4), dtype=torch.uint8, device="meta")
+    plan = graphs._Plan(_CARD, out, 48, 2, groups, graphs.evictions_made)
     assert plan.entries() == entries
     monkeypatch.setattr(graphs, "evictions_made", graphs.evictions_made + 1)
     assert plan.entries() is None
@@ -352,17 +356,17 @@ def test_a_batch_off_the_card_leaves_no_plan():
 
 
 class _Dispatched:
-    """A stand-in for ``_Dispatch``: the steps of each call."""
+    """A stand-in for ``_Dispatch``: the steps of each call, into ``calls``
+    (with ``tag`` first where it is given)."""
 
-    bindings = 2
     own = (0x1000, 0x2000)
 
-    def __init__(self):
-        self.calls = []
+    def __init__(self, calls=None, tag=None):
+        self.calls, self.tag = [] if calls is None else calls, tag
 
     def __call__(self, stream, src, dst, event, steps):
         assert event == 0xE
-        self.calls.append((src, dst, steps))
+        self.calls.append((src, dst, steps) if self.tag is None else (self.tag, src, dst, steps))
 
 
 def _entry(stream):
@@ -376,24 +380,21 @@ def _entry(stream):
     (0x9000, 0xA000, 3, None, [(0x9000, 0xA000, "wait launch record")]),
     (None, None, 3, None, [(0x1000, 0x2000, "wait"), (0x1000, 0x2000, "launch")]),
     (None, 0xA000, 0, None, [(0x1000, 0xA000, ""), (0x1000, 0xA000, "launch record")]),
-    (0x9000, 0xA000, 0, {"graphs.bind": 1, "graphs.replay": 1},
-     [(0x9000, 0xA000, ""), (0x9000, 0xA000, "launch record")]),
-    (0x9000, None, 3, {"graphs.bind": 1, "graphs.replay": 1},
-     [(0x9000, 0x2000, ""), (0x9000, 0x2000, "wait launch")]),
+    (0x9000, 0xA000, 0, {"graphs.replay": 1}, [(0x9000, 0xA000, "launch record")]),
+    (0x9000, None, 3, {"graphs.replay": 1}, [(0x9000, 0x2000, "wait launch")]),
     (None, None, 3, {"graphs.upload": 1, "graphs.replay": 1},
      [(0x1000, 0x2000, "wait"), (0x1000, 0x2000, "launch")]),
-    (None, 0xA000, 0, {"graphs.bind": 1, "graphs.upload": 1, "graphs.replay": 1},
+    (None, 0xA000, 0, {"graphs.upload": 1, "graphs.replay": 1},
      [(0x1000, 0xA000, ""), (0x1000, 0xA000, "launch record")]),
 ], ids=["bound", "bound, after another stream", "copied", "copied in, bound out",
         "bound, recorded", "bound in, recorded", "copied, recorded",
         "copied in, bound out, recorded"])
 def test_a_replays_native_calls_and_spans(monkeypatch, src, dst, last, recorded, calls):
-    """``_run`` on the default stream (0): outside a recording of spans, a
-    bound replay is one native call (the bind, the launch, the event; the
-    wait where another stream recorded the graph's event last), and a copied
-    input's wait comes before its copy; inside one, the spans are those of
-    the parent's path: the bind apart in ``graphs.bind`` where anything is
-    bound, the copy in ``graphs.upload`` (a host input), the launch in
+    """``_replay`` on the default stream (0): a bound replay is one native
+    call (the bind, the launch, the event; the wait where another stream
+    recorded the graph's event last), and a copied input's wait comes before
+    its copy, inside a recording of spans as outside one: the spans are the
+    copy in ``graphs.upload`` (a host input) and the bind and launch in
     ``graphs.replay``. The library records the event where the output is
     bound; else the caller does, after it reads the graph's."""
     for name in ("replays_made", "upload_bytes", "copy_in_bytes", "inputs_bound",
@@ -401,11 +402,11 @@ def test_a_replays_native_calls_and_spans(monkeypatch, src, dst, last, recorded,
         monkeypatch.setattr(graphs, name, 0)
     entry, x = _entry(last), torch.arange(4, dtype=torch.uint8)
     if recorded is None:
-        graphs._run(entry, x, src, dst, 0)
+        graphs._replay(entry, x, src, dst, 0)
         spans = None
     else:
         with profiling.recording() as rec:
-            graphs._run(entry, x, src, dst, 0)
+            graphs._replay(entry, x, src, dst, 0)
         spans = dict(collections.Counter(s.name for s in rec.spans))
     assert spans == recorded
     steps = {"wait": graphs._WAIT, "launch": graphs._LAUNCH, "record": graphs._RECORD}
@@ -418,13 +419,127 @@ def test_a_replays_native_calls_and_spans(monkeypatch, src, dst, last, recorded,
     assert entry.stream == (0 if dst is not None else last)
 
 
+class _Graph:
+    """A stand-in for a kept graph (``_Entry``) of ``fn`` on a copy of ``x``:
+    its static input and output on the CPU, its input site, its output site
+    where ``align`` (the alignment its launch was chosen by) is given and
+    ``fn`` gives one tensor, a ``_Dispatched`` that logs into ``calls``
+    under the graph's images, and how many times ``done`` was recorded."""
+
+    nbytes = 0
+
+    def __init__(self, fn, x, calls, align):
+        self.static_in = x.clone()
+        out = fn(self.static_in)
+        self.captured = types.SimpleNamespace(out=out, launches={})
+        self.inputs = graphs.Site(_CARD, tuple(x.shape), x.stride(),
+                                  (graphs.Binding(0xA, 3, 0, 0, 16),))
+        self.outputs = None if align is None else graphs.Site(
+            _CARD, tuple(out.shape), out.stride(), (graphs.Binding(0xB, 3, 1, 0, align),))
+        self.dispatch, self.event, self.stream = _Dispatched(calls, x.shape[0]), 0xE, 0
+        self.records = 0
+        self.done = types.SimpleNamespace(record=self._record)
+
+    def _record(self):
+        self.records += 1
+
+
+# case -> (whether the batch lies on the card, one image's function, the
+# alignment its output's launch was chosen by (None: no output site), and
+# for the groups of 2 and 1 images of a call of three: whether the group's
+# input and its rows of the output are bound)
+_PLANNED = {
+    "bound both ways": (True, lambda x: x[..., 0] + 1, 16, [(True, True), (True, True)]),
+    "odd answers": (True, lambda x: x[:3, :5, 0] + 1, 16, [(True, True), (True, False)]),
+    "input only": (True, lambda x: x[..., 0] + 1, None, [(True, False), (True, False)]),
+    "a host batch": (False, lambda x: x[..., 0] + 1, 16, [(False, False), (False, False)]),
+    "a tuple output": (True, lambda x: (x[..., 0], x[..., 1:]), None,
+                       [(True, False), (True, False)]),
+}
+
+
+def _plan_counters() -> dict:
+    return {**graphs.counts(), "plans": graphs.dispatch_plans_made,
+            "hits": graphs.dispatch_plan_hits}
+
+
+@pytest.mark.parametrize("case", list(_PLANNED))
+def test_a_first_and_a_repeat_call_run_one_plan(monkeypatch, case):
+    """``Batched`` on a stand-in card (stand-in graphs whose library calls
+    are logged): the first call of a key makes its plan, capturing its two
+    graphs and replaying none, then runs it as a repeat call does, with the
+    same native calls, copies, spans and counters. A group is bound where it
+    lies on the card and its address meets its graph's alignment (the odd
+    answers' second group's rows, 30 bytes in, miss 16), else copied in (a
+    host batch) or out (no output site, a tuple), ``done`` recorded after
+    the copy out; the plan counters count batches on the card."""
+    on_card, fn, align, bound = _PLANNED[case]
+    for name in ("captures_made", "evictions_made", "replays_made", "upload_bytes",
+                 "copy_in_bytes", "inputs_bound", "outputs_bound", "dispatch_plans_made",
+                 "dispatch_plan_hits"):
+        monkeypatch.setattr(graphs, name, 0)
+    monkeypatch.setattr(graphs, "_held", collections.OrderedDict())
+    monkeypatch.setattr(graphs, "_batch_graphs", collections.OrderedDict())
+    calls = []
+    monkeypatch.setattr(graphs, "_capture_entry", lambda body, x, *_: _Graph(fn, x, calls, align))
+    monkeypatch.setattr(graphs, "_stream", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    empty = torch.empty
+
+    def empty_here(*shape, device=None, **kw):  # the card's allocations, on the CPU
+        return empty(*shape, device=None if device == _CARD else device, **kw)
+
+    monkeypatch.setattr(torch, "empty", empty_here)
+    batch = torch.from_numpy(_image((3, 4, 8, 3), 0)).clone()  # 96 bytes an image
+    monkeypatch.setattr(graphs, "GROUP_INPUT_BYTES", 2 * 96)
+    if on_card:
+        monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+        monkeypatch.setattr(torch.Tensor, "device", property(lambda t: _CARD))
+    run = graphs.batched(lambda x: x)
+    made = []
+    for _ in range(2):
+        before = _plan_counters()
+        del calls[:]
+        with profiling.recording() as rec:
+            out = run(batch, _CARD)
+        base = out.data_ptr() if isinstance(out, torch.Tensor) else None
+        made.append(([(n, "own" if src == 0x1000 else src - batch.data_ptr(),
+                       "own" if dst == 0x2000 else dst - base, steps)
+                      for n, src, dst, steps in calls],
+                     collections.Counter(s.name for s in rec.spans),
+                     {k: v - before[k] for k, v in _plan_counters().items()},
+                     sum(g.records for g in graphs._batch_graphs.values())))
+    (calls1, spans1, delta1, records1), (calls2, spans2, delta2, records2) = made
+    row_out = 0 if base is None else out[0].nbytes
+    want = []
+    for k, (n, (bound_in, bound_out)) in enumerate(zip((2, 1), bound)):
+        dst = 2 * k * row_out if bound_out else "own"
+        if not bound_in:
+            want.append((n, "own", dst, 0))  # the wait before the copy in
+        want.append((n, 2 * k * 96 if bound_in else "own", dst,
+                     graphs._LAUNCH | (graphs._RECORD if bound_out else 0)))
+    assert calls1 == calls2 == want
+    copied_out = sum(not o for _, o in bound)
+    assert spans1 == spans2 == collections.Counter({
+        "graphs.group": 2, "graphs.replay": 2, "graphs.copy_out": copied_out,
+        "graphs.upload": 0 if on_card else 2})
+    counters = {"graphs_evicted": 0, "graph_replays": 2,
+                "upload_bytes": 0 if on_card else batch.nbytes,
+                "inputs_bound": sum(i for i, _ in bound),
+                "outputs_bound": sum(o for _, o in bound), "copy_in_bytes": 0}
+    assert delta1 == {**counters, "graphs_captured": 2, "plans": int(on_card), "hits": 0}
+    assert delta2 == {**counters, "graphs_captured": 0, "plans": 0, "hits": int(on_card)}
+    assert (records1, records2) == (copied_out, 2 * copied_out)
+
+
 def test_every_kernel_launch_is_noted():
     """Every port kernel is launched through ``ipt::launch``
     (``csrc/launch.cuh``), which notes its pointer arguments under capture:
     a kernel launched with ``<<<...>>>`` would read a graph's input unseen."""
     csrc = Path(graphs.__file__).resolve().parent.parent / "csrc"
     sources = sorted(csrc.glob("*.cu"))
-    assert len(sources) == 7
+    assert len(sources) == 8
     for src in sources:
         text = src.read_text()
         assert "<<<" not in text, src.name

@@ -1196,7 +1196,7 @@ def test_batched_counts_its_capture_replays_and_uploads(cuda, monkeypatch):
     """One batched call from the host in two groups: one capture, a replay
     and an upload of each group's bytes, each under its span, and each
     group's outputs copied out; from the card, each group's input and output
-    bound into the graph's kernels (one ``graphs.bind`` span a group),
+    bound into the graph's kernels within its ``graphs.replay`` span,
     nothing uploaded or copied."""
     from imageprocessingtools_tpu_torch.utils import graphs, profiling
 
@@ -1220,7 +1220,7 @@ def test_batched_counts_its_capture_replays_and_uploads(cuda, monkeypatch):
                               "upload_bytes": 0, "inputs_bound": 2, "outputs_bound": 2,
                               "copy_in_bytes": 0}
     names = collections.Counter(s.name for s in rec.spans)
-    assert names == {"graphs.group": 2, "graphs.bind": 2, "graphs.replay": 2}
+    assert names == {"graphs.group": 2, "graphs.replay": 2}
     want = torch.stack([fused.fused_pipeline_mega(on_card[i]) for i in range(4)])
     assert torch.equal(out, want) and torch.equal(again, want)
 
@@ -1297,7 +1297,7 @@ def test_a_three_stage_reference_task_is_bound_and_plans_k1_once(cuda, monkeypat
                               "copy_in_bytes": 0}
     assert rotate.plans_made == plans + 1
     assert collections.Counter(s.name for s in rec.spans) == {
-        "graphs.group": 3, "graphs.bind": 3, "graphs.replay": 3}
+        "graphs.group": 3, "graphs.replay": 3}
     want = _per_image(lambda img: run_pipeline(img, config)[0], batch)
     assert torch.equal(first, want) and torch.equal(again, want)
 
@@ -1329,7 +1329,7 @@ def test_bound_groups_equal_the_per_image_forms(cuda, monkeypatch, task):
                               "upload_bytes": 0, "inputs_bound": 3, "outputs_bound": 3,
                               "copy_in_bytes": 0}
     names = collections.Counter(s.name for s in rec.spans)
-    assert names == {"graphs.group": 3, "graphs.bind": 3, "graphs.replay": 3}
+    assert names == {"graphs.group": 3, "graphs.replay": 3}
     assert torch.equal(out, _per_image(single, batch))
 
 
@@ -1434,8 +1434,9 @@ def test_graphed_flagship_binds_a_fresh_output(cuda):
 
 
 # ---------------------------------------------------------------------------
-# Kept dispatch plans (utils/graphs.py::Batched, _Plan): a repeat call of a
-# batch on the card takes its first call's plan, one native dispatch a group.
+# Dispatch plans (utils/graphs.py::Batched, _Plan): the first call of a batch
+# on the card makes the plan that it and every repeat call run, one native
+# dispatch a bound group.
 # ---------------------------------------------------------------------------
 
 def _plan_counts() -> dict:
@@ -1470,10 +1471,10 @@ def _resident_tasks():
 @pytest.mark.parametrize("task", ["flagship", "thumbnail", "-w1920 -r30 -gray"])
 def test_resident_calls_take_a_kept_plan(cuda, monkeypatch, task):
     """30 calls over three distinct groups on the card, as the benchmark's
-    resident cells make them: the first call leaves a plan, every later one
-    takes it, every replay binds its input and output, and every output
-    kept to the end is byte-equal to the per-image form (no later call
-    rewrites an earlier one's)."""
+    resident cells make them: the first call makes a plan and runs it,
+    every later one takes it, every replay (the first call's too) binds its
+    input and output, and every output kept to the end is byte-equal to the
+    per-image form (no later call rewrites an earlier one's)."""
     from imageprocessingtools_tpu_torch.utils import graphs
 
     call, single, shape = _resident_tasks()[task]
@@ -1495,8 +1496,8 @@ def test_resident_calls_take_a_kept_plan(cuda, monkeypatch, task):
 
 def test_a_plan_binds_then_copies_then_binds(cuda):
     """One plan: an aligned batch is bound, a view one byte off the
-    alignment K2 was captured with takes the fallback (copied in), and the
-    next aligned batch is bound again; every output byte-equal."""
+    alignment K2 was captured with is copied in (its output still bound),
+    and the next aligned batch is bound again; every output byte-equal."""
     from imageprocessingtools_tpu_torch.parallel import batch
 
     xs = [_image((2, 136, 256, 3), seed=s).to(cuda) for s in (151, 152, 153)]
