@@ -15,9 +15,9 @@
 // over z = 0 .. taps - 1 in that order, from 0.0, each product and each sum
 // rounded once on its own (tap: the product one exact fused operation, the sum
 // its own __dadd_rn; a product contracted into its sum moves a rounded byte),
-// then floor(acc + 0.5), < 0 -> 0, >= 256 -> 255. The tables are used as they
-// are: mirrored indices repeat and run backwards near an edge, and zero-weight
-// taps stay (adding 0.0 * px is exact). One launch per pass; the uint8 image
+// then floor(acc + 0.5), < 0 -> 0, >= 256 -> 255 (quantize). The tables are
+// used as they are: mirrored indices repeat and run backwards near an edge,
+// and zero-weight taps stay (adding 0.0 * px is exact). One launch per pass; the uint8 image
 // between the two passes of a resize is the C's own. The tap loop is a
 // run-time loop (8 taps at 4K -> 1920, 57 at 4K -> 256, tens of thousands for
 // extreme aspect ratios): nothing is sized by the tap count. Offsets are
@@ -34,36 +34,54 @@
 //
 // What bounds it on an H100: f64 operations, one product and one sum per
 // byte and tap, each a whole FP64 issue slot (132 SMs x 64 lanes, about 16.7
-// T op/s): 299 M at 4K -> 1920, about 18 us, against 56 MB, 17 us. A tap is
-// exactly those two (DFMA, DADD) and one DMUL per tap and thread for the
-// product's addend; the byte needs no conversion (its bits go under 2^52's
-// exponent), only a byte permute (PRMT) and, in dim 1, two shared loads and a
-// funnel shift per pixel, all of which issue at the f64 rate or below. The
-// kernel is still far from the bound (PERF.md has its times and what its cuts
-// and stamps showed).
+// T op/s): 299 M at 4K -> 1920, about 18 us, against 56 MB, 17 us; 191 M at
+// 4K -> 256 (57 taps), 11 us. A tap is exactly those two (DFMA, DADD); the
+// byte needs no conversion (its bits go under 2^52's exponent), only a byte
+// permute (PRMT). What else a tap issues (its pixel's shared loads, the
+// table's broadcasts, loop and address work) shares the SM's issue slots and
+// its shared-memory port with them, and sets how near the kernel comes to the
+// f64 bound (PERF.md has its times).
 //
-// - dim 0: a thread owns vec (8, 4, 2 or 1) neighbouring bytes of one output
-//   row, so a tap is one aligned vec-byte load (byte loads where rows or
-//   buffers are not vec-byte aligned); idx[o, z] and w[o, z] are the same for
-//   the whole block and are read as broadcasts. The host picks vec
+// - dim 0 (the H pass): a thread owns vec (8, 4, 2 or 1) neighbouring bytes of
+//   one output row, so a tap is one aligned vec-byte load (byte loads where
+//   rows or buffers are not vec-byte aligned); idx[o, z] and w[o, z] are the
+//   same for the whole block and are read as broadcasts. The host picks vec
 //   (kernels/resize.py::rows_vec): the most bytes a thread that still give
 //   every SM 4 blocks, so that a narrow output (4K -> 256: 144 rows of 768
 //   bytes) fills the card with 864 blocks rather than 144.
-// - dim 1: a block owns 128 neighbouring outputs of a strip of image rows
-//   and walks the strip 4 rows at a time; the grid is one wave of resident
-//   blocks. The block finds the source columns its tables reach (their least
-//   and largest index, so mirrored and repeated indices need no special
-//   case) and stages those columns of the next steps' rows in shared memory
-//   as the image's aligned 16-byte chunks (cp.async; as many steps ahead as
-//   put 8 KB in flight per block, at most 3: beyond that, shared memory is
-//   better spent on more resident blocks). The tables are staged transposed,
-//   so that neighbouring threads read neighbouring words: once per block where the
-//   taps fit one chunk of 16, else chunk by chunk in every step. A tap is
-//   then one index, one weight and, per row, one pixel (3 bytes from two
-//   aligned words and a funnel shift) from shared memory. Where the columns
-//   do not fit (about 128 / scale + taps pixels per row; a downscale beyond
-//   about 1/24 at 3 channels) the block gathers its bytes from global memory
-//   instead: slower, the same sums.
+// - dim 1 (the W pass): lanes on rows. The pass's work is a grid of items, a
+//   group of `outs` neighbouring outputs by a tile of 32 * K rows of the batch;
+//   one wave of resident blocks takes equal runs of them, a group's tiles one
+//   after another. A warp takes one output at a time, its 32 lanes 32 rows (K
+//   each), so each tap's offset and weight are the same for the whole warp:
+//   broadcasts, four taps' worth to a 16-byte load. A block stages a group's
+//   tables once, when it comes to it (once or twice in its life), with each
+//   weight's addend -2^52 * w beside it so that its DMUL leaves the loop; the
+//   source columns that the group's tables reach, of the next tiles' rows, are
+//   copied into shared memory (cp.async, 4-byte words, pointer-based) while
+//   this tile's sums run (two buffers). A staged row's pitch is
+//   an odd number of words, so 32 lanes on 32 rows read 32 banks. Where an
+//   output's indices run consecutively (every output but the mirrored ones at
+//   an edge, in the reference's tables), a lane reads its row's bytes of four
+//   taps as aligned words and a funnel shift, not a load a byte: the shared
+//   loads, not the FP64 unit, set the pace here (PERF.md). The sums go
+//   through a shared output tile, so that each row's outputs leave as one
+//   contiguous run. The host (kernels/resize.py::cols_plan) picks K, outs
+//   and the columns a staged row holds from the shape (taps,
+//   cols / out_size, channels); a group whose tables reach further (tables
+//   that are not the reference's) reads its pixels and tables from global
+//   memory instead, and where even the fewest outputs' columns do not fit
+//   shared memory (a downscale beyond about 1/80 at 3 channels) the host has
+//   the whole pass gather so: slower, the same sums.
+//
+// The graph's bind (csrc/launch.cuh, utils/graphs.py) points a replay's
+// kernel nodes at a caller's input and output by rewriting their pointer
+// arguments. So every pass reads src and writes dst only through those plain
+// pointer arguments of a launch made through ipt::launch, with a note of the
+// alignment its host code chose a kernel by (dim 0: vec; dim 1: none, its
+// copies take any address). No copy may hold the address elsewhere, as a TMA
+// tensor map would inside its descriptor: a replay would then read the bytes
+// of the capture's buffer.
 
 #include <climits>
 #include <cstdint>
@@ -74,15 +92,10 @@
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int ROWS = 4;       // dim 1: image rows per step of a block
-constexpr int TAPS = 16;      // dim 1: most taps per staged chunk of the tables
-constexpr int PITCH = THREADS + 1;  // staged table rows, padded against bank conflicts
-constexpr int MAX_STAGES = 4;       // dim 1: most steps whose rows are in flight or in use
-// dim 1: most dynamic shared memory per block (tables and staged rows; two
-// blocks to an SM).
-constexpr long long SMEM_MAX_BYTES = 100 * 1024;
-constexpr long long IN_FLIGHT_BYTES = 8 * 1024;  // dim 1: staged bytes a block keeps ahead
+constexpr int THREADS = 128;       // dim 0: threads a block
+constexpr int COLS_WARPS = 8;      // dim 1: warps a block
+constexpr int COLS_THREADS = 32 * COLS_WARPS;
+constexpr int STAGES = 2;          // dim 1: tile buffers a block (one tile's copies in flight)
 
 // -2^52 * w, exact: the addend that makes tap's fused product exact.
 __device__ __forceinline__ double neg_shift(double w) {
@@ -199,290 +212,441 @@ cudaError_t launch_rows(const uint8_t* src, uint8_t* dst, const int* idx, const 
                        row_bytes, taps, pieces, in_rows * row_bytes, out_size * row_bytes);
 }
 
-// Bytes of shared memory per staged row of seg_bytes image bytes: up to 15
-// bytes of head shift, the bytes, the last chunk's tail, and 16 bytes that
-// the last pixel's second word may reach into.
-__host__ __device__ constexpr long long staged_row_bytes(long long seg_bytes) {
-    return (seg_bytes + 15 + 15) / 16 * 16 + 16;
+// dim 1: a staged table row's taps, a multiple of 4 (16-byte vector loads).
+__host__ __device__ constexpr long long table_row(long long taps) { return (taps + 3) / 4 * 4; }
+
+// dim 1's shared memory, in this order: the output tile (32 * K rows of
+// out_pitch bytes), then, where the pass is tiled, the tables (outs rows of
+// table_row(taps) byte offsets, weights and addends, then a flag an output,
+// padded to 16 bytes) and STAGES buffers of 32 * K source rows of pitch
+// bytes. kernels/resize.py::cols_plan sums the same parts.
+__host__ __device__ constexpr long long cols_table_bytes(long long outs, long long taps) {
+    return outs * table_row(taps) * 20 + (outs * 4 + 15) / 16 * 16;
 }
 
-// Bytes of the tables' chunk: chunk_taps rows of PITCH weights, then of
-// PITCH indices, rounded up so that the staged rows after it are 16-byte aligned.
-__host__ __device__ constexpr long long table_bytes(int chunk_taps) {
-    return (static_cast<long long>(chunk_taps) * PITCH * 12 + 15) / 16 * 16;
-}
-
-// What a dim 1 block knows after its prologue.
-struct Strip {
-    const uint8_t* src;      // the image, rows of row_bytes
+// What every thread of a dim 1 block knows of the pass.
+struct Cols {
+    const uint8_t* src;      // the batch's rows, row_bytes each
     const uint8_t* src_end;
     uint8_t* dst;            // rows of out_size pixels
-    const int* block_idx;    // the block's first output's row of idx
-    const double* block_w;
-    double* s_w;             // shared: [chunk_taps][PITCH]
-    int* s_idx;              // shared: [chunk_taps][PITCH]
-    uint8_t* seg;            // shared: [n_stages][ROWS][seg_stride]
-    int (*s_shift)[ROWS];    // shared: each staged row's first byte in its 16-byte chunk
-    long long row_bytes, out_size, o0, y_begin, y_end;
-    int taps, chunk_taps, n_out, seg_stride, n_stages;
-    int lo, seg_bytes;       // staged: source columns [lo, ...), seg_bytes of them per row
+    const int* idx;
+    const double* w;
+    long long rows, row_bytes, out_size;
+    int taps, tz, span, pitch, out_pitch;  // tz: table_row(taps)
+    uint8_t* out_tile;       // shared: the tile's output rows
+    int* s_off;              // shared: [outs][tz] each tap's byte offset from column lo
+    double* s_w;             // shared: [outs][tz] weights
+    double* s_nw;            // shared: [outs][tz] -2^52 * weight
+    int* s_run;              // shared: [outs] 1 where an output's indices run i, i + 1, ...
+    uint8_t* staged;         // shared: two buffers of the tile's source rows
 };
 
-// Taps [z0, z0 + nz) of the block's tables into shared memory, transposed.
-// lo and hi take in every index met.
-__device__ __forceinline__ void stage_tables(const Strip& s, int z0, int nz, int& lo, int& hi) {
-#pragma unroll 4
-    for (int e = threadIdx.x; e < s.n_out * nz; e += THREADS) {
-        const int ol = e / nz, zl = e - ol * nz;
-        const long long g = static_cast<long long>(ol) * s.taps + z0 + zl;
-        const int v = __ldg(s.block_idx + g);
+// The block's outputs [o0, o0 + n_out), one group of the pass's.
+struct Group {
+    long long o0;
+    int n_out;
+    int lo;                  // the least source column that the group's tables reach
+    int reach_bytes;         // bytes from column lo to the end of the largest
+    bool tiled;              // that reach fits a staged row: the sums read shared memory
+};
+
+// The group's tables into shared memory, each weight's addend beside it,
+// and the columns they reach: the least and the largest index, so that
+// mirrored and repeated indices need no special case. Where the reach fits
+// span, each output is marked where its indices run consecutively, and each
+// index becomes its pixel's byte offset from column lo. Ends with every
+// thread knowing the group.
+template <int C>
+__device__ __forceinline__ void stage_tables(const Cols& s, Group& g, int* s_lo, int* s_hi) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long n = static_cast<long long>(g.n_out) * s.taps;
+    const int* idx = s.idx + g.o0 * s.taps;
+    const double* w = s.w + g.o0 * s.taps;
+    int lo = INT_MAX, hi = -1;
+    for (long long e = threadIdx.x; e < n; e += COLS_THREADS) {
+        const int v = __ldg(idx + e);
+        const double wz = __ldg(w + e);
+        const long long at = e / s.taps * s.tz + e % s.taps;
         lo = min(lo, v);
         hi = max(hi, v);
-        s.s_idx[zl * PITCH + ol] = v;
-        s.s_w[zl * PITCH + ol] = __ldg(s.block_w + g);
-    }
-}
-
-// Step k of the strip (rows y_begin + k * ROWS ...) into its buffer,
-// k % n_stages, as the image's aligned 16-byte chunks, every copy in flight at
-// once (cp.async); a chunk that reaches past either end of the image is
-// copied byte by byte. A step past the strip's end commits an empty group.
-__device__ __forceinline__ void stage_rows(const Strip& s, long long k, int channels) {
-    const long long y = s.y_begin + k * ROWS;
-    const int buf = static_cast<int>(k % s.n_stages);
-    for (int r = 0; r < ROWS && y + r < s.y_end; ++r) {
-        const uint8_t* g = s.src + (y + r) * s.row_bytes + static_cast<long long>(s.lo) * channels;
-        const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(g) & 15);
-        const uint8_t* a = g - sh;
-        const int chunks = (sh + s.seg_bytes + 15) / 16;
-        if (threadIdx.x == 0) s.s_shift[buf][r] = sh;
-        for (int c = threadIdx.x; c < chunks; c += THREADS) {
-            const uint8_t* from = a + 16 * c;
-            uint8_t* to = s.seg + static_cast<long long>(buf * ROWS + r) * s.seg_stride + 16 * c;
-            if (from >= s.src && from + 16 <= s.src_end) {
-                __pipeline_memcpy_async(to, from, 16);
-            } else {
-                for (int b = 0; b < 16; ++b) {
-                    if (from + b >= s.src && from + b < s.src_end) to[b] = from[b];
-                }
-            }
-        }
-    }
-    __pipeline_commit();
-}
-
-// The strip's steps. kStaged: the pixels come from the staged rows, else from
-// global memory.
-template <int C, bool kStaged>
-__device__ __forceinline__ void walk_strip(const Strip& s) {
-    const int t = threadIdx.x;
-    const bool one_chunk = s.taps <= s.chunk_taps;  // the whole table is staged already
-    if (kStaged) {
-        for (int k = 0; k < s.n_stages - 1; ++k) stage_rows(s, k, C);
-    }
-    long long step = 0;
-    for (long long y = s.y_begin; y < s.y_end; y += ROWS, ++step) {
-        const int n_rows = static_cast<int>(min(static_cast<long long>(ROWS), s.y_end - y));
-        const int buf = kStaged ? static_cast<int>(step % s.n_stages) : 0;
-        if (kStaged) {  // later steps' copies start before this step's sums
-            stage_rows(s, step + s.n_stages - 1, C);
-            __pipeline_wait_prior(s.n_stages - 1);
-        }
-        __syncthreads();  // every thread's copies for this step have landed
-        int staged_at[ROWS];  // where row r's pixel lo lies in seg
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-            staged_at[r] = kStaged ? (buf * ROWS + r) * s.seg_stride + s.s_shift[buf][r] : 0;
-        }
-        const uint8_t* src_y = s.src + y * s.row_bytes;
-        double acc[ROWS][C];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-#pragma unroll
-            for (int c = 0; c < C; ++c) acc[r][c] = 0.0;
-        }
-        for (int z0 = 0; z0 < s.taps; z0 += s.chunk_taps) {
-            const int nz = min(s.chunk_taps, s.taps - z0);
-            if (!one_chunk) {
-                if (z0 > 0) __syncthreads();  // the last chunk is used up
-                int unused_lo = 0, unused_hi = 0;
-                stage_tables(s, z0, nz, unused_lo, unused_hi);
-                __syncthreads();
-            }
-            if (t < s.n_out) {
-#pragma unroll 4
-                for (int zl = 0; zl < nz; ++zl) {
-                    const int ix = s.s_idx[zl * PITCH + t];
-                    const double wz = s.s_w[zl * PITCH + t], nwz = neg_shift(wz);
-#pragma unroll
-                    for (int r = 0; r < ROWS; ++r) {
-                        if (r < n_rows) {
-                            uint32_t px;
-                            if (!kStaged) {
-                                const uint8_t* p =
-                                    src_y + r * s.row_bytes + static_cast<long long>(ix) * C;
-                                px = __ldg(p);
-                                if (C == 3) px |= (__ldg(p + 1) << 8) | (__ldg(p + 2) << 16);
-                            } else if (C == 1) {
-                                px = s.seg[staged_at[r] + (ix - s.lo)];
-                            } else {  // 3 bytes from two aligned words
-                                const int at = staged_at[r] + (ix - s.lo) * C;
-                                const uint32_t* wp =
-                                    reinterpret_cast<const uint32_t*>(s.seg + (at & ~3));
-                                // the funnel shift takes the low 5 bits of at * 8
-                                px = __funnelshift_r(wp[0], wp[1], at << 3);
-                            }
-#pragma unroll
-                            for (int c = 0; c < C; ++c) {
-                                acc[r][c] = tap(acc[r][c], C == 1 ? px : byte_of(px, c), wz, nwz);
-                            }
-                        }
-                    }
-                }
-            }
-        }
-        if (t < s.n_out) {
-#pragma unroll
-            for (int r = 0; r < ROWS; ++r) {
-                if (r < n_rows) {
-                    uint8_t* q = s.dst + ((y + r) * s.out_size + s.o0 + t) * C;
-#pragma unroll
-                    for (int c = 0; c < C; ++c) q[c] = static_cast<uint8_t>(quantize(acc[r][c]));
-                }
-            }
-        }
-        __syncthreads();  // this step's buffer and the tables' chunk are free
-    }
-}
-
-// dim 1. Block b owns outputs [bx * THREADS, ...), bx = b % blocks_x, of the
-// image rows [strip * strip_rows, ...), strip = b / blocks_x, and walks them
-// in steps of ROWS. Dynamic shared memory: the tables' chunk, then n_stages
-// steps of ROWS staged rows of seg_stride bytes (n_stages 0: none, the bytes
-// are gathered from global memory).
-template <int C>
-__global__ void __launch_bounds__(THREADS)
-pass_cols_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
-                 const int* __restrict__ idx, const double* __restrict__ w,
-                 long long rows, long long cols, long long out_size, int taps,
-                 long long blocks_x, long long strip_rows, int chunk_taps, int seg_stride,
-                 int n_stages) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    __shared__ int s_lo, s_hi;
-    __shared__ int s_shift[MAX_STAGES][ROWS];
-
-    Strip s;
-    s.src = src;
-    s.dst = dst;
-    s.row_bytes = cols * C;
-    s.src_end = src + rows * s.row_bytes;
-    s.out_size = out_size;
-    s.o0 = (blockIdx.x % blocks_x) * THREADS;
-    s.y_begin = (blockIdx.x / blocks_x) * strip_rows;
-    s.y_end = min(rows, s.y_begin + strip_rows);
-    s.block_idx = idx + s.o0 * taps;
-    s.block_w = w + s.o0 * taps;
-    s.s_w = reinterpret_cast<double*>(smem);
-    s.s_idx = reinterpret_cast<int*>(s.s_w + chunk_taps * PITCH);
-    s.seg = smem + table_bytes(chunk_taps);
-    s.s_shift = s_shift;
-    s.taps = taps;
-    s.chunk_taps = chunk_taps;
-    s.n_out = static_cast<int>(min(static_cast<long long>(THREADS), out_size - s.o0));
-    s.seg_stride = seg_stride;
-    s.n_stages = n_stages;
-
-    // The source columns [lo, hi] that this block's tables reach; a table that
-    // fits one chunk is staged on the way.
-    int lo = INT_MAX, hi = -1;
-    if (threadIdx.x == 0) {
-        s_lo = INT_MAX;
-        s_hi = -1;
-    }
-    __syncthreads();
-    if (taps <= chunk_taps) {
-        stage_tables(s, 0, taps, lo, hi);
-    } else if (n_stages > 0) {
-        const long long n_idx = static_cast<long long>(s.n_out) * taps;
-#pragma unroll 4
-        for (long long e = threadIdx.x; e < n_idx; e += THREADS) {
-            const int v = __ldg(s.block_idx + e);
-            lo = min(lo, v);
-            hi = max(hi, v);
-        }
+        s.s_off[at] = v;
+        s.s_w[at] = wz;
+        s.s_nw[at] = neg_shift(wz);
     }
 #pragma unroll
     for (int d = 16; d > 0; d >>= 1) {
         lo = min(lo, __shfl_xor_sync(0xFFFFFFFFu, lo, d));
         hi = max(hi, __shfl_xor_sync(0xFFFFFFFFu, hi, d));
     }
-    if ((threadIdx.x & 31) == 0) {
-        atomicMin(&s_lo, lo);
-        atomicMax(&s_hi, hi);
+    if (lane == 0) {
+        s_lo[warp] = lo;
+        s_hi[warp] = hi;
     }
     __syncthreads();
-    const long long reach = (static_cast<long long>(s_hi) - s_lo + 1) * C;
-    const bool staged = n_stages > 0 && s_hi >= s_lo && staged_row_bytes(reach) <= seg_stride;
-    s.lo = staged ? s_lo : 0;
-    s.seg_bytes = staged ? static_cast<int>(reach) : 0;
-    if (staged) {
-        walk_strip<C, true>(s);
-    } else {
-        walk_strip<C, false>(s);
+#pragma unroll
+    for (int k = 0; k < COLS_WARPS; ++k) {
+        lo = min(lo, s_lo[k]);
+        hi = max(hi, s_hi[k]);
+    }
+    g.lo = lo;
+    g.reach_bytes = (hi - lo + 1) * C;
+    g.tiled = hi - lo < s.span;
+    if (!g.tiled) return;
+    for (int o = threadIdx.x; o < g.n_out; o += COLS_THREADS) {
+        const int* v = s.s_off + o * s.tz;
+        int run = 1;
+        for (int z = 1; z < s.taps; ++z) run &= v[z] == v[z - 1] + 1;
+        s.s_run[o] = run;
+    }
+    __syncthreads();
+    for (long long e = threadIdx.x; e < n; e += COLS_THREADS) {  // each thread its own entries
+        const long long at = e / s.taps * s.tz + e % s.taps;
+        s.s_off[at] = (s.s_off[at] - lo) * C;
     }
 }
 
+// Source rows [t * 32K, ...) of the group's columns into buffer buf, one warp
+// a row, as the image's aligned 4-byte words (cp.async, pointer-based: a
+// replay reads whatever src the graph's node holds); a word that reaches past
+// either end of the image is copied byte by byte. Row r starts at byte
+// r * pitch + (its first byte's address & 3).
+template <int C, int K>
+__device__ __forceinline__ void stage_tile(const Cols& s, const Group& g, long long t, int buf) {
+    constexpr int T = 32 * K;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long y0 = t * T;
+    const int n_rows = static_cast<int>(min(static_cast<long long>(T), s.rows - y0));
+    uint8_t* tile = s.staged + buf * T * s.pitch;
+    for (int r = warp; r < n_rows; r += COLS_WARPS) {
+        const uint8_t* first = s.src + (y0 + r) * s.row_bytes + static_cast<long long>(g.lo) * C;
+        const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(first) & 3);
+        const uint8_t* a = first - sh;
+        const int words = (sh + g.reach_bytes + 3) / 4;
+        uint8_t* to = tile + r * s.pitch;
+        if (a >= s.src && a + 4 * words <= s.src_end) {
+            for (int j = lane; j < words; j += 32) __pipeline_memcpy_async(to + 4 * j, a + 4 * j, 4);
+            continue;
+        }
+        for (int j = lane; j < words; j += 32) {  // the image's first or last row
+            const uint8_t* from = a + 4 * j;
+            if (from >= s.src && from + 4 <= s.src_end) {
+                __pipeline_memcpy_async(to + 4 * j, from, 4);
+            } else {
+                for (int b = 0; b < 4; ++b) {
+                    if (from + b >= s.src && from + b < s.src_end) to[4 * j + b] = from[b];
+                }
+            }
+        }
+    }
+}
+
+// One tap of the K rows at row[k] (shared): the pixel's C bytes at offset oz.
+template <int C, int K>
+__device__ __forceinline__ void tap_rows(double (&acc)[K][C], const uint8_t* const (&row)[K],
+                                         int oz, double wz, double nwz) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        const uint8_t* p = row[k] + oz;
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[k][c] = tap(acc[k][c], p[c], wz, nwz);
+    }
+}
+
+// The sums of a staged tile: warp w takes the group's outputs w, w + 8, ...,
+// lane l the tile's rows l, l + 32, ...: an output's offsets and weights are
+// the same for the whole warp (broadcasts, four taps' worth to a 16-byte
+// load), and its 32 rows' pixel bytes lie an odd number of words apart (no
+// bank conflicts). Into the output tile.
+template <int C, int K>
+__device__ __forceinline__ void sums_tiled(const Cols& s, const Group& g, long long y0, int buf) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const uint8_t* row[K];  // row lane + 32 k's byte of column lo
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        const int r = lane + 32 * k;
+        const uintptr_t first = reinterpret_cast<uintptr_t>(s.src) + (y0 + r) * s.row_bytes +
+                                static_cast<long long>(g.lo) * C;
+        row[k] = s.staged + (buf * 32 * K + r) * s.pitch + static_cast<int>(first & 3);
+    }
+    for (int o = warp; o < g.n_out; o += COLS_WARPS) {
+        const int* off = s.s_off + o * s.tz;
+        const double* wo = s.s_w + o * s.tz;
+        const double* nwo = s.s_nw + o * s.tz;
+        double acc[K][C];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) acc[k][c] = 0.0;
+        }
+        int z = 0;
+        if (s.s_run[o]) {
+            // The indices run consecutively: each lane reads its rows' bytes of
+            // four taps as aligned words (one a tap at 3 channels, a quarter of
+            // one at 1), carried over and realigned by a funnel shift, in place
+            // of a load a byte.
+            const uint32_t* word[K];
+            uint32_t carry[K];
+            int shift[K];
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+                const uint8_t* p = row[k] + off[0];
+                const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
+                word[k] = reinterpret_cast<const uint32_t*>(p - sh);
+                shift[k] = 8 * sh;
+                carry[k] = word[k][0];
+            }
+#pragma unroll 2
+            for (; z + 4 <= s.taps; z += 4) {
+                const double2 w01 = *reinterpret_cast<const double2*>(wo + z);
+                const double2 w23 = *reinterpret_cast<const double2*>(wo + z + 2);
+                const double2 n01 = *reinterpret_cast<const double2*>(nwo + z);
+                const double2 n23 = *reinterpret_cast<const double2*>(nwo + z + 2);
+                const double wz[4] = {w01.x, w01.y, w23.x, w23.y};
+                const double nwz[4] = {n01.x, n01.y, n23.x, n23.y};
+#pragma unroll
+                for (int k = 0; k < K; ++k) {
+                    uint32_t x[C + 1];  // the four taps' 4 C bytes, from byte 0 of x[1]
+                    x[0] = carry[k];
+#pragma unroll
+                    for (int i = 1; i <= C; ++i) x[i] = word[k][i];
+                    word[k] += C;
+                    carry[k] = x[C];
+#pragma unroll
+                    for (int i = 0; i < C; ++i) x[i] = __funnelshift_r(x[i], x[i + 1], shift[k]);
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+                        for (int c = 0; c < C; ++c) {
+                            const int b = j * C + c;
+                            acc[k][c] = tap(acc[k][c], byte_of(x[b / 4], b % 4), wz[j], nwz[j]);
+                        }
+                    }
+                }
+            }
+        } else {
+            for (; z + 4 <= s.taps; z += 4) {  // four taps a step
+                const int4 oz = *reinterpret_cast<const int4*>(off + z);
+                const double2 w01 = *reinterpret_cast<const double2*>(wo + z);
+                const double2 w23 = *reinterpret_cast<const double2*>(wo + z + 2);
+                const double2 n01 = *reinterpret_cast<const double2*>(nwo + z);
+                const double2 n23 = *reinterpret_cast<const double2*>(nwo + z + 2);
+                tap_rows<C, K>(acc, row, oz.x, w01.x, n01.x);
+                tap_rows<C, K>(acc, row, oz.y, w01.y, n01.y);
+                tap_rows<C, K>(acc, row, oz.z, w23.x, n23.x);
+                tap_rows<C, K>(acc, row, oz.w, w23.y, n23.y);
+            }
+        }
+        for (; z < s.taps; ++z) tap_rows<C, K>(acc, row, off[z], wo[z], nwo[z]);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            uint8_t* q = s.out_tile + (lane + 32 * k) * s.out_pitch + o * C;
+#pragma unroll
+            for (int c = 0; c < C; ++c) q[c] = static_cast<uint8_t>(quantize(acc[k][c]));
+        }
+    }
+}
+
+// The same sums with the tables and the pixels read from global memory: the
+// pass's columns do not fit a staged row.
+template <int C, int K>
+__device__ __forceinline__ void sums_gathered(const Cols& s, const Group& g, long long y0) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const uint8_t* row[K];  // rows past the end read the last one; nothing stores them
+#pragma unroll
+    for (int k = 0; k < K; ++k) row[k] = s.src + min(y0 + lane + 32 * k, s.rows - 1) * s.row_bytes;
+    for (int o = warp; o < g.n_out; o += COLS_WARPS) {
+        const int* io = s.idx + (g.o0 + o) * s.taps;
+        const double* wo = s.w + (g.o0 + o) * s.taps;
+        double acc[K][C];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) acc[k][c] = 0.0;
+        }
+#pragma unroll 4
+        for (int z = 0; z < s.taps; ++z) {
+            const long long at = static_cast<long long>(__ldg(io + z)) * C;
+            const double wz = __ldg(wo + z), nwz = neg_shift(wz);
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+#pragma unroll
+                for (int c = 0; c < C; ++c) acc[k][c] = tap(acc[k][c], __ldg(row[k] + at + c), wz, nwz);
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            uint8_t* q = s.out_tile + (lane + 32 * k) * s.out_pitch + o * C;
+#pragma unroll
+            for (int c = 0; c < C; ++c) q[c] = static_cast<uint8_t>(quantize(acc[k][c]));
+        }
+    }
+}
+
+// The output tile's n_rows rows to their places, one warp a row: each row's
+// bytes of the group are one contiguous run of the output, stored as words
+// where the run's address and length allow, else as bytes.
 template <int C>
+__device__ __forceinline__ void store_tile(const Cols& s, const Group& g, long long y0, int n_rows) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n_bytes = g.n_out * C;
+    for (int r = warp; r < n_rows; r += COLS_WARPS) {
+        uint8_t* q = s.dst + ((y0 + r) * s.out_size + g.o0) * C;
+        const uint8_t* from = s.out_tile + r * s.out_pitch;
+        if (((reinterpret_cast<uintptr_t>(q) | n_bytes) & 3) == 0) {
+            for (int j = lane; j < n_bytes / 4; j += 32) {
+                reinterpret_cast<uint32_t*>(q)[j] = reinterpret_cast<const uint32_t*>(from)[j];
+            }
+        } else {
+            for (int j = lane; j < n_bytes; j += 32) q[j] = from[j];
+        }
+    }
+}
+
+// dim 1. The pass's work is items = groups x tiles: group g the outputs
+// [g * outs, ...), tile t the rows [t * 32K, ...) of the batch (its images'
+// rows are one image's here). Block b walks the items [b * items / grid,
+// (b + 1) * items / grid) in order, a group's tiles one after another (so
+// every block has the same work, to a tile): it stages a group's tables once,
+// when it comes to the group (once or twice in its life), and keeps the
+// copies of the group's next tile in flight while it sums one. span: the
+// source columns a staged row holds (0: nothing is staged, every group
+// gathers).
+template <int C, int K>
+__global__ void __launch_bounds__(COLS_THREADS, 2)
+pass_cols_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
+                 const int* __restrict__ idx, const double* __restrict__ w,
+                 long long rows, long long cols, long long out_size, int taps, int outs,
+                 int span, int pitch, int out_pitch, long long tiles, long long items) {
+    constexpr int T = 32 * K;
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ int s_lo[COLS_WARPS], s_hi[COLS_WARPS];
+
+    Cols s;
+    s.src = src;
+    s.row_bytes = cols * C;
+    s.src_end = src + rows * s.row_bytes;
+    s.dst = dst;
+    s.idx = idx;
+    s.w = w;
+    s.rows = rows;
+    s.out_size = out_size;
+    s.taps = taps;
+    s.tz = static_cast<int>(table_row(taps));
+    s.span = span;
+    s.pitch = pitch;
+    s.out_pitch = out_pitch;
+    s.out_tile = smem;
+    const long long table = outs * table_row(taps);
+    s.s_off = reinterpret_cast<int*>(smem + T * out_pitch);
+    s.s_w = reinterpret_cast<double*>(s.s_off + table);
+    s.s_nw = s.s_w + table;
+    s.s_run = reinterpret_cast<int*>(s.s_nw + table);
+    s.staged = reinterpret_cast<uint8_t*>(s.s_run) + (outs * 4 + 15) / 16 * 16;
+
+    const long long begin = blockIdx.x * items / gridDim.x;
+    const long long end = (blockIdx.x + 1) * items / gridDim.x;
+    Group g;
+    g.o0 = -1;
+    long long last = 0;  // the group's last item in this block, plus one
+    for (long long i = begin; i < end; ++i) {
+        const long long t = i % tiles;
+        if (i / tiles * outs != g.o0) {  // a new group: its tables, its first tiles' copies
+            g.o0 = i / tiles * outs;
+            g.n_out = static_cast<int>(min(static_cast<long long>(outs), out_size - g.o0));
+            last = min(end, (i / tiles + 1) * tiles);
+            __syncthreads();  // the last group's tables and buffers are used up
+            g.tiled = false;
+            if (span > 0) stage_tables<C>(s, g, s_lo, s_hi);
+            if (g.tiled) {
+                for (int k = 0; k < STAGES - 1; ++k) {
+                    if (i + k < last) stage_tile<C, K>(s, g, t + k, static_cast<int>((t + k) % STAGES));
+                    __pipeline_commit();
+                }
+            }
+        }
+        if (g.tiled) {  // the copies of tile t + STAGES - 1, then tile t's have landed
+            if (i + STAGES - 1 < last) {
+                stage_tile<C, K>(s, g, t + STAGES - 1, static_cast<int>((t + STAGES - 1) % STAGES));
+            }
+            __pipeline_commit();
+            __pipeline_wait_prior(STAGES - 1);
+        }
+        __syncthreads();  // tile t has landed, the tables are staged, the last outputs stored
+        const long long y0 = t * T;
+        if (g.tiled) {
+            sums_tiled<C, K>(s, g, y0, static_cast<int>(t % STAGES));
+        } else {
+            sums_gathered<C, K>(s, g, y0);
+        }
+        __syncthreads();  // the output tile is whole
+        store_tile<C>(s, g, y0, static_cast<int>(min(static_cast<long long>(T), rows - y0)));
+    }
+}
+
+// dim 1 over `rows` rows with the host's plan (kernels/resize.py::cols_plan):
+// one wave of resident blocks.
+template <int C, int K>
 cudaError_t launch_cols(const uint8_t* src, uint8_t* dst, const int* idx, const double* w,
-                        long long rows, long long cols, long long out_size, int taps,
-                        int device, cudaStream_t stream) {
-    // THREADS neighbouring outputs reach about THREADS / scale source columns
-    // and one row of taps more; the kernel checks what its tables really
-    // reach. As many steps are staged as fit, at least two.
-    const int chunk_taps = taps < TAPS ? taps : TAPS;
-    long long seg_px = static_cast<long long>((THREADS - 1.0) * cols / out_size) + taps + 4;
-    if (seg_px > cols) seg_px = cols;
-    const long long seg_stride = staged_row_bytes(seg_px * C);
-    // Steps ahead until a block has IN_FLIGHT_BYTES on their way: beyond that,
-    // shared memory is better spent on more resident blocks.
-    long long n_stages = (SMEM_MAX_BYTES - table_bytes(chunk_taps)) / (ROWS * seg_stride);
-    const long long wanted = 1 + (IN_FLIGHT_BYTES + ROWS * seg_stride - 1) / (ROWS * seg_stride);
-    if (n_stages > wanted) n_stages = wanted;
-    if (n_stages > MAX_STAGES) n_stages = MAX_STAGES;
-    if (n_stages < 2) n_stages = 0;
-    const size_t smem =
-        static_cast<size_t>(table_bytes(chunk_taps) + n_stages * ROWS * seg_stride);
-    const auto kernel = pass_cols_kernel<C>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(SMEM_MAX_BYTES));
-    // One wave of resident blocks: each walks a strip of rows.
-    int sms = 0, per_sm = 0;
+                        long long rows, long long cols, long long out_size, int taps, int outs,
+                        int span, int pitch, int out_pitch, int device, cudaStream_t stream) {
+    constexpr int T = 32 * K;
+    const long long smem =
+        static_cast<long long>(T) * out_pitch +
+        (span > 0 ? cols_table_bytes(outs, taps) + static_cast<long long>(STAGES) * T * pitch : 0);
+    if (outs < 1 || out_pitch < outs * C || (span > 0 && pitch < span * C + 8)) {
+        return cudaErrorInvalidValue;
+    }
+    // The most dynamic shared memory a block may take: the card's limit less
+    // the kernel's static shared memory. Set to that, not to this launch's
+    // own, so that a graph captured earlier with more stays valid.
+    const auto kernel = pass_cols_kernel<C, K>;
+    cudaFuncAttributes attr;
+    int most = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    }
+    if (err != cudaSuccess) return err;
+    most -= static_cast<int>(attr.sharedSizeBytes);
+    if (smem > most) return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err == cudaSuccess) {
         err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     }
     if (err == cudaSuccess) {
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, COLS_THREADS,
+                                                            static_cast<size_t>(smem));
     }
     if (err != cudaSuccess) return err;
-    const long long blocks_x = (out_size + THREADS - 1) / THREADS;
-    const long long steps = (rows + ROWS - 1) / ROWS;
-    const long long resident = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
-    long long strips = (resident + blocks_x - 1) / blocks_x;
-    if (strips > steps) strips = steps;
-    const long long strip_rows = (steps + strips - 1) / strips * ROWS;
-    strips = (rows + strip_rows - 1) / strip_rows;
-    if (blocks_x * strips > INT_MAX) return cudaErrorInvalidConfiguration;
-    // The kernel stages rows from their aligned chunks by itself.
-    return ipt::launch(kernel, static_cast<unsigned>(blocks_x * strips), THREADS, smem, stream, {},
-                       src, dst, idx, w, rows, cols, out_size, taps, blocks_x, strip_rows,
-                       chunk_taps, static_cast<int>(seg_stride), static_cast<int>(n_stages));
+    const long long tiles = (rows + T - 1) / T;
+    const long long items = (out_size + outs - 1) / outs * tiles;
+    const long long blocks = min(items, static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms);
+    // Any address: the kernel takes rows and words at whatever alignment they have.
+    return ipt::launch(kernel, static_cast<unsigned>(blocks), COLS_THREADS,
+                       static_cast<size_t>(smem), stream, {}, src, dst, idx, w, rows, cols,
+                       out_size, taps, outs, span, pitch, out_pitch, tiles, items);
+}
+
+template <int C>
+cudaError_t launch_cols_by_rows(const uint8_t* src, uint8_t* dst, const int* idx, const double* w,
+                                long long rows, long long cols, long long out_size, int taps,
+                                int outs, int lane_rows, int span, int pitch, int out_pitch,
+                                int device, cudaStream_t stream) {
+    switch (lane_rows) {
+        case 1: return launch_cols<C, 1>(src, dst, idx, w, rows, cols, out_size, taps, outs, span,
+                                         pitch, out_pitch, device, stream);
+        case 2: return launch_cols<C, 2>(src, dst, idx, w, rows, cols, out_size, taps, outs, span,
+                                         pitch, out_pitch, device, stream);
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 // One pass over n images src uint8[n][rows, cols, channels], one after
 // another (see ipt_resize_pass).
 int resize_pass(const void* src, void* dst, const void* idx, const void* w, long long n,
                 long long rows, long long cols, int channels, long long out_size, int taps,
-                int dim, int vec, int device, void* stream) {
+                int dim, int vec, int outs, int lane_rows, int span, int pitch, int out_pitch,
+                int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if ((channels != 1 && channels != 3) || (dim != 0 && dim != 1) || rows < 1 || cols < 1 ||
@@ -497,8 +661,11 @@ int resize_pass(const void* src, void* dst, const void* idx, const void* w, long
     const auto st = static_cast<cudaStream_t>(stream);
     if (dim == 1) {  // the batch's rows are one image's
         const long long all = n * rows;
-        err = channels == 3 ? launch_cols<3>(s, d, i, wt, all, cols, out_size, taps, device, st)
-                            : launch_cols<1>(s, d, i, wt, all, cols, out_size, taps, device, st);
+        err = channels == 3
+                  ? launch_cols_by_rows<3>(s, d, i, wt, all, cols, out_size, taps, outs,
+                                           lane_rows, span, pitch, out_pitch, device, st)
+                  : launch_cols_by_rows<1>(s, d, i, wt, all, cols, out_size, taps, outs,
+                                           lane_rows, span, pitch, out_pitch, device, st);
         return static_cast<int>(err);
     }
     const long long row_bytes = cols * channels;
@@ -516,12 +683,15 @@ int resize_pass(const void* src, void* dst, const void* idx, const void* w, long
 // One pass over src uint8[rows, cols, channels] (channels 1 or 3) with the
 // tables idx int32[out_size, taps] and w float64[out_size, taps]: dim 0 writes
 // dst uint8[out_size, cols, channels] with vec (8, 4, 2 or 1) bytes per
-// thread, dim 1 dst uint8[rows, out_size, channels].
+// thread, dim 1 dst uint8[rows, out_size, channels] by the plan outs,
+// lane_rows, span, pitch, out_pitch (kernels/resize.py::cols_plan; span 0
+// gathers). Each takes the other's arguments as they come.
 extern "C" int ipt_resize_pass(const void* src, void* dst, const void* idx, const void* w,
                                long long rows, long long cols, int channels, long long out_size,
-                               int taps, int dim, int vec, int device, void* stream) {
-    return resize_pass(src, dst, idx, w, 1, rows, cols, channels, out_size, taps, dim, vec,
-                       device, stream);
+                               int taps, int dim, int vec, int outs, int lane_rows, int span,
+                               int pitch, int out_pitch, int device, void* stream) {
+    return resize_pass(src, dst, idx, w, 1, rows, cols, channels, out_size, taps, dim, vec, outs,
+                       lane_rows, span, pitch, out_pitch, device, stream);
 }
 
 // The same pass over each of n images (1 <= n <= 65535) of one shape, one
@@ -529,9 +699,10 @@ extern "C" int ipt_resize_pass(const void* src, void* dst, const void* idx, cons
 // tables, in one launch.
 extern "C" int ipt_resize_pass_batch(const void* src, void* dst, const void* idx, const void* w,
                                      int n, long long rows, long long cols, int channels,
-                                     long long out_size, int taps, int dim, int vec, int device,
-                                     void* stream) {
+                                     long long out_size, int taps, int dim, int vec, int outs,
+                                     int lane_rows, int span, int pitch, int out_pitch,
+                                     int device, void* stream) {
     if (n < 1 || n > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    return resize_pass(src, dst, idx, w, n, rows, cols, channels, out_size, taps, dim, vec,
-                       device, stream);
+    return resize_pass(src, dst, idx, w, n, rows, cols, channels, out_size, taps, dim, vec, outs,
+                       lane_rows, span, pitch, out_pitch, device, stream);
 }

@@ -20,8 +20,10 @@ It prints the card's name and power limit, then one JSON object per line:
   with the full chain (invert, brightness 30, contrast 1.5, threshold 128).
   K1 is also profiled at 45 and 135 degrees, and K9 (two launches per resize,
   listed by kernel name) through ``resize_width`` at 4K -> 1920, 4K -> 256
-  (the ``thumbnail`` preset), 1080p -> 3840 and 4K gray -> 1920, beside the
-  dense float32 form ``resize_width_dense`` at 4K -> 1920;
+  (the ``thumbnail`` preset), 1080p -> 3840 and 4K gray -> 1920, and through
+  ``resize_width_batch`` on a group of ten 4K images -> 256 and -> 1920 (the
+  resident cells' launches), beside the dense float32 form
+  ``resize_width_dense`` at 4K -> 1920;
   ``utils/timing.py``'s feedback of a gray 4K output into an RGB input,
   beside the ``torch.stack`` and ``torch.roll`` form it replaces; the fused
   pipeline, edge_detect, K1 at 30 degrees and K9 at 4K -> 1920 in four row
@@ -138,7 +140,8 @@ def _image(shape, seed: int) -> np.ndarray:
 def profile_kernels(dev, words=()) -> None:
     from imageprocessingtools_tpu_torch.kernels import core, fused, rotate
     from imageprocessingtools_tpu_torch.ops.histogram import _equalize_lut
-    from imageprocessingtools_tpu_torch.ops.resize import resize_width, resize_width_dense
+    from imageprocessingtools_tpu_torch.ops.resize import (resize_width, resize_width_batch,
+                                                           resize_width_dense)
     from imageprocessingtools_tpu_torch.parallel import spatial
     from imageprocessingtools_tpu_torch.utils import timing
 
@@ -146,6 +149,7 @@ def profile_kernels(dev, words=()) -> None:
 
     img = torch.from_numpy(_image((H4K, W4K, 3), seed=1)).to(dev)
     img_1080 = torch.from_numpy(_image((1080, 1920, 3), seed=5)).to(dev)
+    group = torch.stack([img] * 10)  # the resident cells' group of ten 4K images
     inputs = [img] + [torch.from_numpy(_image((H4K, W4K, 3), seed=s)).to(dev) for s in (2, 3, 4)]
     in_turn = itertools.cycle(inputs)
     grays_in_turn = itertools.cycle([core.grayscale_plain(x) for x in inputs])
@@ -202,6 +206,8 @@ def profile_kernels(dev, words=()) -> None:
         "K9 resize_width 4K -> 256, RGB": lambda: resize_width(img, 256),
         "K9 resize_width 1080p -> 3840, RGB": lambda: resize_width(img_1080, 3840),
         "K9 resize_width 4K -> 1920, gray": lambda: resize_width(gray, 1920),
+        "K9 resize_width_batch 4K x 10 -> 256, RGB": lambda: resize_width_batch(group, 256),
+        "K9 resize_width_batch 4K x 10 -> 1920, RGB": lambda: resize_width_batch(group, 1920),
         "dense resize_width_dense 4K -> 1920, RGB": lambda: resize_width_dense(img, 1920),
         # One replay of a band graph each (a one-card mesh), the input's
         # copy-in and the outputs' clone included; then the eager band form

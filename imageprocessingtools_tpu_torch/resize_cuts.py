@@ -12,27 +12,33 @@ cache directory (``utils/cache.py``). A cut kernel gives wrong bytes; only its t
 cut, or comma-joined set of cuts, given on the command line (default: every
 single cut and a few sets) it prints one JSON object: the ms per launch of
 each pass (CUDA events around 30 back-to-back launches, median of 5) at
-4K -> 1920 RGB, 4K -> 256 RGB, 4K gray -> 1920 and 1080p -> 3840 RGB. The
+4K -> 1920 RGB, 4K -> 256 RGB, 4K gray -> 1920 and 1080p -> 3840 RGB, and
+the W pass of ten 4K images -> 1920 and -> 256. The
 launches are made through ctypes in a tight loop; where a pass takes less
 than about 0.012 ms the number is the host's launch rate, not the card's.
 ``base`` is the uncut source, whose bytes are checked against the plain
 version.
 
 ``stamps`` is not a cut: it builds the whole kernel with ``%globaltimer``
-reads in the W pass (dim 1) at each block's start, after its tables, when the
-first and the second step's rows have landed, after the first step's sums and
-at its end, runs each case's W pass once (after two warm-up launches) and
-prints, per case, the least, median and largest time of every stamp over the
-blocks, in us from the first block's start.
+reads in the W pass (dim 1) at each block's start, after its first group's
+tables, when its first and second tile's rows have landed, after the first
+tile's sums and stores, and at its end, runs each case's W pass once (after
+two warm-up launches) and prints, per case, the least, median and largest
+time of every stamp over the blocks, in us from the first block's start.
 
 What the cuts can and cannot show: ``no_f64`` replaces a tap's two f64
 operations (the fused product and the sum) by integer ones, which issue at the
 same rate (16 lanes a cycle and scheduler), so it shows whether the FP64
 unit's latency matters, not what the operations cost to issue.
 ``no_conversion`` drops the fused product's exact addend: the product becomes
-a DMUL of the byte's bits under 2^52's exponent (wrong bytes), and the DMUL
-per tap that forms the addend, -2^52 * w, goes with it, so it shows what the
-addend costs.
+a DMUL of the byte's bits under 2^52's exponent (wrong bytes); the W pass's
+tiled sums read the addend from a staged table (the H pass and the gathered
+sums form it by a DMUL a tap), so there it shows what the addend's operand
+costs. ``no_table_loads`` makes the tiled sums' weights and addends from
+the tap's number instead of the staged tables' broadcasts; ``no_runs`` sends
+every output through the tap-by-tap loads; ``no_quantize`` stores the sums'
+low bits instead of their rounded bytes; ``no_item_sync`` drops the barrier
+between a tile's sums and its stores.
 """
 
 from __future__ import annotations
@@ -61,39 +67,66 @@ CUTS = {
     "no_conversion": [(
         "__fma_rn(__hiloint2double(0x43300000, static_cast<int>(b)), w, nw)",
         "__dmul_rn(__hiloint2double(0x43300000, static_cast<int>(b)), w)", 1)],
-    "no_pixel_loads": [
-        ("                                px = s.seg[staged_at[r] + (ix - s.lo)];",
-         "                                px = staged_at[r] + (ix - s.lo);", 1),
-        ("                                px = __funnelshift_r(wp[0], wp[1], at << 3);",
-         "                                px = at + static_cast<uint32_t>("
-         "reinterpret_cast<uintptr_t>(wp));", 1)],
+    "no_pixel_loads": [(
+        "        for (int c = 0; c < C; ++c) acc[k][c] = tap(acc[k][c], p[c], wz, nwz);",
+        "        for (int c = 0; c < C; ++c) acc[k][c] = tap(acc[k][c],"
+        " static_cast<uint32_t>(reinterpret_cast<uintptr_t>(p + c)) & 255, wz, nwz);", 1)],
+    # dim 1's tiled sums' weights and addends from the tap's number, not
+    # from the staged tables (both the word runs and the tap-by-tap loads).
+    "no_table_loads": [(
+        "                const double2 w01 = *reinterpret_cast<const double2*>(wo + z);\n"
+        "                const double2 w23 = *reinterpret_cast<const double2*>(wo + z + 2);\n"
+        "                const double2 n01 = *reinterpret_cast<const double2*>(nwo + z);\n"
+        "                const double2 n23 = *reinterpret_cast<const double2*>(nwo + z + 2);",
+        "                const double2 w01 = make_double2(0.25 * z, 0.5), w23 = make_double2(0.75, z);"
+        "\n                const double2 n01 = make_double2(-0.5 * z, 2.0), n23 = make_double2(3.0, -z);",
+        2)],
     "no_stores": [
-        ("        if (t < s.n_out) {\n#pragma unroll\n"
-         "            for (int r = 0; r < ROWS; ++r) {\n"
-         "                if (r < n_rows) {\n                    uint8_t* q",
-         "        if (t < s.n_out && acc[0][0] == 12345.678) {\n#pragma unroll\n"
-         "            for (int r = 0; r < ROWS; ++r) {\n"
-         "                if (r < n_rows) {\n                    uint8_t* q", 1),
+        ("            for (int j = lane; j < n_bytes / 4; j += 32) {",
+         "            for (int j = lane; j < n_bytes / 4 - (1 << 30); j += 32) {", 1),
+        ("            for (int j = lane; j < n_bytes; j += 32) q[j] = from[j];",
+         "            for (int j = lane; j < n_bytes - (1 << 30); j += 32) q[j] = from[j];", 1),
         ("    uint8_t* q = dst + o * row_bytes + j;\n",
          "    uint8_t* q = dst + o * row_bytes + j;\n    if (acc[0] != 12345.678) return;\n", 1)],
-    "no_row_staging": [(
-        "        for (int c = threadIdx.x; c < chunks; c += THREADS) {",
-        "        for (int c = threadIdx.x; c < chunks - (1 << 30); c += THREADS) {", 1)],
+    "no_row_staging": [
+        ("            for (int j = lane; j < words; j += 32) __pipeline_memcpy_async(",
+         "            for (int j = lane; j < words - (1 << 30); j += 32) __pipeline_memcpy_async(",
+         1),
+        ("        for (int j = lane; j < words; j += 32) {  // the image's first or last row",
+         "        for (int j = lane; j < words - (1 << 30); j += 32) {  // the image's first or last"
+         " row", 1)],
     "no_tap_loop": [
-        ("                for (int zl = 0; zl < nz; ++zl) {",
-         "                for (int zl = 0; zl < nz - (1 << 30); ++zl) {", 1),
+        ("            for (; z + 4 <= s.taps; z += 4) {",
+         "            for (; z + 4 <= s.taps - (1 << 30); z += 4) {", 2),
+        ("        for (; z < s.taps; ++z) tap_rows",
+         "        for (; z < s.taps - (1 << 30); ++z) tap_rows", 1),
+        ("        for (int z = 0; z < s.taps; ++z) {",
+         "        for (int z = 0; z < s.taps - (1 << 30); ++z) {", 1),
         ("    for (int z = 0; z < taps; ++z) {",
          "    for (int z = 0; z < taps - (1 << 30); ++z) {", 1)],
-    # Also ends the staging of rows: without its tables a block reaches no
+    # Every output of dim 1's tiled sums takes the tap-by-tap loads, none the
+    # run of words.
+    "no_runs": [("        if (s.s_run[o]) {", "        if (s.s_run[o] == 12345) {", 1)],
+    # The bytes' quantization: the sum's low bits instead.
+    "no_quantize": [(
+        "    const int v = __double2int_rd(__dadd_rn(acc, 0.5));",
+        "    const int v = __double2loint(acc);", 1)],
+    # The barrier between a tile's sums and its stores (dim 1).
+    "no_item_sync": [(
+        "        __syncthreads();  // the output tile is whole\n",
+        "        // cut: the barrier before the stores\n", 1)],
+    # Also ends the staging of rows: without its tables a group reaches no
     # column. Only with no_tap_loop: the tap loop would read indices that were
     # never staged.
     "no_tables": [(
-        "    for (int e = threadIdx.x; e < s.n_out * nz; e += THREADS) {",
-        "    for (int e = threadIdx.x; e < s.n_out * nz - (1 << 30); e += THREADS) {", 1)],
+        "    for (long long e = threadIdx.x; e < n; e += COLS_THREADS) {\n"
+        "        const int v = __ldg(idx + e);",
+        "    for (long long e = threadIdx.x; e < n - (1 << 30); e += COLS_THREADS) {\n"
+        "        const int v = __ldg(idx + e);", 1)],
 }
 # (text, the text with a stamp beside it): in-kernel timestamps of dim 1's phases.
-STAMP_NAMES = ["block start", "tables staged, columns known", "step 0's rows landed",
-               "step 1's rows landed", "step 0 summed and stored", "block end"]
+STAMP_NAMES = ["block start", "first tables staged, columns known", "tile 0's rows landed",
+               "tile 1's rows landed", "tile 0 summed and stored", "block end"]
 MAX_STAMPED_BLOCKS = 4096
 STAMPS = [
     ("namespace {\n\nconstexpr int THREADS", """__device__ unsigned long long g_stamps[8 * 4096];
@@ -114,25 +147,30 @@ extern "C" int ipt_resize_stamps(void* out) {
 namespace {
 
 constexpr int THREADS"""),
-    ("    Strip s;\n    s.src = src;", "    stamp(0);\n    Strip s;\n    s.src = src;"),
-    ("    const long long reach = (static_cast<long long>(s_hi)",
-     "    stamp(1);\n    const long long reach = (static_cast<long long>(s_hi)"),
-    ("        __syncthreads();  // every thread's copies for this step have landed\n",
-     "        __syncthreads();  // every thread's copies for this step have landed\n"
-     "        if (step < 2) stamp(2 + static_cast<int>(step));\n"),
-    ("        __syncthreads();  // this step's buffer and the tables' chunk are free\n",
-     "        __syncthreads();  // this step's buffer and the tables' chunk are free\n"
-     "        if (step == 0) stamp(4);\n"),
-    ("        walk_strip<C, false>(s);\n    }\n}",
-     "        walk_strip<C, false>(s);\n    }\n    stamp(5);\n}"),
+    ("    Cols s;\n    s.src = src;", "    stamp(0);\n    Cols s;\n    s.src = src;"),
+    ("            if (span > 0) stage_tables<C>(s, g, s_lo, s_hi);\n",
+     "            if (span > 0) stage_tables<C>(s, g, s_lo, s_hi);\n"
+     "            if (i == begin) stamp(1);\n"),
+    ("        __syncthreads();  // tile t has landed, the tables are staged, the last outputs "
+     "stored\n",
+     "        __syncthreads();  // tile t has landed, the tables are staged, the last outputs "
+     "stored\n        if (i - begin < 2) stamp(2 + static_cast<int>(i - begin));\n"),
+    ("        store_tile<C>(s, g, y0, static_cast<int>(min(static_cast<long long>(T), rows - y0)));"
+     "\n    }\n}",
+     "        store_tile<C>(s, g, y0, static_cast<int>(min(static_cast<long long>(T), rows - y0)));"
+     "\n        if (i == begin) stamp(4);\n    }\n    stamp(5);\n}"),
 ]
 DEFAULT = ["base", *(name for name in CUTS if name != "no_tables"),
-           "no_f64,no_pixel_loads", "no_f64,no_pixel_loads,no_stores",
+           "no_f64,no_pixel_loads", "no_f64,no_pixel_loads,no_table_loads",
            "no_f64,no_pixel_loads,no_stores,no_row_staging", "no_tap_loop,no_tables",
            "no_tap_loop,no_tables,no_stores", "stamps"]
 # label -> (shape, new width)
+# The "x 10" cases are ten 4K images' rows as one image: the W pass of a group
+# of ten (its rows are one image's), with another H pass.
 CASES = {"4K -> 1920 RGB": ((2160, 3840, 3), 1920), "4K -> 256 RGB": ((2160, 3840, 3), 256),
-         "4K -> 1920 gray": ((2160, 3840), 1920), "1080p -> 3840 RGB": ((1080, 1920, 3), 3840)}
+         "4K -> 1920 gray": ((2160, 3840), 1920), "1080p -> 3840 RGB": ((1080, 1920, 3), 3840),
+         "4K x 10 -> 1920 RGB": ((21600, 3840, 3), 1920),
+         "4K x 10 -> 256 RGB": ((21600, 3840, 3), 256)}
 LAUNCHES, REPEATS = 30, 5
 
 

@@ -8,7 +8,9 @@ Each source (by default every ``csrc/*.cu``) is compiled to a cubin with the
 build's own flags and ``-Xptxas -v``; ``cuobjdump -sass`` lists its
 instructions. One JSON line per kernel function: its registers, shared
 memory and spills as ptxas reports them, the number of instructions, and the
-static count of each class below (an instruction in a loop counts once).
+static count of each class below (an instruction in a loop counts once):
+the f64 operations, conversions, memory operations, and the byte work of
+K9's W pass (``PRMT``, ``SHF``; its rows come by ``LDGSTS``, cp.async).
 """
 
 from __future__ import annotations
@@ -35,10 +37,14 @@ CLASSES = {
     "F2I.F64": lambda op: op.startswith("F2I") and ".F64" in op,
     "FRND.F64": lambda op: op.startswith("FRND") and ".F64" in op,
     "MUFU": lambda op: op.startswith("MUFU"),
-    "LDG": lambda op: op.startswith("LDG"),
+    "LDG": lambda op: op.startswith("LDG") and not op.startswith("LDGSTS"),
     "LDS": lambda op: op.startswith("LDS"),
     "STS": lambda op: op.startswith("STS"),
     "STG": lambda op: op.startswith("STG"),
+    "LDGSTS": lambda op: op.startswith("LDGSTS"),  # cp.async: how K9's W pass stages its rows
+    "SHFL": lambda op: op.startswith("SHFL"),
+    "PRMT": lambda op: op.startswith("PRMT"),      # K9: a byte out of a word, one a tap
+    "SHF": lambda op: op.split(".")[0] == "SHF",   # K9: a funnel shift realigns a row's words
     "ATOMS": lambda op: op.startswith("ATOMS"),
     "IDP": lambda op: op.startswith("IDP"),
 }

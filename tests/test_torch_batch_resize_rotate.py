@@ -138,9 +138,10 @@ def test_the_image_grid_axis_limits_k1_and_k9(n, refused):
     # K1: the image on grid.z; K9's H pass: the image on grid.y.
     assert (k1.launch_limit(37, 53, 3, 59, 64, 59, n) is not None) == refused
     assert (k9.launch_limit(37, 53, 3, 16, 8, 0, 1, n) is not None) == refused
-    # K9's W pass takes the batch's rows as one image's: no image axis.
+    # K9's W pass takes the batch's rows as one image's: no image axis, and
+    # one wave of blocks walks its (group, tile) items: no grid to outgrow.
     assert k9.launch_limit(37, 53, 3, 16, 8, 1, 0, n) is None
-    assert k9.launch_limit(2**20, 53, 3, 2**16, 8, 1, 0, 2**16) is not None  # its 1-D grid
+    assert k9.launch_limit(2**20, 53, 3, 2**16, 8, 1, 0, 2**16) is None
     assert k1.launch_limit(37, 53, 3, 59, 64, 59) is None
     assert k9.launch_limit(37, 53, 3, 16, 8, 0, 1) is None
 

@@ -121,10 +121,13 @@ def test_resize_sub_table_band_through_the_c_entry(cuda, n, shape, new_width):
     img = _image(shape, seed=n).to(cuda)
     h, w = shape[:2]
     src = img
+    before = collections.Counter(k9.cols_paths)
     for dim, idx, wts in k9.device_passes(h, w, new_width, cuda):
         if dim == 0:
             break
         src = k9.resize_pass(src, idx, wts, dim)  # the W pass first
+    w_first = k9.device_passes(h, w, new_width, cuda)[0][0] == 1
+    assert _cols_delta(before) == {"tiled": int(w_first), "gathered": 0}
     whole = k9.resize_pass(src, idx, wts, 0)
     for o0, o1, lo, hi, sub_idx, sub_w in spatial._resize_plan(h, w, new_width, (cuda,) * n):
         window = src[lo:hi]
@@ -615,6 +618,95 @@ def test_resize_pass_refuses_what_the_kernel_does_not_take(cuda):
         k9.resize_pass(img, idx.cpu(), wts.cpu(), 0)  # tables on another device
     with pytest.raises(ValueError):
         k9.resize_pass(img, idx, wts, 2)
+
+
+# ---------------------------------------------------------------------------
+# K9's W pass (csrc/resize.cu::pass_cols_kernel): lanes on rows, each group's
+# tables staged once, tiles of rows by cp.async, the host's plan
+# (kernels/resize.py::cols_plan) counted by path in ``k9.cols_paths``.
+# ---------------------------------------------------------------------------
+
+def _cols_delta(before) -> dict:
+    return {path: k9.cols_paths[path] - before[path] for path in ("tiled", "gathered")}
+
+
+def _check_w_path(img, target, path):
+    """``_check_resize`` (both passes byte-equal to the plain version), with
+    its one W-pass launch on ``path``."""
+    before = collections.Counter(k9.cols_paths)
+    _check_resize(img, target)
+    assert _cols_delta(before) == {"tiled": int(path == "tiled"),
+                                   "gathered": int(path == "gathered")}
+
+
+@pytest.mark.parametrize("target,argv", [(256, "thumbnail"), (1920, ["-w1920", "frame.ppm"])])
+def test_w_pass_of_ten_4k_images_through_a_bound_replay(cuda, target, argv):
+    """Ten 4K images through ``process_batch`` as the benchmark's resident
+    cells make them: the capture launches the tiled W pass (counted there,
+    never in a replay), and a later call on a copy of the group at a new
+    address replays the graph with that input bound, byte-equal to the plain
+    passes."""
+    from imageprocessingtools_tpu_torch import cli, serving
+
+    config = argv if isinstance(argv, str) else cli._parse_args(argv)[0]
+    imgs = _image((10, 2160, 3840, 3), seed=target).to(cuda)
+    before = collections.Counter(k9.cols_paths)
+    first = serving.process_batch(imgs, config)[0]
+    delta = _cols_delta(before)
+    assert delta["tiled"] >= 1 and delta["gathered"] == 0
+    moved = imgs.clone()
+    assert moved.data_ptr() != imgs.data_ptr()
+    before, counts = collections.Counter(k9.cols_paths), _plan_counts()
+    out = serving.process_batch(moved, config)[0]
+    assert _cols_delta(before) == {"tiled": 0, "gathered": 0}
+    delta = _plan_delta(counts)
+    assert delta["inputs_bound"] >= 1 and delta["copy_in_bytes"] == 0
+    want = moved
+    for dim, idx, w in k9.device_passes(2160, 3840, target, cuda):
+        want = k9.resize_pass_batch_plain(want, idx, w, dim)
+    torch.cuda.synchronize()
+    assert out.shape == want.shape and torch.equal(out, want) and torch.equal(first, want)
+
+
+@pytest.mark.parametrize("shape,target,path", [
+    ((1080, 1920, 3), 3840, "tiled"),       # an upscale, 4 taps
+    ((2160, 3840), 1920, "tiled"),          # gray
+    ((1079, 1913, 3), 777, "tiled"),        # rows and widths not a multiple of a tile's
+    ((97, 701, 3), 333, "tiled"),
+    ((33, 130), 129, "tiled"),
+    ((2160, 3840, 3), 45, "gathered"),      # 85:1: the columns do not fit
+    ((400, 20000, 3), 100, "gathered"),
+    # the band cases of test_resize_sub_table_band_through_the_c_entry, whole
+    ((1080, 1920, 3), 256, "tiled"), ((97, 701, 3), 1400, "tiled"), ((48, 64), 21, "tiled"),
+], ids=str)
+def test_w_pass_path_and_bytes(cuda, shape, target, path):
+    _check_w_path(_image(shape, seed=sum(shape) + target).to(cuda), target, path)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_w_pass_on_misaligned_source_and_output_views(cuda, offset):
+    """A source view 1-3 bytes off a word boundary (through ``resize_pass``)
+    and an output view as far off (through the C entry, as a graph's bind
+    points a replay at a caller's buffers): the tiled path takes any address,
+    byte-equal to the plain version."""
+    from imageprocessingtools_tpu_torch.kernels import _build
+
+    h, w, new_width = 135, 1001, 333
+    flat = _image((h * w * 3 + offset,), seed=offset).to(cuda)
+    img = flat[offset:].view(h, w, 3)
+    assert img.data_ptr() % 4 == offset
+    (idx, wts), = [t[1:] for t in k9.device_passes(h, w, new_width, cuda) if t[0] == 1]
+    want = k9.resize_pass_plain(img, idx, wts, 1)
+    before = collections.Counter(k9.cols_paths)
+    assert torch.equal(k9.resize_pass(img, idx, wts, 1), want)
+    assert _cols_delta(before) == {"tiled": 1, "gathered": 0}
+    out_flat = torch.zeros(h * new_width * 3 + offset, dtype=torch.uint8, device=cuda)
+    out = out_flat[offset:].view(h, new_width, 3)
+    assert k9.pass_plan(img, new_width, idx.shape[1], 1).path == "tiled"
+    _build.check(_build.library().ipt_resize_pass(*k9.launch_args(img, out, idx, wts, 1)),
+                 "ipt_resize_pass")
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and int(out_flat[:offset].max()) == 0
 
 
 def test_fused_mega_matches_plain(cuda):

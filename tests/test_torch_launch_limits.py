@@ -60,8 +60,13 @@ CASES = {
     "rotate tiles 2^31": (rotate.launch_limit, (GRID, 10, 1, GRID, 32 * 32769, GRID), True),
     # K9: (rows, cols, c, out_size, taps, dim, vec)
     "resize 27000x27000x3 -> 1920": (k9.launch_limit, (27000, 27000, 3, 1920, 29, 1, 0), False),
+    # The W pass walks its (group, tile) items with one wave of blocks: rows
+    # that once took 2^31 blocks of its grid are no limit.
     "resize blocks 2^31 - 1": (k9.launch_limit, (4 * INT_MAX, 1, 1, 128, 4, 1, 0), False),
-    "resize blocks 2^31": (k9.launch_limit, (4 * 2**31, 1, 1, 128, 4, 1, 0), True),
+    "resize blocks 2^31": (k9.launch_limit, (4 * 2**31, 1, 1, 128, 4, 1, 0), False),
+    # The H pass's grid: a block a row piece of an output row.
+    "resize H-pass blocks 2^31 - 1": (k9.launch_limit, (8, 1, 1, INT_MAX, 4, 0, 1), False),
+    "resize H-pass blocks 2^31": (k9.launch_limit, (8, 1, 1, 2**31, 4, 0, 1), True),
     "resize taps 2^31 - 1": (k9.launch_limit, (8, 8, 1, 8, INT_MAX, 0, 8), False),
     "resize taps 2^31": (k9.launch_limit, (8, 8, 1, 8, 2**31, 0, 8), True),
 }

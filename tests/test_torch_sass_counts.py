@@ -32,7 +32,11 @@ _SASS = """\
         /*0070*/                   DSETP.GEU.AND P0, PT, R2, R4, PT ;
         /*0080*/                   ATOMS.POPC.INC.32 RZ, [R3+UR4] ;
         /*0090*/                   IDP.4A.U8.U8 R5, R6, R7, RZ ;
-        /*00a0*/                   EXIT ;
+        /*00a0*/                   LDGSTS.E [R17], desc[UR12][R14.64] ;
+        /*00b0*/                   PRMT R30, R38, 0x4440, RZ ;
+        /*00c0*/                   SHF.R.W.U32 R38, R38, R20, R31 ;
+        /*00d0*/                   SHFL.BFLY PT, R12, R7, 0x10, 0x1f ;
+        /*00e0*/                   EXIT ;
 \t\t..........
 \t\tFunction : _Z1gv
         /*0000*/                   MUFU.RSQ R0, R1 ;
@@ -45,9 +49,10 @@ def test_summarize_counts_each_class_per_function():
     assert [r["function"] for r in rows] == ["_Z1kPd", "_Z1gv"]
     k, g = rows
     assert (k["registers"], k["smem_bytes"], k["spill_store_bytes"]) == (72, 2048, 8)
-    assert k["instructions"] == 11
+    assert k["instructions"] == 15
     assert (k["DADD"], k["DMUL"], k["DSETP"], k["I2F.F64"], k["LDS"], k["LDG"]) == (2, 1, 1, 1, 1, 1)
     assert (k["ATOMS"], k["IDP"]) == (1, 1)
+    assert (k["LDGSTS"], k["PRMT"], k["SHF"], k["SHFL"]) == (1, 1, 1, 1)
     assert k["DFMA"] == k["MUFU"] == k["STG"] == g["ATOMS"] == 0
     assert g["registers"] == 10 and "smem_bytes" not in g
     assert (g["instructions"], g["MUFU"], g["STG"]) == (2, 1, 1)
