@@ -59,20 +59,18 @@
 //   weight's addend -2^52 * w beside it so that its DMUL leaves the loop; the
 //   source columns that the group's tables reach, of the next tiles' rows, are
 //   copied into shared memory (cp.async, 4-byte words, pointer-based) while
-//   this tile's sums run (two buffers). A staged row's pitch is
-//   an odd number of words, so 32 lanes on 32 rows read 32 banks. Where an
-//   output's indices run consecutively (every output but the mirrored ones at
-//   an edge, in the reference's tables), a lane reads its row's bytes of four
-//   taps as aligned words and a funnel shift, not a load a byte: the shared
-//   loads, not the FP64 unit, set the pace here (PERF.md). The sums go
-//   through a shared output tile, so that each row's outputs leave as one
-//   contiguous run. The host (kernels/resize.py::cols_plan) picks K, outs
-//   and the columns a staged row holds from the shape (taps,
-//   cols / out_size, channels); a group whose tables reach further (tables
-//   that are not the reference's) reads its pixels and tables from global
-//   memory instead, and where even the fewest outputs' columns do not fit
-//   shared memory (a downscale beyond about 1/80 at 3 channels) the host has
-//   the whole pass gather so: slower, the same sums.
+//   this tile's sums run (two buffers). A staged row's pitch is an odd number
+//   of words, so 32 lanes on 32 rows, a byte load each a tap, read 32 banks:
+//   those shared loads and the loop's other issue, not the FP64 unit, set the
+//   pace (PERF.md). The sums go through a shared output tile, so that each
+//   row's outputs leave as one contiguous run. launch_cols plans the pass
+//   from the shape (taps, cols / out_size, channels) and the card's shared
+//   memory (cols_plan.cuh: K, outs, the columns a staged row holds); a group
+//   whose tables reach further (tables that are not the reference's) reads
+//   its pixels and tables from global memory instead, and where even the
+//   fewest outputs' columns do not fit shared memory (a downscale beyond
+//   about 1/80 at 3 channels) the whole pass gathers so: slower, the same
+//   sums.
 //
 // The graph's bind (csrc/launch.cuh, utils/graphs.py) points a replay's
 // kernel nodes at a caller's input and output by rewriting their pointer
@@ -88,14 +86,15 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "cols_plan.cuh"
 #include "launch.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;       // dim 0: threads a block
-constexpr int COLS_WARPS = 8;      // dim 1: warps a block
+constexpr int COLS_WARPS = ipt::cols::WARPS;  // dim 1: warps a block
 constexpr int COLS_THREADS = 32 * COLS_WARPS;
-constexpr int STAGES = 2;          // dim 1: tile buffers a block (one tile's copies in flight)
+constexpr int STAGES = ipt::cols::STAGES;     // dim 1: tile buffers a block
 
 // -2^52 * w, exact: the addend that makes tap's fused product exact.
 __device__ __forceinline__ double neg_shift(double w) {
@@ -212,18 +211,6 @@ cudaError_t launch_rows(const uint8_t* src, uint8_t* dst, const int* idx, const 
                        row_bytes, taps, pieces, in_rows * row_bytes, out_size * row_bytes);
 }
 
-// dim 1: a staged table row's taps, a multiple of 4 (16-byte vector loads).
-__host__ __device__ constexpr long long table_row(long long taps) { return (taps + 3) / 4 * 4; }
-
-// dim 1's shared memory, in this order: the output tile (32 * K rows of
-// out_pitch bytes), then, where the pass is tiled, the tables (outs rows of
-// table_row(taps) byte offsets, weights and addends, then a flag an output,
-// padded to 16 bytes) and STAGES buffers of 32 * K source rows of pitch
-// bytes. kernels/resize.py::cols_plan sums the same parts.
-__host__ __device__ constexpr long long cols_table_bytes(long long outs, long long taps) {
-    return outs * table_row(taps) * 20 + (outs * 4 + 15) / 16 * 16;
-}
-
 // What every thread of a dim 1 block knows of the pass.
 struct Cols {
     const uint8_t* src;      // the batch's rows, row_bytes each
@@ -232,12 +219,11 @@ struct Cols {
     const int* idx;
     const double* w;
     long long rows, row_bytes, out_size;
-    int taps, tz, span, pitch, out_pitch;  // tz: table_row(taps)
+    int taps, tz, span, pitch, out_pitch;  // tz: cols::table_row(taps)
     uint8_t* out_tile;       // shared: the tile's output rows
     int* s_off;              // shared: [outs][tz] each tap's byte offset from column lo
     double* s_w;             // shared: [outs][tz] weights
     double* s_nw;            // shared: [outs][tz] -2^52 * weight
-    int* s_run;              // shared: [outs] 1 where an output's indices run i, i + 1, ...
     uint8_t* staged;         // shared: two buffers of the tile's source rows
 };
 
@@ -253,9 +239,8 @@ struct Group {
 // The group's tables into shared memory, each weight's addend beside it,
 // and the columns they reach: the least and the largest index, so that
 // mirrored and repeated indices need no special case. Where the reach fits
-// span, each output is marked where its indices run consecutively, and each
-// index becomes its pixel's byte offset from column lo. Ends with every
-// thread knowing the group.
+// span, each index becomes its pixel's byte offset from column lo. Ends with
+// every thread knowing the group.
 template <int C>
 __device__ __forceinline__ void stage_tables(const Cols& s, Group& g, int* s_lo, int* s_hi) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -292,13 +277,6 @@ __device__ __forceinline__ void stage_tables(const Cols& s, Group& g, int* s_lo,
     g.reach_bytes = (hi - lo + 1) * C;
     g.tiled = hi - lo < s.span;
     if (!g.tiled) return;
-    for (int o = threadIdx.x; o < g.n_out; o += COLS_THREADS) {
-        const int* v = s.s_off + o * s.tz;
-        int run = 1;
-        for (int z = 1; z < s.taps; ++z) run &= v[z] == v[z - 1] + 1;
-        s.s_run[o] = run;
-    }
-    __syncthreads();
     for (long long e = threadIdx.x; e < n; e += COLS_THREADS) {  // each thread its own entries
         const long long at = e / s.taps * s.tz + e % s.taps;
         s.s_off[at] = (s.s_off[at] - lo) * C;
@@ -379,62 +357,16 @@ __device__ __forceinline__ void sums_tiled(const Cols& s, const Group& g, long l
             for (int c = 0; c < C; ++c) acc[k][c] = 0.0;
         }
         int z = 0;
-        if (s.s_run[o]) {
-            // The indices run consecutively: each lane reads its rows' bytes of
-            // four taps as aligned words (one a tap at 3 channels, a quarter of
-            // one at 1), carried over and realigned by a funnel shift, in place
-            // of a load a byte.
-            const uint32_t* word[K];
-            uint32_t carry[K];
-            int shift[K];
-#pragma unroll
-            for (int k = 0; k < K; ++k) {
-                const uint8_t* p = row[k] + off[0];
-                const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
-                word[k] = reinterpret_cast<const uint32_t*>(p - sh);
-                shift[k] = 8 * sh;
-                carry[k] = word[k][0];
-            }
-#pragma unroll 2
-            for (; z + 4 <= s.taps; z += 4) {
-                const double2 w01 = *reinterpret_cast<const double2*>(wo + z);
-                const double2 w23 = *reinterpret_cast<const double2*>(wo + z + 2);
-                const double2 n01 = *reinterpret_cast<const double2*>(nwo + z);
-                const double2 n23 = *reinterpret_cast<const double2*>(nwo + z + 2);
-                const double wz[4] = {w01.x, w01.y, w23.x, w23.y};
-                const double nwz[4] = {n01.x, n01.y, n23.x, n23.y};
-#pragma unroll
-                for (int k = 0; k < K; ++k) {
-                    uint32_t x[C + 1];  // the four taps' 4 C bytes, from byte 0 of x[1]
-                    x[0] = carry[k];
-#pragma unroll
-                    for (int i = 1; i <= C; ++i) x[i] = word[k][i];
-                    word[k] += C;
-                    carry[k] = x[C];
-#pragma unroll
-                    for (int i = 0; i < C; ++i) x[i] = __funnelshift_r(x[i], x[i + 1], shift[k]);
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-                        for (int c = 0; c < C; ++c) {
-                            const int b = j * C + c;
-                            acc[k][c] = tap(acc[k][c], byte_of(x[b / 4], b % 4), wz[j], nwz[j]);
-                        }
-                    }
-                }
-            }
-        } else {
-            for (; z + 4 <= s.taps; z += 4) {  // four taps a step
-                const int4 oz = *reinterpret_cast<const int4*>(off + z);
-                const double2 w01 = *reinterpret_cast<const double2*>(wo + z);
-                const double2 w23 = *reinterpret_cast<const double2*>(wo + z + 2);
-                const double2 n01 = *reinterpret_cast<const double2*>(nwo + z);
-                const double2 n23 = *reinterpret_cast<const double2*>(nwo + z + 2);
-                tap_rows<C, K>(acc, row, oz.x, w01.x, n01.x);
-                tap_rows<C, K>(acc, row, oz.y, w01.y, n01.y);
-                tap_rows<C, K>(acc, row, oz.z, w23.x, n23.x);
-                tap_rows<C, K>(acc, row, oz.w, w23.y, n23.y);
-            }
+        for (; z + 4 <= s.taps; z += 4) {  // four taps a step
+            const int4 oz = *reinterpret_cast<const int4*>(off + z);
+            const double2 w01 = *reinterpret_cast<const double2*>(wo + z);
+            const double2 w23 = *reinterpret_cast<const double2*>(wo + z + 2);
+            const double2 n01 = *reinterpret_cast<const double2*>(nwo + z);
+            const double2 n23 = *reinterpret_cast<const double2*>(nwo + z + 2);
+            tap_rows<C, K>(acc, row, oz.x, w01.x, n01.x);
+            tap_rows<C, K>(acc, row, oz.y, w01.y, n01.y);
+            tap_rows<C, K>(acc, row, oz.z, w23.x, n23.x);
+            tap_rows<C, K>(acc, row, oz.w, w23.y, n23.y);
         }
         for (; z < s.taps; ++z) tap_rows<C, K>(acc, row, off[z], wo[z], nwo[z]);
 #pragma unroll
@@ -531,17 +463,16 @@ pass_cols_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     s.rows = rows;
     s.out_size = out_size;
     s.taps = taps;
-    s.tz = static_cast<int>(table_row(taps));
+    s.tz = static_cast<int>(ipt::cols::table_row(taps));
     s.span = span;
     s.pitch = pitch;
     s.out_pitch = out_pitch;
     s.out_tile = smem;
-    const long long table = outs * table_row(taps);
-    s.s_off = reinterpret_cast<int*>(smem + T * out_pitch);
+    const long long table = outs * ipt::cols::table_row(taps);
+    s.s_off = reinterpret_cast<int*>(smem + ipt::cols::tables_at(K, out_pitch));
     s.s_w = reinterpret_cast<double*>(s.s_off + table);
     s.s_nw = s.s_w + table;
-    s.s_run = reinterpret_cast<int*>(s.s_nw + table);
-    s.staged = reinterpret_cast<uint8_t*>(s.s_run) + (outs * 4 + 15) / 16 * 16;
+    s.staged = smem + ipt::cols::staged_at(K, out_pitch, outs, taps);
 
     const long long begin = blockIdx.x * items / gridDim.x;
     const long long end = (blockIdx.x + 1) * items / gridDim.x;
@@ -583,70 +514,77 @@ pass_cols_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     }
 }
 
-// dim 1 over `rows` rows with the host's plan (kernels/resize.py::cols_plan):
-// one wave of resident blocks.
+// dim 1 over `rows` rows: the plan (cols_plan.cuh) for the shared memory
+// that this kernel may take on the card, then one wave of resident blocks.
+// Where `planned` is not null, the plan is written there and nothing is
+// launched.
 template <int C, int K>
 cudaError_t launch_cols(const uint8_t* src, uint8_t* dst, const int* idx, const double* w,
-                        long long rows, long long cols, long long out_size, int taps, int outs,
-                        int span, int pitch, int out_pitch, int device, cudaStream_t stream) {
+                        long long rows, long long cols, long long out_size, int taps, int device,
+                        cudaStream_t stream, ipt::cols::Plan* planned) {
     constexpr int T = 32 * K;
-    const long long smem =
-        static_cast<long long>(T) * out_pitch +
-        (span > 0 ? cols_table_bytes(outs, taps) + static_cast<long long>(STAGES) * T * pitch : 0);
-    if (outs < 1 || out_pitch < outs * C || (span > 0 && pitch < span * C + 8)) {
-        return cudaErrorInvalidValue;
-    }
-    // The most dynamic shared memory a block may take: the card's limit less
-    // the kernel's static shared memory. Set to that, not to this launch's
-    // own, so that a graph captured earlier with more stays valid.
+    // The most dynamic shared memory a block may take (the card's limit), and
+    // what each of two blocks on one SM may take, both less the kernel's
+    // static shared memory.
     const auto kernel = pass_cols_kernel<C, K>;
     cudaFuncAttributes attr;
-    int most = 0, sms = 0, per_sm = 0;
+    int block = 0, sm = 0, reserved = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
     if (err == cudaSuccess) {
-        err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+        err = cudaDeviceGetAttribute(&block, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    }
+    if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(&sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+    }
+    if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, device);
     }
     if (err != cudaSuccess) return err;
-    most -= static_cast<int>(attr.sharedSizeBytes);
-    if (smem > most) return cudaErrorInvalidValue;
+    const int most = block - static_cast<int>(attr.sharedSizeBytes);
+    const int aim = sm / 2 - reserved - static_cast<int>(attr.sharedSizeBytes);
+    const ipt::cols::Plan p = ipt::cols::plan(cols, C, out_size, taps, most, aim);
+    if (planned) {
+        *planned = p;
+        return cudaSuccess;
+    }
+    // Set to the most, not to this launch's own, so that a graph captured
+    // earlier with more stays valid.
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err == cudaSuccess) {
         err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     }
     if (err == cudaSuccess) {
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, COLS_THREADS,
-                                                            static_cast<size_t>(smem));
+                                                            static_cast<size_t>(p.smem));
     }
     if (err != cudaSuccess) return err;
     const long long tiles = (rows + T - 1) / T;
-    const long long items = (out_size + outs - 1) / outs * tiles;
+    const long long items = (out_size + p.outs - 1) / p.outs * tiles;
     const long long blocks = min(items, static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms);
     // Any address: the kernel takes rows and words at whatever alignment they have.
     return ipt::launch(kernel, static_cast<unsigned>(blocks), COLS_THREADS,
-                       static_cast<size_t>(smem), stream, {}, src, dst, idx, w, rows, cols,
-                       out_size, taps, outs, span, pitch, out_pitch, tiles, items);
+                       static_cast<size_t>(p.smem), stream, {}, src, dst, idx, w, rows, cols,
+                       out_size, taps, p.outs, p.span, p.pitch, p.out_pitch, tiles, items);
 }
 
-template <int C>
-cudaError_t launch_cols_by_rows(const uint8_t* src, uint8_t* dst, const int* idx, const double* w,
-                                long long rows, long long cols, long long out_size, int taps,
-                                int outs, int lane_rows, int span, int pitch, int out_pitch,
-                                int device, cudaStream_t stream) {
-    switch (lane_rows) {
-        case 1: return launch_cols<C, 1>(src, dst, idx, w, rows, cols, out_size, taps, outs, span,
-                                         pitch, out_pitch, device, stream);
-        case 2: return launch_cols<C, 2>(src, dst, idx, w, rows, cols, out_size, taps, outs, span,
-                                         pitch, out_pitch, device, stream);
-        default: return cudaErrorInvalidValue;
-    }
+// launch_cols for `channels` (1 or 3) and the rows a lane that `taps` give.
+cudaError_t launch_cols_for(int channels, const uint8_t* src, uint8_t* dst, const int* idx,
+                            const double* w, long long rows, long long cols, long long out_size,
+                            int taps, int device, cudaStream_t stream,
+                            ipt::cols::Plan* planned = nullptr) {
+    using Launch = cudaError_t (*)(const uint8_t*, uint8_t*, const int*, const double*, long long,
+                                   long long, long long, int, int, cudaStream_t, ipt::cols::Plan*);
+    const Launch launches[2][2] = {  // [3 channels][one row a lane]
+        {launch_cols<1, 2>, launch_cols<1, 1>}, {launch_cols<3, 2>, launch_cols<3, 1>}};
+    return launches[channels == 3][ipt::cols::lane_rows(taps) == 1](
+        src, dst, idx, w, rows, cols, out_size, taps, device, stream, planned);
 }
 
 // One pass over n images src uint8[n][rows, cols, channels], one after
 // another (see ipt_resize_pass).
 int resize_pass(const void* src, void* dst, const void* idx, const void* w, long long n,
                 long long rows, long long cols, int channels, long long out_size, int taps,
-                int dim, int vec, int outs, int lane_rows, int span, int pitch, int out_pitch,
-                int device, void* stream) {
+                int dim, int vec, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if ((channels != 1 && channels != 3) || (dim != 0 && dim != 1) || rows < 1 || cols < 1 ||
@@ -660,13 +598,8 @@ int resize_pass(const void* src, void* dst, const void* idx, const void* w, long
     const auto wt = static_cast<const double*>(w);
     const auto st = static_cast<cudaStream_t>(stream);
     if (dim == 1) {  // the batch's rows are one image's
-        const long long all = n * rows;
-        err = channels == 3
-                  ? launch_cols_by_rows<3>(s, d, i, wt, all, cols, out_size, taps, outs,
-                                           lane_rows, span, pitch, out_pitch, device, st)
-                  : launch_cols_by_rows<1>(s, d, i, wt, all, cols, out_size, taps, outs,
-                                           lane_rows, span, pitch, out_pitch, device, st);
-        return static_cast<int>(err);
+        return static_cast<int>(
+            launch_cols_for(channels, s, d, i, wt, n * rows, cols, out_size, taps, device, st));
     }
     const long long row_bytes = cols * channels;
     switch (vec) {
@@ -683,15 +616,12 @@ int resize_pass(const void* src, void* dst, const void* idx, const void* w, long
 // One pass over src uint8[rows, cols, channels] (channels 1 or 3) with the
 // tables idx int32[out_size, taps] and w float64[out_size, taps]: dim 0 writes
 // dst uint8[out_size, cols, channels] with vec (8, 4, 2 or 1) bytes per
-// thread, dim 1 dst uint8[rows, out_size, channels] by the plan outs,
-// lane_rows, span, pitch, out_pitch (kernels/resize.py::cols_plan; span 0
-// gathers). Each takes the other's arguments as they come.
+// thread, dim 1 dst uint8[rows, out_size, channels].
 extern "C" int ipt_resize_pass(const void* src, void* dst, const void* idx, const void* w,
                                long long rows, long long cols, int channels, long long out_size,
-                               int taps, int dim, int vec, int outs, int lane_rows, int span,
-                               int pitch, int out_pitch, int device, void* stream) {
-    return resize_pass(src, dst, idx, w, 1, rows, cols, channels, out_size, taps, dim, vec, outs,
-                       lane_rows, span, pitch, out_pitch, device, stream);
+                               int taps, int dim, int vec, int device, void* stream) {
+    return resize_pass(src, dst, idx, w, 1, rows, cols, channels, out_size, taps, dim, vec,
+                       device, stream);
 }
 
 // The same pass over each of n images (1 <= n <= 65535) of one shape, one
@@ -699,10 +629,27 @@ extern "C" int ipt_resize_pass(const void* src, void* dst, const void* idx, cons
 // tables, in one launch.
 extern "C" int ipt_resize_pass_batch(const void* src, void* dst, const void* idx, const void* w,
                                      int n, long long rows, long long cols, int channels,
-                                     long long out_size, int taps, int dim, int vec, int outs,
-                                     int lane_rows, int span, int pitch, int out_pitch,
-                                     int device, void* stream) {
+                                     long long out_size, int taps, int dim, int vec, int device,
+                                     void* stream) {
     if (n < 1 || n > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    return resize_pass(src, dst, idx, w, n, rows, cols, channels, out_size, taps, dim, vec, outs,
-                       lane_rows, span, pitch, out_pitch, device, stream);
+    return resize_pass(src, dst, idx, w, n, rows, cols, channels, out_size, taps, dim, vec,
+                       device, stream);
+}
+
+// The path of the W pass (dim 1) that ipt_resize_pass plans on `device` for
+// rows of cols pixels of channels (1 or 3) to out_size with taps taps: *tiled
+// 1 where each tile's source rows are staged in shared memory, 0 where the
+// pass gathers from global memory. Launches nothing.
+extern "C" int ipt_resize_cols_tiled(long long cols, int channels, long long out_size, int taps,
+                                     int device, int* tiled) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if ((channels != 1 && channels != 3) || cols < 1 || out_size < 1 || taps < 1) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    ipt::cols::Plan p{};
+    err = launch_cols_for(channels, nullptr, nullptr, nullptr, nullptr, 1, cols, out_size, taps,
+                          device, nullptr, &p);
+    if (err == cudaSuccess) *tiled = p.tiled;
+    return static_cast<int>(err);
 }

@@ -116,12 +116,14 @@ _SIGNATURES = {
     "ipt_sharpen_batch": [_P, _P, _I, _I, _I, _I, _P],
     "ipt_sobel_batch": [_P, _P, _I, _I, _I, _I, _P],
     # src, dst, idx, w, rows, cols, channels, out_size, taps, dim, vec (dim 0's bytes
-    # per thread), dim 1's plan (outs, lane_rows, span, pitch, out_pitch), device, stream
+    # per thread), device, stream
     "ipt_resize_pass": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _I,
-                        ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                        ctypes.c_longlong, _I, _I, _I, _I, _P],
     # the same with N images first: src, dst, idx, w, N, rows, cols, ...
     "ipt_resize_pass_batch": [_P, _P, _P, _P, _I, ctypes.c_longlong, ctypes.c_longlong, _I,
-                              ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                              ctypes.c_longlong, _I, _I, _I, _I, _P],
+    # cols, channels, out_size, taps, device, tiled (int*): the W pass's planned path
+    "ipt_resize_cols_tiled": [ctypes.c_longlong, _I, ctypes.c_longlong, _I, _I, _P],
     # out (int32[n]), n, device, stream: Sobel's clipped root of 0..n-1 (a test entry)
     "ipt_sobel_out_test": [_P, _I, _I, _P],
     # CUDA graphs' notes and bindings (csrc/launch.cuh, utils/graphs.py):

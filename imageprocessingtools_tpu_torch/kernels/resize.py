@@ -12,16 +12,16 @@ tensor and launches the kernel for a CUDA tensor. ``resize_pass_batch`` is the
 same pass over each image of a batch of one shape in one launch with the same
 tables (``jax.vmap``'s one op over the batch). ``device_passes`` keeps each
 geometry's two tables on the device, so only a geometry's first call uploads
-anything. ``cols_plan`` is the W pass's plan, which the host makes from the
-shape: tiled (source rows staged in shared memory) or gathered;
-``cols_paths`` counts the W-pass launches by it.
+anything. ``cols_paths`` counts the W-pass launches by the path that the C
+host code plans for them from the shape (``csrc/cols_plan.cuh``): tiled
+(source rows staged in shared memory) or gathered.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 import functools
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,79 +35,10 @@ _THREADS = 128               # dim 0: threads a block (csrc/resize.cu)
 _VECS = (8, 4, 2, 1)         # dim 0: the bytes per thread that the kernel takes, most first
 _BLOCKS_PER_SM = 4           # dim 0: the fewest blocks per SM that rows_vec aims at
 _MAX_BLOCKS = 2**31 - 1      # a one-dimensional grid
-_LANE_ROWS = 2               # dim 1: rows a lane sums (a tile is 32 of them a lane) ...
-_MANY_TAPS = 16              # dim 1: ... and 1 above this many taps
-_STAGES = 2                  # dim 1: tile buffers a block (csrc/resize.cu's STAGES)
-_COLS_OUTS = (64, 32, 16, 8)  # dim 1: outputs a block (a multiple of its 8 warps), most first
-_SMEM_MAX = 226 * 1024       # dim 1: the most shared memory a block takes (an H100 allows 227 KB)
-_SMEM_AIM = _SMEM_MAX // 2   # dim 1: what cols_plan aims at: two blocks on an SM
-_REACH_SLACK = 4             # dim 1: columns beyond the reach that the scale gives
-
-# W-pass launches by the path of their plan (``cols_plan``): "tiled" and
-# "gathered". Counted where the launch is made: under a graph at its capture.
+# W-pass launches by the path of their plan (``csrc/cols_plan.cuh``): "tiled"
+# and "gathered". Counted where the launch is made: under a graph at its
+# capture.
 cols_paths = collections.Counter()
-
-
-class ColsPlan(NamedTuple):
-    """The W pass's launch plan (``csrc/resize.cu::pass_cols_kernel``):
-    ``path`` "tiled" (each tile's source rows staged in shared memory) or
-    "gathered" (read from global memory); ``outs`` outputs a block;
-    ``lane_rows`` rows a lane (a tile is ``32 * lane_rows`` rows); ``span``
-    the source columns a staged row holds (0: gathered); ``pitch`` and
-    ``out_pitch`` the bytes a staged source row and an output row of the tile
-    take; ``smem`` the block's shared memory."""
-
-    path: str
-    outs: int
-    lane_rows: int
-    span: int
-    pitch: int
-    out_pitch: int
-    smem: int
-
-
-def _odd_words(nbytes: int) -> int:
-    """The fewest bytes, at least ``nbytes``, that are an odd number of 4-byte
-    words: rows at that pitch put 32 lanes' words in 32 banks."""
-    return 4 * (-(-nbytes // 4) | 1)
-
-
-def cols_reach(cols: int, out_size: int, taps: int, outs: int) -> int:
-    """The source columns that ``outs`` neighbouring outputs' tables reach at
-    most, as ``_exact.calc_contributions`` makes them: their windows start
-    ``cols / out_size`` columns apart and hold ``taps`` columns (mirrored
-    indices at an edge stay inside the window's width), with
-    ``_REACH_SLACK`` columns to spare; never more than the row."""
-    return min(cols, -(-(min(outs, out_size) - 1) * cols // out_size) + taps + _REACH_SLACK)
-
-
-def cols_plan(cols: int, c: int, out_size: int, taps: int) -> ColsPlan:
-    """The W pass's plan for rows of ``cols`` pixels of ``c`` channels to
-    ``out_size`` with ``taps`` taps, from the shape alone: tiled with the most
-    outputs a block (``_COLS_OUTS``) whose shared memory is within
-    ``_SMEM_AIM``, else the fewest within ``_SMEM_MAX``; gathered where even
-    those do not fit. A lane sums ``_LANE_ROWS`` rows, one where the taps are
-    many (their own length spreads each output's fixed costs, and half the
-    rows a tile leave room for more outputs a block) (a pure function)."""
-    lane_rows = 1 if taps > _MANY_TAPS else _LANE_ROWS
-    rows = 32 * lane_rows
-    fits = []
-    for outs in _COLS_OUTS:
-        span = cols_reach(cols, out_size, taps, outs)
-        pitch, out_pitch = _odd_words(span * c + 8), _odd_words(outs * c)
-        # rows of taps padded to 4: offsets, weights, addends; a flag an output
-        tables = outs * -(-taps // 4) * 4 * 20 + -(-outs * 4 // 16) * 16
-        smem = rows * out_pitch + tables + _STAGES * rows * pitch
-        if smem <= _SMEM_MAX:
-            fits.append(ColsPlan("tiled", outs, lane_rows, span, pitch, out_pitch, smem))
-    for plan in fits:
-        if plan.smem <= _SMEM_AIM:
-            return plan
-    if fits:
-        return fits[-1]
-    outs = _COLS_OUTS[0]
-    out_pitch = _odd_words(outs * c)
-    return ColsPlan("gathered", outs, lane_rows, 0, 0, out_pitch, rows * out_pitch)
 
 
 def rows_vec(out_size: int, row_bytes: int, sms: int) -> int:
@@ -124,6 +55,18 @@ def rows_vec(out_size: int, row_bytes: int, sms: int) -> int:
 @functools.cache
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def cols_path(cols: int, c: int, out_size: int, taps: int, device: int) -> str:
+    """The path, "tiled" or "gathered", that the W pass over rows of ``cols``
+    pixels of ``c`` channels to ``out_size`` with ``taps`` taps takes on CUDA
+    card ``device``: the C host code's plan (``ipt_resize_cols_tiled``)."""
+    tiled = ctypes.c_int()
+    _build.check(_build.library().ipt_resize_cols_tiled(cols, c, out_size, taps, device,
+                                                        ctypes.addressof(tiled)),
+                 "ipt_resize_cols_tiled")
+    return "tiled" if tiled.value else "gathered"
 
 
 def pass_vec(img: torch.Tensor, out_size: int, dim: int, n: int = 1) -> int:
@@ -211,34 +154,16 @@ def resize_pass_batch_plain(imgs: torch.Tensor, idx: torch.Tensor, w: torch.Tens
     return resize_pass_plain(imgs, idx, w, dim + 1)
 
 
-def pass_plan(img: torch.Tensor, out_size: int, taps: int, dim: int) -> ColsPlan | None:
-    """dim 1's ``cols_plan`` for ``img`` (uint8[..., W(, C)] images of
-    ``img.shape[1]`` columns, ``img.ndim`` 2 or 3 for one image); None for
-    dim 0."""
-    if dim != 1:
-        return None
-    return cols_plan(img.shape[1], 1 if img.ndim == 2 else img.shape[2], out_size, taps)
-
-
-def _plan_args(plan: ColsPlan | None) -> tuple:
-    """The C entry's dim-1 arguments: outs, lane_rows, span, pitch, out_pitch."""
-    return (0,) * 5 if plan is None else plan[1:6]
-
-
 def launch_args(img: torch.Tensor, out: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
-                dim: int, vec: int | None = None, plan: ColsPlan | None = None) -> tuple:
+                dim: int, vec: int | None = None) -> tuple:
     """``ipt_resize_pass``'s arguments for one pass of ``img`` (uint8[H, W, C]
     or [H, W], on a CUDA device) into ``out``; dim 0 with ``vec`` bytes per
-    thread, by default ``pass_vec``'s, dim 1 by ``plan``, by default
-    ``pass_plan``'s."""
+    thread, by default ``pass_vec``'s."""
     if vec is None:
         vec = pass_vec(img, idx.shape[0], dim)
-    if plan is None:
-        plan = pass_plan(img, idx.shape[0], idx.shape[1], dim)
     return (img.data_ptr(), out.data_ptr(), idx.data_ptr(), w.data_ptr(), img.shape[0],
             img.shape[1], 1 if img.ndim == 2 else img.shape[2], idx.shape[0], idx.shape[1], dim,
-            vec, *_plan_args(plan), img.device.index,
-            torch.cuda.current_stream(img.device).cuda_stream)
+            vec, img.device.index, torch.cuda.current_stream(img.device).cuda_stream)
 
 
 def _checked(name: str, img: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
@@ -275,17 +200,17 @@ def resize_pass(img: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, dim: int)
     if out.numel():
         if taps < 1 or img.numel() == 0:
             raise ValueError(f"resize_pass: no taps or no source for a {out_shape} output")
-        vec, plan = pass_vec(img, out_size, dim), pass_plan(img, out_size, taps, dim)
+        vec = pass_vec(img, out_size, dim)
         reason = launch_limit(rows, cols, c, out_size, taps, dim, vec)
         if reason:
             raise _build.TooLarge(
                 f"resize_pass: {rows}x{cols}x{c} -> {out_shape} with {taps} taps is too "
                 f"large for one launch: {reason}")
-        status = _build.library().ipt_resize_pass(*launch_args(img, out, idx, w, dim, vec, plan))
+        status = _build.library().ipt_resize_pass(*launch_args(img, out, idx, w, dim, vec))
         _build.check(status, "ipt_resize_pass")
         resize_pass.launches += 1
-        if plan:
-            cols_paths[plan.path] += 1
+        if dim == 1:
+            cols_paths[cols_path(cols, c, out_size, taps, img.device.index)] += 1
     return out[:, :, 0] if squeeze else out
 
 
@@ -308,7 +233,7 @@ def resize_pass_batch(imgs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     if out.numel():
         if taps < 1 or imgs.numel() == 0:
             raise ValueError(f"resize_pass_batch: no taps or no source for a {out_shape} output")
-        vec, plan = pass_vec(imgs[0], out_size, dim, n), pass_plan(imgs[0], out_size, taps, dim)
+        vec = pass_vec(imgs[0], out_size, dim, n)
         reason = launch_limit(rows, cols, c, out_size, taps, dim, vec, n)
         if reason:
             raise _build.TooLarge(
@@ -316,12 +241,12 @@ def resize_pass_batch(imgs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                 f"too large for one launch: {reason}")
         status = _build.library().ipt_resize_pass_batch(
             imgs.data_ptr(), out.data_ptr(), idx.data_ptr(), w.data_ptr(), n, rows, cols, c,
-            out_size, taps, dim, vec, *_plan_args(plan), imgs.device.index,
+            out_size, taps, dim, vec, imgs.device.index,
             torch.cuda.current_stream(imgs.device).cuda_stream)
         _build.check(status, "ipt_resize_pass_batch")
         resize_pass_batch.launches += 1
-        if plan:
-            cols_paths[plan.path] += 1
+        if dim == 1:
+            cols_paths[cols_path(cols, c, out_size, taps, imgs.device.index)] += 1
     return out[..., 0] if squeeze else out
 
 

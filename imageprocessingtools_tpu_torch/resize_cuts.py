@@ -35,9 +35,8 @@ a DMUL of the byte's bits under 2^52's exponent (wrong bytes); the W pass's
 tiled sums read the addend from a staged table (the H pass and the gathered
 sums form it by a DMUL a tap), so there it shows what the addend's operand
 costs. ``no_table_loads`` makes the tiled sums' weights and addends from
-the tap's number instead of the staged tables' broadcasts; ``no_runs`` sends
-every output through the tap-by-tap loads; ``no_quantize`` stores the sums'
-low bits instead of their rounded bytes; ``no_item_sync`` drops the barrier
+the tap's number instead of the staged tables' broadcasts; ``no_quantize``
+stores the sums' low bits instead of their rounded bytes; ``no_item_sync`` drops the barrier
 between a tile's sums and its stores.
 """
 
@@ -72,15 +71,15 @@ CUTS = {
         "        for (int c = 0; c < C; ++c) acc[k][c] = tap(acc[k][c],"
         " static_cast<uint32_t>(reinterpret_cast<uintptr_t>(p + c)) & 255, wz, nwz);", 1)],
     # dim 1's tiled sums' weights and addends from the tap's number, not
-    # from the staged tables (both the word runs and the tap-by-tap loads).
+    # from the staged tables.
     "no_table_loads": [(
-        "                const double2 w01 = *reinterpret_cast<const double2*>(wo + z);\n"
-        "                const double2 w23 = *reinterpret_cast<const double2*>(wo + z + 2);\n"
-        "                const double2 n01 = *reinterpret_cast<const double2*>(nwo + z);\n"
-        "                const double2 n23 = *reinterpret_cast<const double2*>(nwo + z + 2);",
-        "                const double2 w01 = make_double2(0.25 * z, 0.5), w23 = make_double2(0.75, z);"
-        "\n                const double2 n01 = make_double2(-0.5 * z, 2.0), n23 = make_double2(3.0, -z);",
-        2)],
+        "            const double2 w01 = *reinterpret_cast<const double2*>(wo + z);\n"
+        "            const double2 w23 = *reinterpret_cast<const double2*>(wo + z + 2);\n"
+        "            const double2 n01 = *reinterpret_cast<const double2*>(nwo + z);\n"
+        "            const double2 n23 = *reinterpret_cast<const double2*>(nwo + z + 2);",
+        "            const double2 w01 = make_double2(0.25 * z, 0.5), w23 = make_double2(0.75, z);"
+        "\n            const double2 n01 = make_double2(-0.5 * z, 2.0), n23 = make_double2(3.0, -z);",
+        1)],
     "no_stores": [
         ("            for (int j = lane; j < n_bytes / 4; j += 32) {",
          "            for (int j = lane; j < n_bytes / 4 - (1 << 30); j += 32) {", 1),
@@ -96,17 +95,14 @@ CUTS = {
          "        for (int j = lane; j < words - (1 << 30); j += 32) {  // the image's first or last"
          " row", 1)],
     "no_tap_loop": [
-        ("            for (; z + 4 <= s.taps; z += 4) {",
-         "            for (; z + 4 <= s.taps - (1 << 30); z += 4) {", 2),
+        ("        for (; z + 4 <= s.taps; z += 4) {",
+         "        for (; z + 4 <= s.taps - (1 << 30); z += 4) {", 1),
         ("        for (; z < s.taps; ++z) tap_rows",
          "        for (; z < s.taps - (1 << 30); ++z) tap_rows", 1),
         ("        for (int z = 0; z < s.taps; ++z) {",
          "        for (int z = 0; z < s.taps - (1 << 30); ++z) {", 1),
         ("    for (int z = 0; z < taps; ++z) {",
          "    for (int z = 0; z < taps - (1 << 30); ++z) {", 1)],
-    # Every output of dim 1's tiled sums takes the tap-by-tap loads, none the
-    # run of words.
-    "no_runs": [("        if (s.s_run[o]) {", "        if (s.s_run[o] == 12345) {", 1)],
     # The bytes' quantization: the sum's low bits instead.
     "no_quantize": [(
         "    const int v = __double2int_rd(__dadd_rn(acc, 0.5));",

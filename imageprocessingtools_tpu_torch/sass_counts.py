@@ -9,8 +9,9 @@ build's own flags and ``-Xptxas -v``; ``cuobjdump -sass`` lists its
 instructions. One JSON line per kernel function: its registers, shared
 memory and spills as ptxas reports them, the number of instructions, and the
 static count of each class below (an instruction in a loop counts once):
-the f64 operations, conversions, memory operations, and the byte work of
-K9's W pass (``PRMT``, ``SHF``; its rows come by ``LDGSTS``, cp.async).
+the f64 operations, conversions, memory operations, and the byte and copy
+work of K9 (``PRMT``, ``SHF``; the W pass's rows come by ``LDGSTS``,
+cp.async).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ CLASSES = {
     "LDGSTS": lambda op: op.startswith("LDGSTS"),  # cp.async: how K9's W pass stages its rows
     "SHFL": lambda op: op.startswith("SHFL"),
     "PRMT": lambda op: op.startswith("PRMT"),      # K9: a byte out of a word, one a tap
-    "SHF": lambda op: op.split(".")[0] == "SHF",   # K9: a funnel shift realigns a row's words
+    "SHF": lambda op: op.split(".")[0] == "SHF",   # funnel and 64-bit shifts
     "ATOMS": lambda op: op.startswith("ATOMS"),
     "IDP": lambda op: op.startswith("IDP"),
 }

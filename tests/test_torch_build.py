@@ -69,3 +69,35 @@ def test_build_reports_every_failing_source_and_leaves_nothing(fake_tree):
     assert "b.cu: #error" in str(err.value)
     assert str(err.value).count("nvcc failed") == 1  # a.cu compiled
     assert list(build.iterdir()) == []
+
+
+def _c_entries() -> dict:
+    """name -> its parameters' C types, for each ``extern "C"`` entry that
+    ``csrc/*.cu`` defines."""
+    import re
+
+    entries = {}
+    for src in _build.sources():
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (ipt_\w+)\(([^)]*)\)', text):
+            params = [" ".join(p.split()[:-1]) for p in m.group(2).split(",") if p.strip()]
+            entries[m.group(1)] = params
+    return entries
+
+
+def test_every_signature_takes_its_c_entrys_parameters():
+    """``_SIGNATURES`` gives each C entry as many arguments as it has, and a
+    64-bit type where it takes a long long or a pointer: a mismatch would
+    pass wrong arguments without an error, and an entry that is not there
+    fails the library's load on the card."""
+    import ctypes
+
+    entries = _c_entries()
+    wide = {ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_void_p}
+    for name, argtypes in _build._SIGNATURES.items():
+        assert name in entries, name
+        params = entries[name]
+        assert len(argtypes) == len(params), name
+        for c_type, argtype in zip(params, argtypes):
+            is_wide = argtype in wide or issubclass(argtype, ctypes._Pointer)
+            assert is_wide == ("*" in c_type or "long long" in c_type), (name, c_type)

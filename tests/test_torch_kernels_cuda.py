@@ -622,8 +622,8 @@ def test_resize_pass_refuses_what_the_kernel_does_not_take(cuda):
 
 # ---------------------------------------------------------------------------
 # K9's W pass (csrc/resize.cu::pass_cols_kernel): lanes on rows, each group's
-# tables staged once, tiles of rows by cp.async, the host's plan
-# (kernels/resize.py::cols_plan) counted by path in ``k9.cols_paths``.
+# tables staged once, tiles of rows by cp.async, the C host code's plan
+# (csrc/cols_plan.cuh) counted by path in ``k9.cols_paths``.
 # ---------------------------------------------------------------------------
 
 def _cols_delta(before) -> dict:
@@ -702,11 +702,33 @@ def test_w_pass_on_misaligned_source_and_output_views(cuda, offset):
     assert _cols_delta(before) == {"tiled": 1, "gathered": 0}
     out_flat = torch.zeros(h * new_width * 3 + offset, dtype=torch.uint8, device=cuda)
     out = out_flat[offset:].view(h, new_width, 3)
-    assert k9.pass_plan(img, new_width, idx.shape[1], 1).path == "tiled"
+    assert k9.cols_path(w, 3, new_width, idx.shape[1], img.device.index) == "tiled"
     _build.check(_build.library().ipt_resize_pass(*k9.launch_args(img, out, idx, wts, 1)),
                  "ipt_resize_pass")
     torch.cuda.synchronize()
     assert torch.equal(out, want) and int(out_flat[:offset].max()) == 0
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_w_pass_groups_that_reach_past_a_staged_row_gather(cuda, n):
+    """Tables that are not the reference's: a few outputs of 4K -> 1920 also
+    reach column 0 and the last column, so their groups' columns are wider
+    than the plan's staged rows (planned from the shape: tiled). Those groups
+    read their pixels and tables from global memory inside the tiled launch,
+    the others stage theirs; every byte equals the plain version's."""
+    h, w, new_width = 75, 3840, 1920
+    (idx, wts), = [t[1:] for t in k9.device_passes(h, w, new_width, cuda) if t[0] == 1]
+    idx = idx.clone()
+    for o in (5, 700, 1919):  # in the first, a middle and the last group
+        idx[o, 0], idx[o, -1] = w - 1, 0
+    imgs = _image((n, h, w, 3), seed=n).to(cuda)
+    assert k9.cols_path(w, 3, new_width, idx.shape[1], imgs.device.index) == "tiled"
+    before = collections.Counter(k9.cols_paths)
+    out = k9.resize_pass_batch(imgs, idx, wts, 1) if n > 1 else k9.resize_pass(imgs[0], idx, wts, 1)
+    assert _cols_delta(before) == {"tiled": 1, "gathered": 0}
+    want = k9.resize_pass_batch_plain(imgs, idx, wts, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want if n > 1 else want[0])
 
 
 def test_fused_mega_matches_plain(cuda):
