@@ -52,7 +52,8 @@ also gives what the run added to ``utils.graphs``' counters:
 ``inputs_bound`` and ``outputs_bound`` (replays that read their input and
 wrote their output where they lie on the card, which files read from the
 host never do), ``copy_in_bytes`` (bytes copied card to card into
-graphs' inputs), all 0 on the CPU, where nothing is captured; and what
+graphs' inputs) and ``copy_out_bytes`` (out of graphs' outputs that were
+not bound), all 0 on the CPU, where nothing is captured; and what
 it added to ``kernels/rotate.py``'s ``plans_made``, as ``rotate_plans_made``
 (K1's host tile plans made, one per rotation geometry, which the CPU's
 plain rotation also makes to check its rows), and to ``utils/graphs.py``'s

@@ -112,7 +112,8 @@ Counters (``counts()``; always on): graphs captured, graphs the byte bound
 dropped, replays, bytes copied from the host into a graph's input
 (``upload_bytes``), replays whose input and whose output were bound
 (``inputs_bound``, ``outputs_bound``), and bytes copied card to card into a
-graph's input (``copy_in_bytes``, the fallback); apart from these,
+graph's input (``copy_in_bytes``, the fallback) and out of a graph's
+outputs that were not bound (``copy_out_bytes``); apart from these,
 ``dispatch_plans_made`` and ``dispatch_plan_hits`` (the plans of batches on
 a card, and the calls that took one). Spans (``utils.profiling.span``,
 recorded only inside a recording; they change no native call):
@@ -420,6 +421,14 @@ def _clone(out):
     return type(out)(_clone(o) for o in out)
 
 
+def _copied_out(out) -> None:
+    """Count the bytes of a graph's outputs ``out`` (a tensor, or a tuple
+    or list of them) that are copied out of it."""
+    global copy_out_bytes
+    copy_out_bytes += sum(t.nbytes for t in pytree.tree_leaves(out)
+                          if isinstance(t, torch.Tensor))
+
+
 class Buffer(NamedTuple):
     """Where a tensor lies: its device, shape, strides, address and bytes."""
 
@@ -621,6 +630,7 @@ upload_bytes = 0  # bytes copied from the host into graphs' inputs
 inputs_bound = 0  # replays that read the caller's input where it lay
 outputs_bound = 0  # replays that wrote the caller's output where it lies
 copy_in_bytes = 0  # bytes copied card to card into graphs' inputs
+copy_out_bytes = 0  # bytes copied card to card out of graphs' unbound outputs
 dispatch_plans_made = 0  # plans ``Batched`` made for a batch on the card (``plan_key``)
 dispatch_plan_hits = 0  # ``Batched`` calls that took a kept plan
 
@@ -630,7 +640,7 @@ def counts() -> dict:
     return {"graphs_captured": captures_made, "graphs_evicted": evictions_made,
             "graph_replays": replays_made, "upload_bytes": upload_bytes,
             "inputs_bound": inputs_bound, "outputs_bound": outputs_bound,
-            "copy_in_bytes": copy_in_bytes}
+            "copy_in_bytes": copy_in_bytes, "copy_out_bytes": copy_out_bytes}
 
 
 def _live() -> list:
@@ -827,6 +837,7 @@ class Graphed:
             if dst is not None:
                 return into
             out = _clone(entry.captured.out)
+            _copied_out(entry.captured.out)
             _read(entry, stream)
             return out
 
@@ -1073,6 +1084,7 @@ class Batched:
                     if at_out is None:
                         with profiling.span("graphs.copy_out"):
                             _put(entry.captured.out, out, g.start)
+                        _copied_out(entry.captured.out)
                         _read(entry, stream)
         return out
 

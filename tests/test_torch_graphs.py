@@ -472,11 +472,12 @@ def test_a_first_and_a_repeat_call_run_one_plan(monkeypatch, case):
     lies on the card and its address meets its graph's alignment (the odd
     answers' second group's rows, 30 bytes in, miss 16), else copied in (a
     host batch) or out (no output site, a tuple), ``done`` recorded after
-    the copy out; the plan counters count batches on the card."""
+    the copy out, whose bytes ``copy_out_bytes`` counts; the plan counters
+    count batches on the card."""
     on_card, fn, align, bound = _PLANNED[case]
     for name in ("captures_made", "evictions_made", "replays_made", "upload_bytes",
-                 "copy_in_bytes", "inputs_bound", "outputs_bound", "dispatch_plans_made",
-                 "dispatch_plan_hits"):
+                 "copy_in_bytes", "copy_out_bytes", "inputs_bound", "outputs_bound",
+                 "dispatch_plans_made", "dispatch_plan_hits"):
         monkeypatch.setattr(graphs, name, 0)
     monkeypatch.setattr(graphs, "_held", collections.OrderedDict())
     monkeypatch.setattr(graphs, "_batch_graphs", collections.OrderedDict())
@@ -521,13 +522,16 @@ def test_a_first_and_a_repeat_call_run_one_plan(monkeypatch, case):
                      graphs._LAUNCH | (graphs._RECORD if bound_out else 0)))
     assert calls1 == calls2 == want
     copied_out = sum(not o for _, o in bound)
+    copied_bytes = sum(sum(t.nbytes for t in torch.utils._pytree.tree_leaves(fn(batch[:n])))
+                       for n, (_, o) in zip((2, 1), bound) if not o)
     assert spans1 == spans2 == collections.Counter({
         "graphs.group": 2, "graphs.replay": 2, "graphs.copy_out": copied_out,
         "graphs.upload": 0 if on_card else 2})
     counters = {"graphs_evicted": 0, "graph_replays": 2,
                 "upload_bytes": 0 if on_card else batch.nbytes,
                 "inputs_bound": sum(i for i, _ in bound),
-                "outputs_bound": sum(o for _, o in bound), "copy_in_bytes": 0}
+                "outputs_bound": sum(o for _, o in bound), "copy_in_bytes": 0,
+                "copy_out_bytes": copied_bytes}
     assert delta1 == {**counters, "graphs_captured": 2, "plans": int(on_card), "hits": 0}
     assert delta2 == {**counters, "graphs_captured": 0, "plans": 0, "hits": int(on_card)}
     assert (records1, records2) == (copied_out, 2 * copied_out)

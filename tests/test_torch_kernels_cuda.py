@@ -1322,7 +1322,8 @@ def test_batched_counts_its_capture_replays_and_uploads(cuda, monkeypatch):
         out = run(imgs, cuda)
     assert _delta(before) == {"graphs_captured": 1, "graphs_evicted": 0, "graph_replays": 2,
                               "upload_bytes": imgs.nbytes, "inputs_bound": 0,
-                              "outputs_bound": 0, "copy_in_bytes": 0}
+                              "outputs_bound": 0, "copy_in_bytes": 0,
+                              "copy_out_bytes": out.nbytes}
     names = collections.Counter(s.name for s in rec.spans)
     assert names == {"graphs.group": 2, "graphs.capture": 1, "graphs.upload": 2,
                      "graphs.replay": 2, "graphs.copy_out": 2}
@@ -1332,7 +1333,7 @@ def test_batched_counts_its_capture_replays_and_uploads(cuda, monkeypatch):
         again = run(on_card, cuda)
     assert _delta(before) == {"graphs_captured": 0, "graphs_evicted": 0, "graph_replays": 2,
                               "upload_bytes": 0, "inputs_bound": 2, "outputs_bound": 2,
-                              "copy_in_bytes": 0}
+                              "copy_in_bytes": 0, "copy_out_bytes": 0}
     names = collections.Counter(s.name for s in rec.spans)
     assert names == {"graphs.group": 2, "graphs.replay": 2}
     want = torch.stack([fused.fused_pipeline_mega(on_card[i]) for i in range(4)])
@@ -1354,7 +1355,7 @@ def test_graph_evictions_are_counted_under_a_span(cuda, monkeypatch):
             g(_image(shape, seed=i).to(cuda))
     assert _delta(before) == {"graphs_captured": 3, "graphs_evicted": 2, "graph_replays": 3,
                               "upload_bytes": 0, "inputs_bound": 3, "outputs_bound": 3,
-                              "copy_in_bytes": 0}
+                              "copy_in_bytes": 0, "copy_out_bytes": 0}
     assert len(g._graphs) == 1
     assert [s.name for s in rec.spans].count("graphs.evict") == 2
 
@@ -1408,7 +1409,7 @@ def test_a_three_stage_reference_task_is_bound_and_plans_k1_once(cuda, monkeypat
         again = run(batch, cuda)
     assert _delta(before) == {"graphs_captured": 0, "graphs_evicted": 0, "graph_replays": 3,
                               "upload_bytes": 0, "inputs_bound": 3, "outputs_bound": 3,
-                              "copy_in_bytes": 0}
+                              "copy_in_bytes": 0, "copy_out_bytes": 0}
     assert rotate.plans_made == plans + 1
     assert collections.Counter(s.name for s in rec.spans) == {
         "graphs.group": 3, "graphs.replay": 3}
@@ -1441,7 +1442,7 @@ def test_bound_groups_equal_the_per_image_forms(cuda, monkeypatch, task):
         out = run(batch, cuda)
     assert _delta(before) == {"graphs_captured": 0, "graphs_evicted": 0, "graph_replays": 3,
                               "upload_bytes": 0, "inputs_bound": 3, "outputs_bound": 3,
-                              "copy_in_bytes": 0}
+                              "copy_in_bytes": 0, "copy_out_bytes": 0}
     names = collections.Counter(s.name for s in rec.spans)
     assert names == {"graphs.group": 3, "graphs.replay": 3}
     assert torch.equal(out, _per_image(single, batch))
@@ -1511,21 +1512,30 @@ def test_bound_call_on_a_second_stream(cuda):
 
 def test_print_ready_binds_its_input_and_keeps_its_copy_out(cuda):
     """print_ready's output is packed by torch ops: its input is bound, its
-    output copied out of the graph; byte-equal to the per-image form."""
+    output copied out of the graph, N x H x ceil(W / 8) bytes in
+    ``copy_out_bytes``; byte-equal to the per-image form. A bound flagship
+    replay copies nothing out."""
     from imageprocessingtools_tpu_torch import serving
     from imageprocessingtools_tpu_torch.utils import graphs, profiling
 
     one, _ = serving._task_fn("print_ready")
     run = graphs.batched(one)
-    x = _image((3, 120, 200, 3), seed=87).to(cuda)
+    x = _image((3, 120, 203, 3), seed=87).to(cuda)  # rows of 26 bytes, 5 bits of padding
     run(x, cuda)  # the capture
     before = graphs.counts()
     with profiling.recording() as rec:
         out = run(x, cuda)
     delta = _delta(before)
     assert delta["inputs_bound"] == 1 and delta["outputs_bound"] == 0
+    assert delta["copy_out_bytes"] == 3 * 120 * 26 == out.nbytes
     assert collections.Counter(s.name for s in rec.spans)["graphs.copy_out"] == 1
     assert torch.equal(out, graphs.eager_batch(one, x))
+    flagship, y = graphs.batched(fused.fused_pipeline_mega), x[:2, :, :200].contiguous()
+    flagship(y, cuda)  # the capture
+    before = graphs.counts()
+    flagship(y, cuda)
+    delta = _delta(before)
+    assert delta["outputs_bound"] == 1 and delta["copy_out_bytes"] == 0
 
 
 def test_graphed_flagship_binds_a_fresh_output(cuda):

@@ -246,3 +246,21 @@ def test_pipeline_stages_and_k1_plans_are_spans_only_inside_a_recording(monkeypa
         out = run()
     assert out.shape == (2, 11, 12)  # 12 x 16 -> 7 x 10 -> 11 x 12
     assert rotate.plans_made == before + 2
+
+
+@pytest.mark.parametrize("form", ["one image", "batch"])
+def test_print_ready_s_dither_and_packing_are_spans(form):
+    """print_ready as serving runs it (``serving._task``: the preset, then
+    P4 packing) records ``dither.mono`` and then ``packing.p4`` inside a
+    recording, once a call, the packing a sibling of the dither."""
+    from imageprocessingtools_tpu_torch import serving
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    one, _ = serving._task_fn("print_ready")
+    images = torch.arange(2 * 9 * 13 * 3, dtype=torch.int32).reshape(2, 9, 13, 3).to(torch.uint8)
+    with recording() as rec:
+        out = one(images[0]) if form == "one image" else graphs.batch_form_of(one)(images)
+    spans = [s for s in rec.spans if s.name in ("dither.mono", "packing.p4")]
+    assert [s.name for s in spans] == ["dither.mono", "packing.p4"]
+    assert spans[0].end <= spans[1].start and spans[0].parent == spans[1].parent
+    assert out.shape[-1] == 2  # 13 bits a row, padded to 2 bytes

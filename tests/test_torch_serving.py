@@ -388,18 +388,20 @@ def test_serve_ok_line_carries_the_graph_counters(tmp_path, capsys, monkeypatch)
     assert {k: ok[k] for k in names} == dict.fromkeys(names, 0)
 
 
-def test_serve_ok_line_carries_the_binding_counters(tmp_path, capsys, monkeypatch):
+@pytest.mark.parametrize("preset", ["edge_detect", "print_ready"])
+def test_serve_ok_line_carries_the_binding_counters(tmp_path, capsys, monkeypatch, preset):
     """``serve_ok`` carries the bindings' counters too: replays that read
     their input and wrote their output where they lie, and bytes copied card
-    to card into a graph; 0 each on the CPU."""
+    to card into and out of a graph; 0 each on the CPU, print_ready's packed
+    output too."""
     monkeypatch.setenv("IPT_STRUCTURED_LOG", "1")
     paths = _write_inputs(tmp_path, [(8, 16)] * 2)
-    assert serve.main(["--preset", "edge_detect", *paths]) == 0
+    assert serve.main(["--preset", preset, *paths]) == 0
     lines = [json.loads(line) for line in capsys.readouterr().err.splitlines()
              if line.startswith("{")]
     (ok,) = [line for line in lines if line["event"] == "serve_ok"]
-    assert {k: ok[k] for k in ("inputs_bound", "outputs_bound", "copy_in_bytes")} == dict.fromkeys(
-        ("inputs_bound", "outputs_bound", "copy_in_bytes"), 0)
+    names = ("inputs_bound", "outputs_bound", "copy_in_bytes", "copy_out_bytes")
+    assert {k: ok[k] for k in names} == dict.fromkeys(names, 0)
 
 
 def test_serve_ok_line_carries_k1_s_plans_made(tmp_path, capsys, monkeypatch):
