@@ -27,7 +27,11 @@ in order, printing one line per phase:
    one, constant images among noise, a view 5 bytes into its buffer), K9
    also at 4K x 4 to 1920 and 256 and at 1080p x 2 to 3840, RGB and gray,
    K8 on uint8[4, 2160, 3840, 3], with ms per call at 4K x 4 beside the
-   single-image kernel on each image and the least time;
+   single-image kernel on each image and the least time; then K10,
+   print_ready's dither and P4 packing in one pass, against its plain
+   version (today's ten torch launches) at 4K x 10, 3 x 120 x 203, one
+   byte into its buffer and on every byte value at every Bayer position,
+   with ms per call and the card's time of both beside the least time;
 4. the CLI (``imageprocessingtools_tpu_torch.cli.main``) over four 4K P6
    files, each run split into decode, resize plan and table upload, upload
    and device, download, and encode and write (``-w1920`` twice: its first
@@ -334,6 +338,53 @@ BATCH_SHAPES = [(BATCH_N, H4K, W4K), (3, 37, 53), (7, 5, 3840), (2, 1081, 1927),
                 (1, 29, 130)]
 
 
+# K10's cases: a group of ten 4K images, rows of 26 bytes with 5 pad bits, and
+# H not a multiple of 4.
+DITHER_N = 10
+
+
+def phase_3_dither_pack(torch, dev, card, check) -> tuple[str, dict]:
+    """K10 (print_ready's Bayer dither and P4 packing in one pass) against its
+    plain version, today's ten torch launches, on gray uint8[10, 2160, 3840],
+    3 x 120 x 203 (rows of 26 bytes, 5 pad bits), a view one byte into its
+    buffer (the byte path) and a frame of every byte value at every Bayer
+    position (1024 x 16, and 13 wide). Returns the line to print and the
+    kernel's JSON entry but its launches and error: ms per call at 4K x 10
+    (K10 / plain), the card's ms of each from a CUDA graph replay, and the
+    least time (the gray read once, the rows written once)."""
+    from imageprocessingtools_tpu_torch.kernels import core
+    from imageprocessingtools_tpu_torch.utils import graphs
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(27)
+    group = torch.randint(0, 256, (DITHER_N, H4K, W4K), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    small = torch.randint(0, 256, (3, 120, 203), generator=gen, device=dev, dtype=torch.uint8)
+    every = (torch.arange(1024, device=dev) // 4).to(torch.uint8)[None, :, None].expand(
+        1, 1024, 16).contiguous()
+    cases = {f"{DITHER_N}x{H4K}x{W4K}": group, "3x120x203": small,
+             f"2x{H4K}x{W4K} at byte 1": at_byte(torch, group[:2], 1),
+             "3x120x203 at byte 1": at_byte(torch, small, 1),
+             "every value 1x1024x16": every, "every value 1x1024x13": every[..., :13].contiguous()}
+    for what, x in cases.items():
+        check("dither_pack_batch", core.dither_pack_batch(x), core.dither_pack_batch_plain(x), what)
+    calls = (lambda: core.dither_pack_batch(group), lambda: core.dither_pack_batch_plain(group))
+    ms = tuple(median_ms(torch, fn) for fn in calls)
+    device_ms = tuple(median_ms(torch, graphs.capture(lambda _, fn=fn: fn(), group).replay)
+                      for fn in calls)
+    least, by = bound(DITHER_N * H4K * (W4K + W4K // 8), 0)
+    line = (f"phase 3 K10: dither_pack_batch byte-equal to its plain version (the ten torch "
+            f"launches it replaces) on {', '.join(cases)}; on uint8[{DITHER_N}, {H4K}, {W4K}] "
+            f"on {card}: ms per call (K10 / plain) {ms[0]:.4f} / {ms[1]:.4f}, the card's ms "
+            f"(each call a CUDA graph, replayed) {device_ms[0]:.4f} / {device_ms[1]:.4f}; "
+            f"least {least:.4f} ms ({by}): K10 at {100 * least / device_ms[0]:.1f}%")
+    entry = {"name": "dither_pack_batch", "route": "cuda",
+             "source": f"{PKG}/csrc/dither_pack.cu", "replaces": None, "batch": DITHER_N,
+             "bound_ms": least, "bound_by": by, "library_ms": None, "ms": ms[0],
+             "plain_ms": ms[1], "device_ms": device_ms[0], "plain_device_ms": device_ms[1]}
+    return line, entry
+
+
 def phase_3_batch(torch, dev, card, check) -> tuple[str, dict, dict]:
     """Each batched kernel (K2/K6, K4, K3, K7, K1 and K9 over uint8[N, ...]
     in one launch) against its plain batch version and against its
@@ -522,8 +573,10 @@ FORM_LAUNCHES = {
     "enhance": ({"fused_elementwise": 1, "histogram_batch": 1, "lut_apply_batch": 1,
                  "sharpen_batch": 1},
                 {"fused_elementwise": 1, "histogram": 1, "lut_apply": 1, "sharpen": 1}),
-    "print_ready": ({"fused_elementwise": 1, "histogram_batch": 1, "lut_apply_batch": 1},
-                    {"fused_elementwise": 1, "histogram": 1, "lut_apply": 1}),
+    "print_ready": ({"fused_elementwise": 1, "histogram_batch": 1, "lut_apply_batch": 1,
+                     "dither_pack_batch": 1},
+                    {"fused_elementwise": 1, "histogram": 1, "lut_apply": 1,
+                     "dither_pack_batch": 1}),
     "thumbnail": ({"resize_pass_batch": 2}, {"resize_pass": 2}),
     "-w1920": ({"resize_pass_batch": 2}, {"resize_pass": 2}),
     "-r30": ({"rotate_bicubic_batch": 1}, {"rotate_bicubic": 1}),
@@ -827,7 +880,8 @@ def phase_7(torch, dev, card, drive, path_counts, serve_run, serve_walls, files,
         {"gray_gauss": n_good, "sobel": n_good, "sharpen": n_good,
          "fused_elementwise": (2 * n_good + 8) + (4 + 1), "histogram": 2 * n_good,
          "lut_apply": 2 * n_good, "gray_gauss_batch": 2, "sobel_batch": 2, "sharpen_batch": 2,
-         "histogram_batch": 4, "lut_apply_batch": 4, "rotate": 8, "rotate_batch": 1,
+         "histogram_batch": 4, "lut_apply_batch": 4, "dither_pack_batch": 2, "rotate": 8,
+         "rotate_batch": 1,
          "resize_pass": 2 * n_good + 2 * 8, "resize_pass_batch": 2 * 2 + 2},
         moved_serving)
     captures = graphs.captures_made
@@ -1060,6 +1114,7 @@ def main() -> int:
            ("gray_gauss_hist_batch", "gray_gauss_batch", "histogram_batch", "lut_apply_batch")
            + STENCIL3_BATCH},
         "rotate_batch": rotate.rotate_bicubic_batch, "resize_pass_batch": k9.resize_pass_batch,
+        "dither_pack_batch": core.dither_pack_batch,
     }
     plains = {
         "histogram": core.histogram_plain, "gaussian_blur": core.gaussian_blur_plain,
@@ -1291,6 +1346,8 @@ def main() -> int:
           f"{library['resize_pass']:.4f} (max |dense - K9| {dense_err})")
     batch_line, batch_times, batch_bounds = phase_3_batch(torch, dev, card, check)
     print(batch_line)
+    dither_line, dither_entry = phase_3_dither_pack(torch, dev, card, check)
+    print(dither_line)
 
     tmp = tempfile.mkdtemp(prefix="ipt_chip_smoke_")
     trace_dir = os.path.join(tmp, "traces")
@@ -1541,7 +1598,7 @@ def main() -> int:
         # Per group of images of one shape (the 4K files and the 1080p ones:
         # two), the presets' batch forms: edge_detect one K6 and one Sobel,
         # enhance one K8, one K4, one K3 and one sharpen, print_ready one K8,
-        # one K4 and one K3, thumbnail two K9, each over the group; the
+        # one K4, one K3 and one K10, thumbnail two K9, each over the group; the
         # fan-out's (the 4K files: one group) one K8 (-gray), two K9 (-w1920)
         # and one K1.
         n_good = len(files)
@@ -1550,7 +1607,7 @@ def main() -> int:
             "phase 6 serving",
             {"gray_gauss_batch": 2, "sobel_batch": 2, "sharpen_batch": 2,
              "fused_elementwise": 4 + 1, "histogram_batch": 4, "lut_apply_batch": 4,
-             "rotate_batch": 1, "resize_pass_batch": 2 * 2 + 2},
+             "dither_pack_batch": 2, "rotate_batch": 1, "resize_pass_batch": 2 * 2 + 2},
             serving_runs)
         per_image = {name: path_counts["serving"][name] for name in
                      ("gray_gauss", "sobel", "sharpen", "histogram", "lut_apply", "rotate",
@@ -1561,7 +1618,8 @@ def main() -> int:
         # replay (one group; K9 twice), none of them per image.
         presets_one = serving._task_fn(tuple(PRESETS.split(",")))[0]
         per_group = {"gray_gauss_batch": 1, "sobel_batch": 1, "sharpen_batch": 1,
-                     "histogram_batch": 2, "lut_apply_batch": 2, "resize_pass_batch": 2}
+                     "histogram_batch": 2, "lut_apply_batch": 2, "dither_pack_batch": 1,
+                     "resize_pass_batch": 2}
         preset_graphs = [e for k, e in graphs._batch_graphs.items() if k[0] is presets_one]
         if len(preset_graphs) != 2:
             fail(f"serve --preset kept {len(preset_graphs)} graphs, not one per shape (2)")
@@ -1834,6 +1892,9 @@ def main() -> int:
                 batch_times[key])}, **{"4k_to_256_bound_ms": batch_bounds[key][0],
                                        "4k_to_256_bound_by": batch_bounds[key][1]})
         entries.append(entry)
+    # K10, the port's own: no Pallas kernel, no single PyTorch call.
+    entries.append({**dither_entry, "launches": launches["dither_pack_batch"],
+                    "max_abs_err": errs["dither_pack_batch"]})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -76,7 +76,7 @@ def image_channels(name: str, img: torch.Tensor, ndim: int) -> int:
     return c
 
 
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_P, _I, _U, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_double
 # C entry points: each returns the launch's cudaGetLastError() as an int.
 _SIGNATURES = {
     # src, src_row0, src_rows, dst, H, W, C, newH, newW, cos, sin, xc, yc, xoff, yoff, plan,
@@ -100,6 +100,9 @@ _SIGNATURES = {
     "ipt_lut_apply": [_P, _P, _P, ctypes.c_longlong, _I, _P],
     # values, out, luts, N, n per image, device, stream
     "ipt_lut_apply_batch": [_P, _P, _P, _I, ctypes.c_longlong, _I, _P],
+    # gray, out, N, H, W, the four words of the Bayer thresholds (byte x % 4 of word y % 4),
+    # device, stream
+    "ipt_dither_pack_batch": [_P, _P, _I, _I, _I, _U, _U, _U, _U, _I, _P],
     # values, hist, n, device, stream, arrival words (or None for the stream's own)
     "ipt_histogram": [_P, _P, ctypes.c_longlong, _I, _P, _P],
     # values, hist, N, n per image, device, stream, N times the arrival words

@@ -24,7 +24,11 @@ Counterpart of ``imageprocessingtools_tpu/kernels/pallas_core.py``:
 - K8 ``fused_elementwise`` (``csrc/elementwise.cu``) replaces
   ``fused_elementwise_pallas``: uint8[..., 3] -> gray uint8[...] through a
   static chain of invert, brightness, contrast and threshold. With the
-  empty chain it is ``ops.color.grayscale`` on a CUDA tensor.
+  empty chain it is ``ops.color.grayscale`` on a CUDA tensor;
+- K10 ``dither_pack_batch`` (``csrc/dither_pack.cu``) replaces no Pallas
+  kernel (the JAX package dithers and packs in jnp ops): print_ready's Bayer
+  dither of an equalized gray uint8[N, H, W] and its MSB-first P4 packing
+  in one pass, -> uint8[N, H, ceil(W / 8)].
 
 K2, K6, K4, K3 and K7 also take a batch axis, the counterpart of
 ``jax.vmap`` over their Pallas kernels (whose batching rule adds a leading
@@ -34,8 +38,8 @@ grid axis): ``gray_gauss_hist_batch``, ``gray_gauss_batch``,
 leading N in one launch over the whole batch, each image on its own, as
 the single-image wrapper maps it. Their plain versions (``*_batch_plain``)
 are the single-image plain versions image by image, stacked. A batched
-launch takes at most ``MAX_BATCH`` images (K3, K4 and K7 put the image on a
-grid axis); K2's and K6's limit is their tile count over the batch.
+launch takes at most ``MAX_BATCH`` images (K3, K4, K7 and K10 put the image
+on a grid axis); K2's and K6's limit is their tile count over the batch.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor. Offsets into an image are 64-bit in every kernel,
@@ -59,10 +63,14 @@ import functools
 import torch
 
 from imageprocessingtools_tpu_torch.kernels import _build
+from imageprocessingtools_tpu_torch.ops import _exact
+from imageprocessingtools_tpu_torch.ops.dither import mono_dither
+from imageprocessingtools_tpu_torch.ops.packing import pack_bits_device
 from imageprocessingtools_tpu_torch.utils import graphs
+from imageprocessingtools_tpu_torch.utils.profiling import span
 
 _MAX_GRID_Y = 65535 * 32  # image rows per K7 launch: grid.y tiles of 32 rows
-MAX_BATCH = 65535  # images per batched K3, K4 or K7 launch: a grid axis
+MAX_BATCH = 65535  # images per batched K3, K4, K7 or K10 launch: a grid axis
 _TILE_W, _TILE_H = 256, 16  # K2, K5 and K6's output tiles
 
 _GAUSS_TAPS = (1, 4, 6, 4, 1)
@@ -237,6 +245,13 @@ def lut_apply_batch_plain(values: torch.Tensor, luts: torch.Tensor) -> torch.Ten
                     values.shape[1:], torch.uint8, values.device)
 
 
+def dither_pack_batch_plain(gray: torch.Tensor) -> torch.Tensor:
+    """Plain torch form of K10: print_ready's dither of uint8[N, H, W] (the
+    gray as three equal channels, as the preset dithers it), then its P4
+    packing -> uint8[N, H, ceil(W / 8)]."""
+    return pack_bits_device(mono_dither(gray[..., None].expand(gray.shape + (3,))))
+
+
 def _stencil_batch_plain(plain, imgs: torch.Tensor) -> torch.Tensor:
     return _stacked([plain(x) for x in imgs], imgs.shape[1:], torch.uint8, imgs.device)
 
@@ -276,7 +291,7 @@ def _tiles_limit(h: int, w: int, n: int = 1) -> str | None:
 
 
 def batch_limit(n: int) -> str | None:
-    """Why a batched K3, K4 or K7 launch cannot take ``n`` images, or None:
+    """Why a batched K3, K4, K7 or K10 launch cannot take ``n`` images, or None:
     the image is a grid axis of at most ``MAX_BATCH``."""
     return f"{n} images exceed the grid's {MAX_BATCH}" if n > MAX_BATCH else None
 
@@ -300,6 +315,13 @@ def stencil3_limit(h: int, w: int, n: int = 1) -> str | None:
     image and ``MAX_BATCH`` images."""
     if h > _MAX_GRID_Y:
         return f"{h} rows exceed the grid's {_MAX_GRID_Y}"
+    return _build.int_limit(h, w) or batch_limit(n)
+
+
+def dither_pack_limit(h: int, w: int, n: int = 1) -> str | None:
+    """Why K10 cannot take ``n`` images of uint8[h, w] in one launch, or
+    None: its C entry takes H and W as ints, and the image is a grid axis of
+    at most ``MAX_BATCH``."""
     return _build.int_limit(h, w) or batch_limit(n)
 
 
@@ -475,6 +497,33 @@ def lut_apply_batch(values: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@functools.cache
+def _bayer_words() -> tuple:
+    """K10's thresholds: word k holds ``BAYER_THRESHOLD_INT[k, x]`` in its byte x."""
+    return tuple(sum(int(t) << 8 * x for x, t in enumerate(row))
+                 for row in _exact.BAYER_THRESHOLD_INT)
+
+
+def dither_pack_batch(gray: torch.Tensor) -> torch.Tensor:
+    """print_ready's dither and P4 packing of each image of an equalized
+    gray uint8[N, H, W] -> uint8[N, H, ceil(W / 8)], MSB-first, pad bits 0:
+    K10 in one launch over the batch on CUDA (it writes every output byte),
+    the plain version on CPU. The span ``dither.p4``."""
+    with span("dither.p4"):
+        if gray.device.type == "cpu":
+            return dither_pack_batch_plain(gray)
+        _check_gray("dither_pack_batch", gray, dither_pack_limit, batch=True)
+        n, h, w = gray.shape
+        out = torch.empty((n, h, -(-w // 8)), dtype=torch.uint8, device=gray.device)
+        if out.numel():
+            status = _build.library().ipt_dither_pack_batch(
+                gray.data_ptr(), out.data_ptr(), n, h, w, *_bayer_words(), gray.device.index,
+                _stream(gray))
+            _build.check(status, "ipt_dither_pack_batch")
+            dither_pack_batch.launches += 1
+        return out
+
+
 def _arrival_words(n: int, device: torch.device) -> torch.Tensor:
     """Zeroed arrival words for ``n`` images of a K4 launch, made by the
     caller: under capture from the graph's pool, zeroed by a node of the graph
@@ -592,7 +641,7 @@ def sobel(img: torch.Tensor) -> torch.Tensor:
 
 
 BATCH_WRAPPERS = (gray_gauss_hist_batch, gray_gauss_batch, lut_apply_batch, histogram_batch,
-                  box_blur_batch, sharpen_batch, sobel_batch)
+                  box_blur_batch, sharpen_batch, sobel_batch, dither_pack_batch)
 
 for _wrapper in (gray_gauss_hist, gray_gauss, fused_elementwise, lut_apply, histogram,
                  gaussian_blur, box_blur, sharpen, sobel) + BATCH_WRAPPERS:

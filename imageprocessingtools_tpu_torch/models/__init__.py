@@ -10,6 +10,7 @@ callable on one image, run on the image's device.
 from imageprocessingtools_tpu_torch.models.presets import (  # noqa: F401
     PRESET_FILE_TYPES,
     PRESET_OUTPUT_SHAPES,
+    PRESET_P4_FORMS,
     PRESETS,
     edge_detect,
     enhance,

@@ -13,6 +13,8 @@ the preset: uint8[N, H, W, 3] -> uint8[N, ...], each image as the preset
 gives it, each kernel launched once over the batch (K6 and K7 Sobel; K8,
 K4, K3 and K7 sharpen; K8, K4 and K3, then the dither; K9 twice for
 ``thumbnail``; ``pipeline.run_pipeline_batch`` for a reference config).
+``print_ready_p4`` is print_ready with its P4 packing, the dither and the
+packing in one launch of K10 (``PRESET_P4_FORMS``: serving's form of it).
 """
 
 from __future__ import annotations
@@ -88,6 +90,21 @@ def print_ready_batch(imgs: torch.Tensor) -> torch.Tensor:
     return ops.mono_dither(eq[..., None].expand(eq.shape + (3,)))
 
 
+def print_ready_p4(img: torch.Tensor) -> torch.Tensor:
+    """``print_ready``'s P4 rows of one image, uint8[H, ceil(W / 8)], as
+    ``pack_bits_device(print_ready(img))`` gives them: the dither and the
+    packing in one pass (K10 on a CUDA tensor)."""
+    eq = ops.equalize_histogram(ops.grayscale(img))
+    return core.dither_pack_batch(eq[None])[0]
+
+
+@batch_form(print_ready_p4)
+def print_ready_p4_batch(imgs: torch.Tensor) -> torch.Tensor:
+    """``print_ready_p4`` of each image of uint8[N, H, W, 3]: K8, K4 and K3,
+    then K10, each once over the batch."""
+    return core.dither_pack_batch(equalize_histogram_batch(ops.grayscale(imgs)))
+
+
 PRESETS = {
     "edge_detect": edge_detect,
     "enhance": enhance,
@@ -119,6 +136,15 @@ def _gray_shape(h: int, w: int) -> tuple:
 def _thumbnail_shape(h: int, w: int) -> tuple:
     plan = _exact.plan_resize(h, w, THUMBNAIL_WIDTH)  # raises B7/B9 like the resize
     return (plan.new_height, plan.new_width, 3)
+
+
+# P4 presets whose rows one pass dithers and packs: serving runs this form
+# in place of the preset and its P4 packing. The reference ``-mono`` path
+# (flips after the dither) and the band pipelines (a dither per band) keep
+# the dither and the packing apart.
+PRESET_P4_FORMS = {
+    "print_ready": print_ready_p4,
+}
 
 
 # Output shape per preset for one (h, w, 3) input, before P4 packing. The

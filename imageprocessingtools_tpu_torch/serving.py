@@ -47,6 +47,7 @@ from imageprocessingtools_tpu_torch.codec import native, ppm
 from imageprocessingtools_tpu_torch.codec.ppm import FILETYPE_PBM, FILETYPE_PGM
 from imageprocessingtools_tpu_torch.models import (
     PRESET_FILE_TYPES,
+    PRESET_P4_FORMS,
     get_preset,
     preset_output_shape,
     reference_pipeline,
@@ -88,10 +89,13 @@ def _pipeline_fn(config: PipelineConfig):
 @functools.lru_cache(maxsize=64)
 def _preset_pipeline_fn(name: str):
     """(single-image fn, file_type) for a models/ preset name. PBM presets
-    pack bits on the device like the reference mono path. The fn carries the
-    preset's batch form. Cached, as ``_pipeline_fn`` is."""
+    pack bits on the device like the reference mono path, in one pass with
+    the dither where the preset has such a form (``PRESET_P4_FORMS``). The fn
+    carries the preset's batch form. Cached, as ``_pipeline_fn`` is."""
     fn = get_preset(name)  # raises ValueError for unknown names
     file_type = PRESET_FILE_TYPES[name]
+    if name in PRESET_P4_FORMS:
+        return _task(PRESET_P4_FORMS[name], False, name), file_type
     return _task(fn, file_type == FILETYPE_PBM, name), file_type
 
 

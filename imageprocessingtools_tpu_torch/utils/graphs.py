@@ -75,8 +75,9 @@ notes, and the storages that torch ops took while it ran. From these,
 place of the graph's own: the input where only noted port kernels read it
 (no torch op, no memcpy node, no output inside it); the output where it is
 one tensor, its storage whole, that one noted argument holds from its first
-byte and no torch op takes (K3's batch, K9's H pass, K8 after K1; not a
-tuple, a per-image list or print_ready's packed bits). Notes taken before
+byte and no torch op takes (K3's batch, K9's H pass, K8 after K1, K10's
+packed bits; not a tuple, a per-image list or bits packed by torch ops, as
+the reference ``-mono`` path's are). Notes taken before
 the capture made the output's storage do not count: the graph's pool may
 give the output an earlier stage's freed buffer, which those launches wrote,
 and nothing reads it after them. ``bindable`` decides: a buffer

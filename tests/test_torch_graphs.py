@@ -157,7 +157,7 @@ def test_counted_wrappers_are_every_launch_counter():
                 for fn in vars(importlib.import_module(
                     f"imageprocessingtools_tpu_torch.kernels.{name}")).values()
                 if callable(fn) and hasattr(fn, "launches")}
-    assert len(counters) == 20  # 11 single-image wrappers and 9 batched ones
+    assert len(counters) == 21  # 11 single-image wrappers and 10 batched ones
     assert set(kernels.counted_wrappers()) == counters
 
 
@@ -543,7 +543,7 @@ def test_every_kernel_launch_is_noted():
     a kernel launched with ``<<<...>>>`` would read a graph's input unseen."""
     csrc = Path(graphs.__file__).resolve().parent.parent / "csrc"
     sources = sorted(csrc.glob("*.cu"))
-    assert len(sources) == 8
+    assert len(sources) == 9
     for src in sources:
         text = src.read_text()
         assert "<<<" not in text, src.name

@@ -889,6 +889,52 @@ def test_lut_apply_batch_kernel_on_an_output_off_the_inputs_alignment(cuda):
     assert torch.equal(out, core.lut_apply_batch_plain(values, luts))
 
 
+def _every_value(w):
+    """uint8[1, 1024, w]: each byte value on four rows and w columns, so at
+    every position of the Bayer matrix for w >= 4."""
+    return (torch.arange(1024) // 4).to(torch.uint8)[None, :, None].expand(1, 1024, w).contiguous()
+
+
+# K10's cases: (host gray, bytes into its buffer on the card). 4K x 10 (the
+# benchmark's group), rows of 26 bytes with 5 pad bits, H not a multiple of
+# 4, W % 16 == 8 and rows shorter than a byte (the byte path), views one byte
+# off alignment, and every byte value at every Bayer position.
+_DITHER_CASES = {
+    "10x2160x3840": (lambda: _image((10, 2160, 3840), seed=100), 0),
+    "3x120x203": (lambda: _image((3, 120, 203), seed=101), 0),
+    "3x120x203 at byte 1": (lambda: _image((3, 120, 203), seed=101), 1),
+    "2x2160x3840 at byte 1": (lambda: _image((2, 2160, 3840), seed=102), 1),
+    "2x5x16": (lambda: _image((2, 5, 16), seed=103), 0),
+    "4x7x24": (lambda: _image((4, 7, 24), seed=104), 0),
+    "3x3x5": (lambda: _image((3, 3, 5), seed=105), 0),
+    "1x1x1": (lambda: _image((1, 1, 1), seed=106), 0),
+    "every value 1x1024x16": (lambda: _every_value(16), 0),
+    "every value 1x1024x13 at byte 1": (lambda: _every_value(13), 1),
+}
+
+
+@pytest.mark.parametrize("case", list(_DITHER_CASES))
+def test_dither_pack_kernel_matches_plain(cuda, case):
+    """K10 gives its plain version's bytes (the dither, then the packing, in
+    torch ops) in one launch, with every pad bit 0."""
+    host, offset = _DITHER_CASES[case]
+    gray = _on_card(host(), cuda, offset)
+    before = core.dither_pack_batch.launches
+    out = core.dither_pack_batch(gray)
+    torch.cuda.synchronize()
+    assert core.dither_pack_batch.launches == before + 1
+    n, h, w = gray.shape
+    assert out.shape == (n, h, -(-w // 8)) and out.dtype == torch.uint8
+    assert torch.equal(out, core.dither_pack_batch_plain(gray))
+
+
+def test_dither_pack_kernel_refuses_what_it_does_not_take(cuda):
+    gray = _image((2, 8, 32), seed=107).to(cuda)
+    for bad in (gray.transpose(1, 2), gray.to(torch.int16), gray[0]):
+        with pytest.raises(TypeError, match="dither_pack_batch"):
+            core.dither_pack_batch(bad)
+
+
 _STENCIL_BATCHES = [(core.box_blur_batch, core.box_blur), (core.sharpen_batch, core.sharpen),
                     (core.sobel_batch, core.sobel)]
 
@@ -1006,7 +1052,8 @@ def _batch_form_task(label):
     ("edge_detect", {"gray_gauss_batch": 1, "sobel_batch": 1}),
     ("enhance", {"fused_elementwise": 1, "histogram_batch": 1, "lut_apply_batch": 1,
                  "sharpen_batch": 1}),
-    ("print_ready", {"fused_elementwise": 1, "histogram_batch": 1, "lut_apply_batch": 1}),
+    ("print_ready", {"fused_elementwise": 1, "histogram_batch": 1, "lut_apply_batch": 1,
+                     "dither_pack_batch": 1}),
     ("thumbnail", {"resize_pass_batch": 2}),
     ("-w480 -r30 -gray", {"resize_pass_batch": 2, "rotate_bicubic_batch": 1,
                           "fused_elementwise": 1}),
@@ -1510,11 +1557,11 @@ def test_bound_call_on_a_second_stream(cuda):
     assert torch.equal(out_y, _per_image(fused.fused_pipeline_mega, y))
 
 
-def test_print_ready_binds_its_input_and_keeps_its_copy_out(cuda):
-    """print_ready's output is packed by torch ops: its input is bound, its
-    output copied out of the graph, N x H x ceil(W / 8) bytes in
-    ``copy_out_bytes``; byte-equal to the per-image form. A bound flagship
-    replay copies nothing out."""
+def test_print_ready_binds_its_input_and_its_output(cuda):
+    """print_ready's packed rows are K10's output, written whole by one
+    launch: a replay from the card reads its input and writes its output
+    where they lie, nothing copied out of the graph; byte-equal to the
+    per-image form."""
     from imageprocessingtools_tpu_torch import serving
     from imageprocessingtools_tpu_torch.utils import graphs, profiling
 
@@ -1526,16 +1573,10 @@ def test_print_ready_binds_its_input_and_keeps_its_copy_out(cuda):
     with profiling.recording() as rec:
         out = run(x, cuda)
     delta = _delta(before)
-    assert delta["inputs_bound"] == 1 and delta["outputs_bound"] == 0
-    assert delta["copy_out_bytes"] == 3 * 120 * 26 == out.nbytes
-    assert collections.Counter(s.name for s in rec.spans)["graphs.copy_out"] == 1
+    assert delta["inputs_bound"] == 1 and delta["outputs_bound"] == 1
+    assert delta["copy_out_bytes"] == 0 and out.shape == (3, 120, 26)
+    assert collections.Counter(s.name for s in rec.spans)["graphs.copy_out"] == 0
     assert torch.equal(out, graphs.eager_batch(one, x))
-    flagship, y = graphs.batched(fused.fused_pipeline_mega), x[:2, :, :200].contiguous()
-    flagship(y, cuda)  # the capture
-    before = graphs.counts()
-    flagship(y, cuda)
-    delta = _delta(before)
-    assert delta["outputs_bound"] == 1 and delta["copy_out_bytes"] == 0
 
 
 def test_graphed_flagship_binds_a_fresh_output(cuda):

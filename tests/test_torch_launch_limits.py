@@ -5,7 +5,8 @@ Every kernel computes its offsets into an image in 64 bits, so an image of
 27000, 3] and uint8[46341, 46341]. What stays is where a C int or a grid
 ends: rows and a row's bytes are C ints (``_build.int_limit``), K2, K5 and
 K6 count tiles in an int, K7 and K1 take at most ``_MAX_GRID_Y`` rows in a
-2-D grid, K9's grid is one-dimensional. K2's histogram keeps the JAX
+2-D grid, K9's grid is one-dimensional, K10 takes at most 65535 images (a
+grid axis) and walks any number of rows. K2's histogram keeps the JAX
 package's whole-image limit of 2^31 elements (a ValueError, as the plain
 version's). The card test ``test_torch_kernels_cuda.py`` and
 ``chip_smoke.py`` phase 8 run the 2^31 images on the card.
@@ -46,6 +47,14 @@ CASES = {
     "stencil3 grid rows + 1": (core.stencil3_limit, (GRID + 1, 1000), True),
     "stencil3 longest row": (core.stencil3_limit, (32, ROW), False),
     "stencil3 row past it": (core.stencil3_limit, (32, ROW + 1), True),
+    # K10: (h, w, images) of uint8[N, h, w]
+    "dither_pack 46341x46341 (2^31 bytes and more)": (core.dither_pack_limit, (46341, 46341), False),
+    "dither_pack rows 2^31 - 1": (core.dither_pack_limit, (INT_MAX, 1), False),
+    "dither_pack rows 2^31": (core.dither_pack_limit, (2**31, 1), True),
+    "dither_pack longest row": (core.dither_pack_limit, (4, ROW), False),
+    "dither_pack row past it": (core.dither_pack_limit, (4, ROW + 1), True),
+    "dither_pack images of the grid": (core.dither_pack_limit, (2160, 3840, 65535), False),
+    "dither_pack images past it": (core.dither_pack_limit, (2160, 3840, 65536), True),
     # K1: (height, width, c, new_h, new_w, output rows of the launch)
     "rotate 27000x27000x3 at 30 degrees": (
         rotate.launch_limit, (27000, 27000, 3, 36883, 36883, 36883), False),
